@@ -34,6 +34,12 @@ def pytest_configure(config):
         "tier-1 excludes them with -m 'not slow', the owning CI job runs "
         "them (multichip-e2e, disagg-serving-e2e)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch/CUDA port's kernels); "
+        "skips with a reason elsewhere, runs on the card with "
+        "`python -m pytest tests/test_torch_*.py -m cuda`",
+    )
 
 
 @pytest.fixture()
