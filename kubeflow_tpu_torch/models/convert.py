@@ -12,7 +12,12 @@ port's state dict (f32 CPU tensors; move them with ``.to(device)``):
 - ``block_i/mlp/{up_proj,down_proj}/kernel [in, out]`` ->
   ``Linear.weight [out, in]``;
 - ``{block_i/ln_attn, block_i/ln_mlp, ln_final}/{scale, bias}`` -> the
-  LayerNorms' ``scale``/``bias``.
+  LayerNorms' ``scale``/``bias``;
+- the ``scan_blocks`` layout, ``blocks/...`` with a leading layer axis
+  (``stack_block_params``), is unstacked into ``block_0 .. block_{n-1}``.
+
+A flax gradient tree has the parameter tree's structure, so the same call
+carries ``jax.grad``'s output into the port's names and layouts.
 
 Any flax leaf left unused, or any port parameter left unfilled, raises.
 """
@@ -35,6 +40,18 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
         yield prefix, np.asarray(tree)
 
 
+def _unstacked(tree: Any) -> Iterator[Tuple[str, np.ndarray]]:
+    """The leaves of ``tree`` with each ``blocks/<rest>`` leaf [n, ...]
+    split into ``block_<i>/<rest>`` leaves."""
+    for path, leaf in _leaves(tree):
+        head, _, rest = path.partition("/")
+        if head == "blocks" and rest:
+            for i in range(leaf.shape[0]):
+                yield f"block_{i}/{rest}", leaf[i]
+        else:
+            yield path, leaf
+
+
 def _target(path: str, leaf: np.ndarray, cfg: GptConfig) -> Tuple[str, np.ndarray]:
     """(port parameter name, value in the port's layout) of one flax leaf."""
     parts = path.split("/")
@@ -55,11 +72,13 @@ def _target(path: str, leaf: np.ndarray, cfg: GptConfig) -> Tuple[str, np.ndarra
 
 
 def params_from_flax(tree: Dict[str, Any], cfg: GptConfig) -> Params:
-    expected = {k: v.shape for k, v in
-                GptLM(cfg, decode=True, device="meta").state_dict().items()}
+    expected = {k: v.shape for k, v in GptLM(cfg, device="meta").state_dict().items()}
     out: Params = {}
-    for path, leaf in _leaves(tree):
+    for path, leaf in _unstacked(tree):
         name, value = _target(path, leaf, cfg)
+        if name in out:
+            raise ValueError(f"flax leaf {path!r} fills {name!r} twice (both "
+                             "block_i/ and blocks/ layouts given?)")
         if name not in expected:
             raise ValueError(f"flax leaf {path!r} maps to {name!r}, which "
                              f"{cfg} does not have")

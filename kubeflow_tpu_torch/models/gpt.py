@@ -1,7 +1,18 @@
-"""GPT-style decoder-only causal LM — the decode (serving) half.
+"""GPT-style decoder-only causal LM: the training forward and the decode
+(serving) paths.
 
-The port of ``kubeflow_tpu/models/gpt.py`` for what serving runs:
-``GptLM(decode=True)`` in its three cache layouts —
+The port of ``kubeflow_tpu/models/gpt.py``. Training runs
+``GptLM(decode=False)``: rope on q/k at positions ``arange(L)``, attention
+through an injectable ``attention_fn`` (default
+:func:`causal_flash_attention`, the CUDA flash-attention kernels), optional
+per-block ``remat`` (``torch.utils.checkpoint``), and the losses
+:func:`causal_lm_loss` and :func:`blockwise_causal_lm_loss`. ``scan_blocks``
+is accepted on that path: PyTorch has no ``nn.scan`` to trace, so the
+Python loop over the blocks is the scan, and the stacked ``blocks/``
+parameter layout is unstacked by
+:func:`kubeflow_tpu_torch.models.convert.params_from_flax`.
+
+Serving runs ``GptLM(decode=True)`` in three cache layouts —
 
 - scalar-cursor prefill/decode (one shared cursor; ``generate`` and the
   engine's group prefill), cache ``{"k", "v": [b, max_seq, H, D],
@@ -22,29 +33,25 @@ residual stream, LayerNorm in f32 (flax's epsilon 1e-6 and fast variance),
 bf16 dense layers from f32 parameters, tanh-approximated GELU, rotate-half
 rope with f32 angles, f32 attention scores and softmax with a -1e30 mask,
 and the tied LM head in f32.
-
-The training forward (``decode=False``) runs the flash-attention kernel in
-the JAX package; it arrives with that kernel's port, and until then this
-module raises rather than substituting a plain attention for it.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..ops.flash_attention import NEG_BIG, flash_attention, flash_attention_plain
 
 Cache = Dict[str, Dict[str, Dict[str, torch.Tensor]]]
 Params = Dict[str, torch.Tensor]
-
-_TRAINING_SLICE = ("the GPT training slice (ROADMAP.md queue A, item 2: "
-                   "flash attention forward/backward)")
+AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -98,13 +105,34 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _module_device(device: DeviceLike) -> DeviceLike:
+    """The port's device policy for a module's parameters: ``"meta"`` passes
+    through (shapes only), anything else goes through ``resolve_device``."""
+    return device if torch.device(device).type == "meta" else resolve_device(device)
+
+
+def causal_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """The training forward's default ``attention_fn``: causal flash
+    attention on [b, L, heads, head_dim]."""
+    return flash_attention(q, k, v, causal=True)
+
+
+def causal_plain_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """The same function through the plain PyTorch versions on any device:
+    the comparator the kernels' training path is held against."""
+    return flash_attention_plain(q, k, v, causal=True)
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)``: f32 statistics with the fast
     variance ``E[x^2] - E[x]^2`` and epsilon 1e-6; parameters ``scale`` and
     ``bias`` as flax names them."""
 
-    def __init__(self, d: int, eps: float = 1e-6, device: DeviceLike = "cpu"):
+    def __init__(self, d: int, eps: float = 1e-6, device: DeviceLike = "cuda"):
         super().__init__()
+        device = _module_device(device)
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(d, device=device))
         self.bias = nn.Parameter(torch.zeros(d, device=device))
@@ -123,22 +151,20 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 
 
 class GptAttention(nn.Module):
-    """Decode attention against a KV cache; see the module docstring for
-    the three layouts. ``kv_kernel`` (default on) routes single-token
-    per-slot writes through the CUDA kernels, whose wrappers run their
-    plain versions on CPU tensors; ``kv_kernel=False`` takes the plain
-    PyTorch writes on any device, the comparator the kernels are held
-    against."""
+    """Training attention (``decode=False``: ``attention_fn`` over the whole
+    sequence) or decode attention against a KV cache; see the module
+    docstring for the three cache layouts. ``kv_kernel`` (default on)
+    routes single-token per-slot writes through the CUDA kernels, whose
+    wrappers run their plain versions on CPU tensors; ``kv_kernel=False``
+    takes the plain PyTorch writes on any device, the comparator the
+    kernels are held against."""
 
-    def __init__(self, cfg: GptConfig, *, decode: bool = False,
-                 per_slot: bool = False, kv_kernel: bool = True,
+    def __init__(self, cfg: GptConfig, *, attention_fn: AttentionFn = causal_flash_attention,
+                 decode: bool = False, per_slot: bool = False, kv_kernel: bool = True,
                  paged: bool = False, kv_dtype: str = "bf16",
-                 device: DeviceLike = "cpu"):
+                 device: DeviceLike = "cuda"):
         super().__init__()
-        if not decode:
-            raise NotImplementedError(
-                "GptAttention(decode=False) is the flash-attention training "
-                f"forward; it is ported with {_TRAINING_SLICE}")
+        device = _module_device(device)
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}: expected bf16|int8")
         if kv_dtype == "int8" and not paged:
@@ -146,6 +172,8 @@ class GptAttention(nn.Module):
         if paged and not per_slot:
             raise ValueError("paged KV decode requires per_slot=True")
         self.cfg = cfg
+        self.attention_fn = attention_fn
+        self.decode = decode
         self.per_slot = per_slot
         self.paged = paged
         self.quant = kv_dtype == "int8"
@@ -165,8 +193,13 @@ class GptAttention(nn.Module):
         v = _dense(x, self.value, cfg.dtype).view(heads)
         return q, k, v
 
-    def forward(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+    def forward(self, x: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None,
                 block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, L = x.shape[:2]
+        if not self.decode:
+            q, k, v = self._qkv(x, torch.arange(L, device=x.device))
+            ctx = self.attention_fn(q, k, v)  # [b, L, heads, head_dim]
+            return _dense(ctx.reshape(b, L, -1), self.out_proj, self.cfg.dtype)
         if self.paged:
             keys, values, mask, q = self._paged_write_and_read(x, cache, block_tables)
         else:
@@ -176,7 +209,6 @@ class GptAttention(nn.Module):
         scores = scores.masked_fill(~mask, -1e30)
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, values.float())
-        b, L = x.shape[:2]
         return _dense(ctx.to(self.cfg.dtype).reshape(b, L, -1), self.out_proj,
                       self.cfg.dtype)
 
@@ -284,8 +316,9 @@ class GptAttention(nn.Module):
 
 
 class GptMlp(nn.Module):
-    def __init__(self, cfg: GptConfig, device: DeviceLike = "cpu"):
+    def __init__(self, cfg: GptConfig, device: DeviceLike = "cuda"):
         super().__init__()
+        device = _module_device(device)
         self.cfg = cfg
         self.up_proj = nn.Linear(cfg.d_model, cfg.d_ff, bias=False, device=device)
         self.down_proj = nn.Linear(cfg.d_ff, cfg.d_model, bias=False, device=device)
@@ -296,8 +329,9 @@ class GptMlp(nn.Module):
 
 
 class GptBlock(nn.Module):
-    def __init__(self, cfg: GptConfig, *, device: DeviceLike = "cpu", **attn: Any):
+    def __init__(self, cfg: GptConfig, *, device: DeviceLike = "cuda", **attn: Any):
         super().__init__()
+        device = _module_device(device)
         if cfg.num_experts > 0:
             raise NotImplementedError(
                 "MoE FFN (num_experts > 0) is ported with the parallelism "
@@ -308,7 +342,7 @@ class GptBlock(nn.Module):
         self.ln_mlp = LayerNorm(cfg.d_model, device=device)
         self.mlp = GptMlp(cfg, device=device)
 
-    def forward(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+    def forward(self, x: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None,
                 block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype = self.cfg.dtype
         x = x + self.attention(self.ln_attn(x).to(dtype), cache, block_tables)
@@ -316,33 +350,32 @@ class GptBlock(nn.Module):
 
 
 class GptLM(nn.Module):
-    """Decoder-only LM. input_ids [b, L] -> logits [b, L, vocab] (f32),
-    updating ``cache`` in place. The output projection ties to the input
+    """Decoder-only LM. input_ids [b, L] -> logits [b, L, vocab] (f32). The
+    decode modes update ``cache`` in place; the training forward
+    (``decode=False``) takes none. The output projection ties to the input
     embedding. Parameter names mirror the flax tree (``block_<i>``,
     ``attention.query``, ``mlp.up_proj``, ``ln_attn.scale``, ...), so
     :func:`kubeflow_tpu_torch.models.convert.params_from_flax` is a rename
     plus transposes."""
 
-    def __init__(self, cfg: GptConfig, *, decode: bool = False,
-                 per_slot: bool = False, kv_kernel: bool = True,
+    def __init__(self, cfg: GptConfig, *, attention_fn: AttentionFn = causal_flash_attention,
+                 decode: bool = False, per_slot: bool = False, kv_kernel: bool = True,
                  paged: bool = False, kv_dtype: str = "bf16",
                  device: DeviceLike = "cuda"):
         super().__init__()
-        if cfg.scan_blocks or cfg.remat:
-            raise NotImplementedError(
-                "scan_blocks/remat are training layouts; they are ported with "
-                + _TRAINING_SLICE)
-        if not decode:
-            raise NotImplementedError(
-                "GptLM(decode=False) runs the flash-attention training "
-                f"forward; it is ported with {_TRAINING_SLICE}")
-        device = device if torch.device(device).type == "meta" else resolve_device(device)
+        if cfg.scan_blocks and decode:
+            raise ValueError(
+                "scan_blocks is a training/forward layout; the decode path "
+                "needs per-layer cache naming — decode with scan_blocks=False "
+                "(params_from_flax unstacks a blocks/ tree)")
+        device = _module_device(device)
         self.cfg = cfg
+        self.decode = decode
         self.embedding = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device)
         for i in range(cfg.n_layers):
             self.add_module(f"block_{i}", GptBlock(
-                cfg, device=device, decode=decode, per_slot=per_slot,
-                kv_kernel=kv_kernel, paged=paged, kv_dtype=kv_dtype))
+                cfg, device=device, attention_fn=attention_fn, decode=decode,
+                per_slot=per_slot, kv_kernel=kv_kernel, paged=paged, kv_dtype=kv_dtype))
         self.ln_final = LayerNorm(cfg.d_model, device=device)
 
     @classmethod
@@ -354,19 +387,89 @@ class GptLM(nn.Module):
         model.load_state_dict(params, assign=True)
         return model.requires_grad_(False)
 
-    def forward(self, input_ids: torch.Tensor, cache: Cache, *,
+    @classmethod
+    def trainable(cls, cfg: GptConfig, params: Params, **mode: Any) -> "GptLM":
+        """A training module (``decode=False``) whose parameters are fresh
+        copies of ``params`` that require gradients; ``params`` itself is
+        left as it is."""
+        model = cls(cfg, device="meta", **mode)
+        model.load_state_dict({k: v.detach().clone() for k, v in params.items()},
+                              assign=True)
+        return model.requires_grad_(True)
+
+    def forward(self, input_ids: torch.Tensor, cache: Optional[Cache] = None, *,
                 block_tables: Optional[torch.Tensor] = None,
                 return_hidden: bool = False) -> torch.Tensor:
+        """Logits [b, L, vocab] in f32, or with ``return_hidden`` the final
+        hidden states [b, L, d] in f32 for :func:`blockwise_causal_lm_loss`
+        (the logits never materialize)."""
         cfg = self.cfg
+        if self.decode != (cache is not None):
+            raise ValueError("a decode module takes a cache; the training "
+                             "forward (decode=False) takes none")
         x = self.embedding(input_ids).to(cfg.dtype)
         for i in range(cfg.n_layers):
-            x = getattr(self, f"block_{i}")(
-                x, cache[f"block_{i}"]["attention"], block_tables)
+            block = getattr(self, f"block_{i}")
+            if self.decode:
+                x = block(x, cache[f"block_{i}"]["attention"], block_tables)
+            elif cfg.remat and torch.is_grad_enabled():
+                # activations of the block are recomputed in backward
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         x = self.ln_final(x)
         if return_hidden:
             return x
         # tied LM head in f32 (the final softmax wants full precision)
         return x @ self.embedding.weight.float().T
+
+
+def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy; position t predicts token t+1."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    targets = input_ids[:, 1:].long()
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def _lse_chunk(x: torch.Tensor, w: torch.Tensor, valid: torch.Tensor, m: torch.Tensor,
+               s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One vocab chunk of the online logsumexp: running max ``m`` and
+    rescaled sum ``s`` over the logits ``x @ w.T`` (padded columns -1e30)."""
+    logits = (x @ w.T).masked_fill(~valid[None, :], NEG_BIG)  # [tokens, block]
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
+    return m_new, s
+
+
+def blockwise_causal_lm_loss(hidden: torch.Tensor, embedding: torch.Tensor,
+                             input_ids: torch.Tensor, block_size: int = 4096) -> torch.Tensor:
+    """Fused next-token cross entropy over the tied LM head that never
+    materializes the [b, L, vocab] f32 logits: ``mean(logsumexp(x W^T) -
+    x W[target])`` with the logsumexp accumulated online over vocab chunks
+    of ``block_size``. Each chunk runs under ``torch.utils.checkpoint``, so
+    backward recomputes its logits instead of saving them; peak residency is
+    one [tokens, block_size] chunk.
+
+    ``hidden``: [b, L, d] (``GptLM(...)(ids, return_hidden=True)``);
+    ``embedding``: the [vocab, d] tied embedding — gradients flow to both.
+    """
+    b, seq_len, d = hidden.shape
+    vocab = embedding.shape[0]
+    x = hidden[:, :-1].reshape(b * (seq_len - 1), d).float()
+    targets = input_ids[:, 1:].reshape(-1).long()
+    n_blocks = -(-vocab // block_size)
+    padded = n_blocks * block_size
+    w = F.pad(embedding.float(), (0, 0, 0, padded - vocab))
+    valid = torch.arange(padded, device=hidden.device) < vocab
+    m = torch.full((x.shape[0],), NEG_BIG, dtype=torch.float32, device=hidden.device)
+    s = torch.zeros_like(m)
+    for i in range(n_blocks):
+        chunk = slice(i * block_size, (i + 1) * block_size)
+        m, s = checkpoint(_lse_chunk, x, w[chunk], valid[chunk], m, s, use_reentrant=False)
+    lse = m + torch.log(s)
+    # target logit via a [tokens, d] gather — never the full logits row
+    target_logit = (x * embedding[targets].float()).sum(dim=-1)
+    return (lse - target_logit).mean()
 
 
 def init_params(cfg: GptConfig, seed: int = 0, device: DeviceLike = "cuda") -> Params:
@@ -376,7 +479,7 @@ def init_params(cfg: GptConfig, seed: int = 0, device: DeviceLike = "cuda") -> P
     seed gives the same weights on every device."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
-    shapes = GptLM(cfg, decode=True, device="meta").state_dict()
+    shapes = GptLM(cfg, device="meta").state_dict()
     params: Params = {}
     for name in sorted(shapes):
         shape = shapes[name].shape

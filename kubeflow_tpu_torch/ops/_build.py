@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
@@ -27,10 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: C signatures of every entry point, by source. Each takes the CUDA device
 #: ordinal first and returns an int (the cudaError_t of the launch).
@@ -40,7 +40,21 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "kv_block_update": (I, P, P, P, P, I, I, I, I, I, I, P),
         "kv_block_update_quant": (I, P, P, P, I, P, P, I, I, I, I, I, I, I, P),
     },
+    "flash_attention.cu": {
+        # device, q, k, v, out, lse, is_bf16, b, lq, lk, h, d, scale, causal,
+        # q_offset, k_offset, bf16_dots, stream
+        "flash_fwd": (I, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, I, P),
+        # device, q, k, v, dout, lse, delta, dq, is_bf16, b, lq, lk, h, d,
+        # scale, causal, q_offset, k_offset, bf16_dots, stream
+        "flash_bwd_dq": (I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, I, P),
+        # as flash_bwd_dq with dk, dv in place of dq
+        "flash_bwd_dkv": (I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, I, P),
+    },
 }
+
+#: one lock per source: a source is built and loaded once, while different
+#: sources may build at the same time (see :func:`load_all`)
+_locks: Dict[str, threading.Lock] = {source: threading.Lock() for source in SIGNATURES}
 
 
 def nvcc() -> str:
@@ -87,7 +101,7 @@ def build(source: str) -> Path:
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, building it first if needed,
     with every entry point's argtypes/restype declared."""
-    with _lock:
+    with _locks[source]:
         lib = _libs.get(source)
         if lib is not None:
             return lib
@@ -98,6 +112,14 @@ def load(source: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _libs[source] = lib
         return lib
+
+
+def load_all() -> None:
+    """Build and load every source, one ``nvcc`` per source, all started
+    together."""
+    with ThreadPoolExecutor(max_workers=len(SIGNATURES)) as pool:
+        for future in [pool.submit(load, source) for source in SIGNATURES]:
+            future.result()
 
 
 def entry(source: str, name: str) -> Callable[..., int]:

@@ -1,0 +1,225 @@
+"""kubeflow_tpu_torch/ops/flash_attention.py against
+kubeflow_tpu/ops/flash_attention.py.
+
+On the CPU the port runs its plain versions through the same
+``autograd.Function`` the kernels use; the JAX side runs its Pallas kernels
+in interpret mode, as tests/test_ops.py does (``_fwd``/``_bwd`` for the
+log-sum-exp and the raw gradients, ``jax.grad`` of ``flash_attention`` for
+the wired-up VJP). Inputs are made with numpy from a seed and handed to
+both.
+
+Tolerances. f32: the same math with sums in another order, so ``out`` and
+``lse`` within 2e-5 (test_ops.py's bound against exact attention) and
+gradients within 1e-4. bf16 inputs: ``out`` and the gradients are rounded
+to bf16 (one ULP at magnitude ~2 is 0.0156), so 2e-2 as test_bf16_inputs
+uses. ``bf16_dots=True``: every dot operand is rounded to bf16 in both;
+with a single JAX tile (L <= 128) the formulas are the same, so only f32
+sum order differs, which can move a bf16 rounding of p by one ULP: 1e-3.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from kubeflow_tpu_torch.ops import flash_attention as tfa
+
+# the module, not the function that kubeflow_tpu.ops re-exports under its name
+jfa = importlib.import_module("kubeflow_tpu.ops.flash_attention")
+
+torch.set_num_threads(1)
+
+
+def _qkv(seed, b, lq, lk, h, d):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, lq, h, d)).astype(np.float32),
+            rng.normal(size=(b, lk, h, d)).astype(np.float32),
+            rng.normal(size=(b, lk, h, d)).astype(np.float32))
+
+
+def _j(*xs, dtype=jnp.float32):
+    return [jnp.asarray(x, dtype) for x in xs]
+
+
+def _t(*xs, dtype=torch.float32, grad=False):
+    return [torch.tensor(x).to(dtype).requires_grad_(grad) for x in xs]
+
+
+# (b, lq, lk, h, d, causal, q_offset, k_offset, jax block)
+CASES = {
+    "causal": (1, 128, 128, 2, 32, True, 0, 0, 64),
+    "non_causal": (2, 128, 128, 1, 64, False, 0, 0, 64),
+    "lq_ne_lk": (2, 64, 128, 1, 32, False, 0, 0, 64),
+    "causal_lq_ne_lk": (1, 64, 128, 2, 32, True, 0, 0, 64),
+    "q_offset_all_visible": (1, 64, 64, 2, 32, True, 64, 0, 32),
+    "k_offset_partly_masked": (1, 128, 128, 1, 32, True, 0, 64, 64),
+    "k_offset_fully_masked": (1, 64, 64, 1, 32, True, 0, 640, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_out_and_lse_match_jax(case):
+    b, lq, lk, h, d, causal, qo, ko, blk = CASES[case]
+    q, k, v = _qkv(0, b, lq, lk, h, d)
+    scale = d ** -0.5
+    want_out, want_lse = jfa._fwd(*_j(q, k, v), causal=causal, scale=scale, q_offset=qo,
+                                  k_offset=ko, block_q=blk, block_k=blk, interpret=True)
+    out, lse = tfa.flash_attention_fwd(*_t(q, k, v), causal=causal, scale=scale,
+                                       q_offset=qo, k_offset=ko)
+    assert out.shape == (b, lq, h, d) and lse.shape == (b, h, lq)
+    assert lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=2e-5, rtol=0)
+
+
+def test_fully_masked_rows_give_zeros_and_neg_big_lse():
+    q, k, v = _qkv(1, 1, 64, 64, 2, 32)
+    out, lse = tfa.flash_attention_fwd(*_t(q, k, v), causal=True, scale=0.2, k_offset=640)
+    assert torch.equal(out, torch.zeros_like(out))
+    assert (lse == tfa.NEG_BIG).all()
+    # partly masked: the first 32 query rows see no key
+    out, lse = tfa.flash_attention_fwd(*_t(q, k, v), causal=True, scale=0.2, k_offset=32)
+    assert torch.equal(out[:, :32], torch.zeros_like(out[:, :32]))
+    assert (lse[:, :, :32] == tfa.NEG_BIG).all() and (lse[:, :, 32:] > -1e3).all()
+
+
+@pytest.mark.parametrize("case", ["causal", "lq_ne_lk", "k_offset_partly_masked"])
+def test_raw_backward_matches_jax_bwd(case):
+    b, lq, lk, h, d, causal, qo, ko, blk = CASES[case]
+    q, k, v = _qkv(2, b, lq, lk, h, d)
+    do = np.random.default_rng(3).normal(size=(b, lq, h, d)).astype(np.float32)
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko)
+    jq, jk, jv, jdo = _j(q, k, v, do)
+    jout, jlse = jfa._fwd(jq, jk, jv, block_q=blk, block_k=blk, interpret=True, **kw)
+    want = jfa._bwd(jq, jk, jv, jout, jlse, jdo, block_q=blk, block_k=blk,
+                    interpret=True, **kw)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    out, lse = tfa.flash_attention_fwd(tq, tk, tv, **kw)
+    got = tfa.flash_attention_bwd(tq, tk, tv, out, lse, tdo, **kw)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0,
+                                   err_msg=name)
+
+
+def _jax_grads(q, k, v, dtype, **kw):
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, **kw).astype(jnp.float32) ** 2)
+    return jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v, dtype=dtype))
+
+
+def _torch_grads(q, k, v, dtype, **kw):
+    tq, tk, tv = _t(q, k, v, dtype=dtype, grad=True)
+    out = tfa.flash_attention(tq, tk, tv, **kw)
+    (out.float() ** 2).sum().backward()
+    return out, (tq.grad, tk.grad, tv.grad)
+
+
+@pytest.mark.parametrize("case", ["causal", "lq_ne_lk", "k_offset_partly_masked",
+                                  "q_offset_all_visible"])
+def test_gradients_through_the_function_match_jax_grad(case):
+    b, lq, lk, h, d, causal, qo, ko, blk = CASES[case]
+    q, k, v = _qkv(4, b, lq, lk, h, d)
+    kw = dict(causal=causal, q_offset=qo, k_offset=ko, block_q=blk, block_k=blk)
+    want = _jax_grads(q, k, v, jnp.float32, **kw)
+    _, got = _torch_grads(q, k, v, torch.float32, **kw)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0,
+                                   err_msg=name)
+
+
+def test_bf16_inputs_forward_and_gradients():
+    q, k, v = _qkv(5, 1, 128, 128, 2, 64)
+    want_out = jfa.flash_attention(*_j(q, k, v, dtype=jnp.bfloat16), causal=True)
+    want = _jax_grads(q, k, v, jnp.bfloat16, causal=True)
+    out, got = _torch_grads(q, k, v, torch.bfloat16, causal=True)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().detach().numpy(),
+                               np.asarray(want_out, np.float32), atol=2e-2, rtol=0)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   atol=2e-2, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_dots_match_jax(causal):
+    q, k, v = _qkv(6, 1, 96, 96, 2, 32)
+    kw = dict(causal=causal, bf16_dots=True)
+    want_out = jfa.flash_attention(*_j(q, k, v), **kw)
+    want = _jax_grads(q, k, v, jnp.float32, **kw)
+    out, got = _torch_grads(q, k, v, torch.float32, **kw)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=1e-3, rtol=0)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3, rtol=0, err_msg=name)
+    # and the rounding is real: f32 dots give another answer
+    f32 = tfa.flash_attention(*_t(q, k, v), causal=causal)
+    assert (f32 - out.detach()).abs().max() > 1e-4
+
+
+def test_indivisible_block_raises():
+    q, k, v = _t(*_qkv(7, 1, 96, 96, 1, 32))
+    with pytest.raises(ValueError, match="must divide"):
+        tfa.flash_attention(q, k, v, block_q=64, block_k=64)
+    # an explicit block that divides is accepted and changes nothing
+    np.testing.assert_array_equal(tfa.flash_attention(q, k, v, block_q=32, block_k=48).numpy(),
+                                  tfa.flash_attention(q, k, v).numpy())
+
+
+@pytest.mark.parametrize("length", [1, 64, 96, 128, 192, 200, 384, 1000, 1024, 3072, 4104])
+def test_auto_block_matches_jax(length):
+    assert tfa._auto_block(length, 1024) == jfa._auto_block(length, 1024)
+
+
+def test_cpu_path_counts_no_launch_and_other_devices_are_refused():
+    tfa.reset_launches()
+    q, k, v = _t(*_qkv(8, 1, 32, 32, 1, 32), grad=True)
+    tfa.flash_attention(q, k, v, causal=True).sum().backward()
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    meta = torch.empty((1, 32, 1, 32), device="meta")
+    with pytest.raises(ValueError, match="CPU .* or on a CUDA device"):
+        tfa.flash_attention_fwd(meta, meta, meta, causal=True, scale=1.0)
+
+
+def test_plain_function_matches_the_wrapper_on_the_cpu():
+    q, k, v = _t(*_qkv(9, 2, 48, 80, 2, 32))
+    for causal in (True, False):
+        np.testing.assert_array_equal(
+            tfa.flash_attention_plain(q, k, v, causal=causal, q_offset=40).numpy(),
+            tfa.flash_attention(q, k, v, causal=causal, q_offset=40).numpy())
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_the_card():
+    """Each CUDA kernel against its plain version on the card, with ragged
+    lengths (not multiples of the 64-row tile), offsets and both dtypes;
+    the kernels run twice and give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for (b, lq, lk, h, d, causal, qo, ko) in [(2, 100, 100, 2, 64, True, 0, 0),
+                                                  (1, 64, 200, 3, 32, False, 0, 0),
+                                                  (1, 130, 70, 1, 128, True, 60, 0),
+                                                  (1, 64, 64, 2, 64, True, 0, 640)]:
+            q, k, v = (x.cuda().to(dtype) for x in _t(*_qkv(10, b, lq, lk, h, d)))
+            do = torch.randn(b, lq, h, d, device="cuda").to(dtype)
+            kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko)
+            tfa.reset_launches()
+            out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+            grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            out2, lse2 = tfa.flash_attention_fwd(q, k, v, **kw)
+            grads2 = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            assert tfa.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+            assert torch.equal(out, out2) and torch.equal(lse, lse2)
+            assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            p_out, p_lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+            p_grads = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+            assert (out.float() - p_out.float()).abs().max() <= atol
+            assert (lse - p_lse).abs().max() <= 1e-3
+            for g, p in zip(grads, p_grads):
+                assert (g.float() - p.float()).abs().max() <= atol

@@ -122,13 +122,26 @@ def test_sampled_generate_is_seeded_and_in_vocab():
 
 
 def test_training_forward_and_cuda_without_a_card_raise(monkeypatch):
+    """MoE is still a later slice; every module of the port, the public
+    submodules included, takes the port's device policy: default "cuda",
+    which raises on a host without it."""
+    from kubeflow_tpu_torch.models.gpt import GptAttention, GptBlock, GptMlp, LayerNorm
+
     cfg = GptConfig.tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GptLM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GptLM(GptConfig(**SHAPE, num_experts=2), decode=True, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GptLM(cfg, decode=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GptLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(cfg)
+    for build in (lambda: LayerNorm(cfg.d_model), lambda: GptMlp(cfg),
+                  lambda: GptAttention(cfg), lambda: GptAttention(cfg, decode=True),
+                  lambda: GptBlock(cfg), lambda: GptBlock(cfg, decode=True)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    # "meta" (shapes only) and an explicit "cpu" still build
+    assert LayerNorm(8, device="meta").scale.device.type == "meta"
+    assert GptBlock(cfg, device="cpu").mlp.up_proj.weight.device.type == "cpu"
