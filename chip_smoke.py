@@ -48,12 +48,35 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              peak memory and mfu (the bench's FLOP count over 989 TF/s);
 11. train_profile — host ms of unprofiled train steps, then one step under
              torch.profiler: device-busy share, top kernels, the flash
-             kernels' share of the step (every one of their launches seen).
+             kernels' share of the step (every one of their launches seen);
+12. resnet_kernels — the two fused-block kernels at each of ResNet-50's
+             block shapes (batch 256, bf16 x) against their plain versions
+             (max abs error at most 1e-2 of the output's largest magnitude),
+             each run twice for the same bits, odd hw at stride 2 refused;
+             per shape: ms per call, device ms, plain ms, a cuDNN yardstick
+             (several calls) and the bound;
+13. resnet_ref — a tiny fused ResNet with f32 activations: loss and every
+             gradient through the kernels on the card against the plain path
+             on the CPU (loss 1e-3, gradients 2e-2 of their largest value);
+14. resnet_train — the bench's ResNet-50 config at full width and depth
+             (batch 256, 224 x 224, s2d stem, SGD-momentum), 8 steps through
+             the kernels (12 fused_bottleneck and 4 fused_transition launches
+             per step), the same 8 steps through the plain versions (no
+             launch; losses within 1e-2 at step 1 and 5e-2 over the run), and
+             4 steps of the unfused model as a yardstick; step ms, images/s,
+             mfu (the bench's FLOP count over 989 TF/s) and peak memory;
+15. resnet_profile — one ResNet-50 step under torch.profiler: device-busy
+             share, top kernels, the fused-block kernels' share (all 16 of
+             their launches seen).
 
 The launch counts reported per kernel come from its main-path phase (the
-serving phases for the KV writes, ``train`` for flash attention): they are
-reset just before the run and read just after. Every phase runs on every
-call; the last line is ``{"ok": true, "device": {...}}``.
+serving phases for the KV writes, ``train`` for flash attention,
+``resnet_train`` for the fused blocks): they are reset just before the run
+and read just after. The fused-block kernels' entries in the kernels line
+sum their per-call times over the blocks of one training step (2, 3, 5
+and 2 identity blocks; one of each stage head); their ``max_abs_err`` is
+the largest over the shapes. Every phase runs on every call; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -698,6 +721,297 @@ def train_profile_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phases 12-15: ResNet-50 training ---------------------------------------------
+
+FB_SOURCE = "kubeflow_tpu_torch/ops/csrc/fused_bottleneck.cu"
+FB_REPLACES = {
+    "fused_bottleneck": "kubeflow_tpu/ops/fused_bottleneck.py:76 (_kernel, pallas_call :144)",
+    "fused_transition":
+        "kubeflow_tpu/ops/fused_bottleneck.py:237 (_transition_kernel, pallas_call :325)",
+}
+RESNET_BATCH, RESNET_STEPS = 256, 8
+#: ResNet-50's block shapes at 224 x 224 and how many blocks of each a step
+#: runs: (hw, stride, cin, cmid, cout, blocks)
+FB_SHAPES = {
+    "fused_bottleneck": [(56, 1, 256, 64, 256, 2), (28, 1, 512, 128, 512, 3),
+                         (14, 1, 1024, 256, 1024, 5), (7, 1, 2048, 512, 2048, 2)],
+    "fused_transition": [(56, 1, 64, 64, 256, 1), (56, 2, 256, 128, 512, 1),
+                         (28, 2, 512, 256, 1024, 1), (14, 2, 1024, 512, 2048, 1)],
+}
+
+
+def fb_inputs(n, hw, cin, cmid, cout, proj, seed):
+    """A block's inputs on the card: bf16 x >= 0 (a relu's output), f32
+    weights at a lecun scale, folded norms near (1, 0)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    args = [torch.relu(r(n, hw, hw, cin)).to(torch.bfloat16),
+            r(cin, cmid) / cin ** 0.5, 1 + 0.1 * r(cmid), 0.1 * r(cmid),
+            r(3, 3, cmid, cmid) / (9 * cmid) ** 0.5, 1 + 0.1 * r(cmid), 0.1 * r(cmid),
+            r(cmid, cout) / cmid ** 0.5, 1 + 0.1 * r(cout), 0.1 * r(cout)]
+    if proj:
+        args += [r(cin, cout) / cin ** 0.5, 1 + 0.1 * r(cout), 0.1 * r(cout)]
+    return args
+
+
+def fb_bound(n, hw, stride, cin, cmid, cout, proj):
+    """Least time (ms) of one block at these shapes and what bounds it: the
+    dots at the bf16 rate, or x read once, y written once and the f32
+    weights, scales and biases read once at the HBM rate."""
+    ho = hw // stride
+    flops = 2.0 * n * (hw * hw * cin * cmid
+                       + ho * ho * (9 * cmid * cmid + cmid * cout + (cin * cout if proj else 0)))
+    weights = cin * cmid + 9 * cmid * cmid + cmid * cout + (cin * cout if proj else 0)
+    norms = 2 * (2 * cmid + cout + (cout if proj else 0))
+    nbytes = 2 * n * hw * hw * cin + 2 * n * ho * ho * cout + 4 * (weights + norms)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def fb_library(args, stride, proj):
+    """The same block as cuDNN ``F.conv2d`` calls on bf16 channels_last
+    tensors with the same epilogue (bf16 scales): several PyTorch calls."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    x = args[0].permute(0, 3, 1, 2)
+    w1, s1, b1, w2, s2, b2, w3, s3, b3 = args[1:10]
+    conv1x1 = lambda w: w.t()[:, :, None, None].to(bf).contiguous()  # noqa: E731
+    col = lambda v: v.to(bf)[None, :, None, None]  # noqa: E731
+    w1c, w3c = conv1x1(w1), conv1x1(w3)
+    w2c = w2.permute(3, 2, 0, 1).to(bf).contiguous(memory_format=torch.channels_last)
+    a1, a2, a3 = (col(s1), col(b1)), (col(s2), col(b2)), (col(s3), col(b3))
+    wpc, ap = (conv1x1(args[10]), (col(args[11]), col(args[12]))) if proj else (None, None)
+
+    def run():
+        h = torch.relu_(torch.addcmul(a1[1], F.conv2d(x, w1c), a1[0]))
+        if stride == 2:  # XLA's SAME (0, 1)
+            h = F.conv2d(F.pad(h, (0, 1, 0, 1)), w2c, stride=2)
+        else:
+            h = F.conv2d(h, w2c, padding=1)
+        h = torch.relu_(torch.addcmul(a2[1], h, a2[0]))
+        y = torch.addcmul(a3[1], F.conv2d(h, w3c), a3[0])
+        if proj:
+            y = y + torch.addcmul(ap[1], F.conv2d(x, wpc, stride=stride), ap[0])
+        else:
+            y = y + x
+        return torch.relu_(y)
+
+    return run
+
+
+def resnet_kernels_phase(card: str):
+    """Each fused-block kernel at each of its ResNet-50 shapes, batch 256,
+    bf16 x: twice for the same bits, against its plain version (max abs
+    error at most 1e-2 of the output's largest magnitude, about one bf16 ULP:
+    the kernel sums in another f32 order, which can flip one bf16 rounding
+    of h1 or h2), then times beside the bound, the plain version and the
+    cuDNN yardstick. Returns each kernel's entry for the kernels line, its
+    times summed over the blocks of one training step."""
+    from kubeflow_tpu_torch.ops import fused_bottleneck as fb
+
+    n = RESNET_BATCH
+    results = {}
+    for name, shapes in FB_SHAPES.items():
+        proj = name == "fused_transition"
+        total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                     flops=0.0, bytes=0.0)
+        worst = 0.0
+        for seed, (hw, stride, cin, cmid, cout, blocks) in enumerate(shapes):
+            args = fb_inputs(n, hw, cin, cmid, cout, proj, seed)
+            if proj:
+                call = lambda: fb.fused_transition(*args, stride=stride)  # noqa: E731
+                plain = lambda: fb.fused_transition_plain(*args, stride=stride)  # noqa: E731
+            else:
+                call = lambda: fb.fused_bottleneck(*args)  # noqa: E731
+                plain = lambda: fb.fused_bottleneck_plain(*args)  # noqa: E731
+            y1, y2, want = call(), call(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(y1, y2):
+                raise AssertionError(f"{name} {hw}: two runs differ")
+            err, top = max_abs_err(y1, want), float(want.float().abs().max())
+            if not (torch.isfinite(y1.float()).all() and err <= 1e-2 * top):
+                raise AssertionError(f"{name} {hw}: kernel vs plain {err} (max {top})")
+            del y1, y2, want
+            ms = cuda_ms(call, iters=20, warmup=3)
+            dev_ms = kernel_device_ms(call, name + "_kernel", iters=10)
+            plain_ms = cuda_ms(plain, iters=5, warmup=2)
+            library_ms = cuda_ms(fb_library(args, stride, proj), iters=20, warmup=3)
+            bd = fb_bound(n, hw, stride, cin, cmid, cout, proj)
+            worst = max(worst, err)
+            for key, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                               ("library_ms", library_ms), ("bound_ms", bd["bound_ms"]),
+                               ("flops", bd["flops"]), ("bytes", bd["bytes"])):
+                total[key] += blocks * value
+            emit(phase="resnet_kernels", kernel=name, card=card,
+                 shape=dict(n=n, hw=hw, stride=stride, cin=cin, cmid=cmid, cout=cout),
+                 blocks_per_step=blocks, band=fb.plan_band(hw, stride, cin, cmid, cout, proj),
+                 max_abs_err=err, max_abs=top, deterministic=True, kernel_ms=ms,
+                 kernel_device_ms=dev_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, library="cuDNN conv2d x3-4 + addcmul/relu (bf16)",
+                 bound_ms=bd["bound_ms"], bound_by=bd["bound_by"], flops=bd["flops"],
+                 bytes=bd["bytes"], achieved_tflops=bd["flops"] / dev_ms / 1e9,
+                 bound_share=bd["bound_ms"] / dev_ms)
+            del args
+        t_ops = total["flops"] / BF16_FLOPS_PER_S
+        t_bytes = total["bytes"] / HBM_BYTES_PER_S
+        results[name] = dict(name=name, route="cuda", source=FB_SOURCE,
+                             replaces=FB_REPLACES[name], max_abs_err=worst, ms=total["ms"],
+                             plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+                             bound_by="operations" if t_ops >= t_bytes else "bytes",
+                             library_ms=total["library_ms"])
+        emit(phase="resnet_kernels", kernel=name, card=card, per_step_of_blocks=True,
+             kernel_ms=total["ms"], kernel_device_ms=total["device_ms"],
+             plain_ms=total["plain_ms"], library_ms=total["library_ms"],
+             bound_ms=total["bound_ms"], max_abs_err=worst)
+    # odd hw at stride 2 has no SAME (0, 1) form: the wrapper raises
+    odd = fb_inputs(2, 7, 64, 64, 256, True, 99)
+    try:
+        fb.fused_transition(*odd, stride=2)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("fused_transition took an odd hw at stride 2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def resnet_ref_phase(card: str) -> None:
+    """A tiny fused ResNet with f32 activations (two stages of two blocks,
+    16 filters, 32 x 32): loss and every gradient through the kernels on the
+    card against the plain path on the CPU, from the same weights, with
+    cuDNN and matmul TF32 off. The kernels round their dots to bf16 as the
+    plain versions do but sum in another order, which can flip the bf16
+    rounding of an h1 or h2 element (a relative 3.9e-3); the tolerances
+    (loss 1e-3, each gradient 2e-2 of its largest magnitude) leave room for
+    a few such flips, and nothing more."""
+    from kubeflow_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from kubeflow_tpu_torch.ops import fused_bottleneck as fb
+    from kubeflow_tpu_torch.training.classifier import cross_entropy_loss
+
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((4, 32, 32, 3), dtype=np.float32))
+    y = torch.as_tensor(rng.integers(0, 10, 4))
+    losses, grads = [], []
+    fb.reset_launches()
+    with fb.f32_convolutions():
+        for dev in ("cpu", "cuda"):
+            model = ResNet([2, 2], BottleneckBlock, num_classes=10, num_filters=16,
+                           stem="s2d", fused_blocks=True, dtype=torch.float32, seed=4,
+                           device=dev)
+            loss = cross_entropy_loss(model(x.to(dev), train=True), y.to(dev))
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    if fb.LAUNCHES != {"fused_bottleneck": 2, "fused_transition": 2}:
+        raise AssertionError(f"resnet_ref: launches {fb.LAUNCHES}, expected 2 of each")
+    loss_err = abs(losses[0] - losses[1])
+    rel = {n: max_abs_err(grads[0][n], grads[1][n]) / max(float(grads[0][n].abs().max()), 1e-12)
+           for n in grads[0]}
+    worst = max(rel, key=rel.get)
+    if not (loss_err <= 1e-3 and rel[worst] <= 2e-2) or not np.isfinite(losses[1]):
+        raise AssertionError(f"resnet_ref: card vs CPU loss {loss_err}, grad {worst} {rel[worst]}")
+    emit(phase="resnet_ref", card=card, loss=losses[1], loss_abs_err=loss_err,
+         grad_max_rel_err=rel[worst], worst_grad=worst, n_grads=len(rel))
+
+
+def resnet_train_phase(card: str):
+    """The bench's ResNet-50 step at full width and depth (batch 256, 224 x
+    224, s2d stem, SGD-momentum), 8 steps through the kernels, then the same
+    8 steps from the same weights through the kernels' plain versions, then
+    4 steps of the unfused model (batch-stat BatchNorm through cuDNN; a
+    different function, timed only). Returns the kernels' launches of the
+    kernel run."""
+    from kubeflow_tpu_torch.ops import fused_bottleneck as fb
+    from kubeflow_tpu_torch.training.resnet import bench_config, train
+
+    cfg = bench_config()
+    runs = {}
+    for label, kw, steps in (("kernel", {}, RESNET_STEPS),
+                             ("plain", {"plain_kernels": True}, RESNET_STEPS),
+                             ("unfused", {"fused_blocks": False}, 4)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fb.reset_launches()
+        res = train(cfg, steps=steps, seed=0, device="cuda", **kw)
+        launches = dict(fb.LAUNCHES)
+        losses = res["losses"]
+        steady = float(np.median(res["step_ms"][1:]))
+        runs[label] = res
+        emit(phase="resnet_train", path=label, card=card, batch=cfg.batch, image=cfg.image,
+             n_params=res["n_params"], losses=losses, accuracy=res["accuracy"],
+             step_ms=res["step_ms"], step_ms_median=steady,
+             images_per_s=cfg.batch / steady * 1e3,
+             mfu=res["flops_per_step"] / (steady / 1e3) / BF16_FLOPS_PER_S,
+             flops_per_step=res["flops_per_step"],
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"resnet_train {label}: losses {losses}")
+        want = ({"fused_bottleneck": 12 * steps, "fused_transition": 4 * steps}
+                if label == "kernel" else {"fused_bottleneck": 0, "fused_transition": 0})
+        if launches != want:
+            raise AssertionError(f"resnet_train {label}: launches {launches}, expected {want}")
+        if label == "kernel":
+            kernel_launches = launches
+    lk, lp = runs["kernel"]["losses"], runs["plain"]["losses"]
+    first, worst = abs(lk[0] - lp[0]), max(abs(a - c) for a, c in zip(lk, lp))
+    if not (lk[0] == lk[1] and first <= 1e-2 and worst <= 5e-2):
+        raise AssertionError(f"resnet_train: kernel vs plain losses differ: step 1 {first}, "
+                             f"worst {worst} (or lr 0 at step 0 moved the loss)")
+    emit(phase="resnet_train", card=card, step1_loss_diff=first, max_loss_diff=worst)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel_launches
+
+
+def resnet_profile_phase(card: str) -> None:
+    """The bench ResNet-50 step: host ms of 3 unprofiled steps after a
+    warm-up step, then one step under torch.profiler after a warm-up cycle:
+    the device-busy share of its wall time, the top kernels, and the two
+    fused-block kernels' share (all 16 of their launches must be in the
+    trace)."""
+    from kubeflow_tpu_torch.training.classifier import ClassifierTask, sgd_momentum
+    from kubeflow_tpu_torch.training.resnet import bench_config, make_batch, make_model
+
+    cfg = bench_config()
+    images, labels = make_batch(cfg, 0, "cuda")
+    task = ClassifierTask(make_model(cfg, device="cuda"),
+                          lambda p: sgd_momentum(p, lr=cfg.lr, total_steps=cfg.total_steps))
+    state = task.init()
+
+    def step():
+        float(task.train_step(state, images, labels)[1]["loss"])
+        torch.cuda.synchronize()
+
+    step()
+    unprofiled_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        unprofiled_ms.append((time.perf_counter() - t0) * 1e3)
+    prof, wall_ms = profiled(step, ("cpu", "cuda"))
+    by_name = device_ms_by_kernel(prof)
+    device_ms = sum(by_name.values())
+    seen = {n: len(cuda_kernel_ms(prof, n + "_kernel")) for n in FB_REPLACES}
+    if seen != {"fused_bottleneck": 12, "fused_transition": 4}:
+        raise AssertionError(f"resnet_profile: the trace holds {seen} fused-block launches")
+    fb_ms = {n: sum(cuda_kernel_ms(prof, n + "_kernel")) for n in FB_REPLACES}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    emit(phase="resnet_profile", card=card, step_ms_unprofiled=unprofiled_ms,
+         step_wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+         device_ms_over_unprofiled_step_ms=device_ms / float(np.median(unprofiled_ms)),
+         fused_ms=fb_ms, fused_launches_seen=seen,
+         fused_share_of_device=sum(fb_ms.values()) / device_ms,
+         top_kernels_ms=[[n[:90], ms] for n, ms in top])
+    del task, state, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -712,19 +1026,33 @@ def main() -> int:
     emit(phase="build", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0)
 
-    kernels = kernel_phase(card)
-    launches = serve_phases(card)
-    ref_phase(card)
-    profile_phase(card)
-    kernels.update(flash_phase(card))
-    train_ref_phase(card)
-    launches.update(train_phase(card))
-    train_profile_phase(card)
+    seconds = {}
+
+    def timed(name, phase):
+        t = time.perf_counter()
+        result = phase(card)
+        seconds[name] = time.perf_counter() - t
+        return result
+
+    kernels = timed("kernels", kernel_phase)
+    launches = timed("serve+contig+int8", serve_phases)
+    timed("ref", ref_phase)
+    timed("profile", profile_phase)
+    kernels.update(timed("flash", flash_phase))
+    timed("train_ref", train_ref_phase)
+    launches.update(timed("train", train_phase))
+    timed("train_profile", train_profile_phase)
+    kernels.update(timed("resnet_kernels", resnet_kernels_phase))
+    timed("resnet_ref", resnet_ref_phase)
+    launches.update(timed("resnet_train", resnet_train_phase))
+    timed("resnet_profile", resnet_profile_phase)
+    emit(phase="timing", card=card, seconds=seconds)
     for name, n in launches.items():
         kernels[name]["launches"] = n
 
     order = ("kv_row_update", "kv_block_update", "kv_block_update_quant",
-             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "fused_bottleneck", "fused_transition")
     emit(kernels=[kernels[k] for k in order])
     print(smi(), flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,9 @@ port's state dict (f32 CPU tensors; move them with ``.to(device)``):
 A flax gradient tree has the parameter tree's structure, so the same call
 carries ``jax.grad``'s output into the port's names and layouts.
 
+``resnet_params_from_flax`` does the same for a flax ResNet's variables
+(parameters and BatchNorm statistics) and a port ``ResNet``.
+
 Any flax leaf left unused, or any port parameter left unfilled, raises.
 """
 
@@ -89,4 +92,38 @@ def params_from_flax(tree: Dict[str, Any], cfg: GptConfig) -> Params:
     missing = sorted(set(expected) - set(out))
     if missing:
         raise ValueError(f"flax tree is missing parameters for {missing}")
+    return out
+
+
+def resnet_params_from_flax(variables: Dict[str, Any], model: torch.nn.Module) -> Params:
+    """Carry a flax ResNet's ``{"params", "batch_stats"}`` tree (nested
+    dicts of numpy arrays) into ``model``'s state dict: the port keeps
+    flax's names and layouts, so ``a/b/kernel`` becomes ``a.b.kernel``
+    (HWIO kernels, ``[in, out]`` dense kernels) and ``batch_stats``'
+    ``a/b/mean``, ``a/b/var`` fill the buffers ``a.b.mean``, ``a.b.var``.
+
+    A tree without ``batch_stats`` (a flax gradient tree wrapped as
+    ``{"params": grads}``) fills the parameters only. Returns f32 CPU
+    tensors; any leaf left unused or tensor left unfilled raises."""
+    unknown = sorted(set(variables) - {"params", "batch_stats"})
+    if unknown or "params" not in variables:
+        raise ValueError(f"expected a 'params' and optionally a 'batch_stats' "
+                         f"collection, got {sorted(variables)}")
+    expected = {n: p.shape for n, p in model.named_parameters()}
+    if "batch_stats" in variables:
+        expected.update((n, b.shape) for n, b in model.named_buffers())
+    out: Params = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _leaves(variables.get(collection, {})):
+            name = path.replace("/", ".")
+            if name not in expected:
+                raise ValueError(f"flax leaf {collection}/{path} {leaf.shape} has no "
+                                 "counterpart in the port's model")
+            if tuple(leaf.shape) != tuple(expected[name]):
+                raise ValueError(f"flax leaf {collection}/{path}: shape {leaf.shape} does "
+                                 f"not fit {name!r} {tuple(expected[name])}")
+            out[name] = torch.tensor(np.asarray(leaf, dtype=np.float32))
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise ValueError(f"flax tree is missing tensors for {missing}")
     return out

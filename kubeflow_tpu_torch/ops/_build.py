@@ -50,6 +50,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # as flash_bwd_dq with dk, dv in place of dq
         "flash_bwd_dkv": (I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, I, P),
     },
+    "fused_bottleneck.cu": {
+        # device, x, w1t, s1, b1, w2t, s2, b2, w3t, s3, b3, out, is_bf16, n,
+        # hw, cin, cmid, band, stream
+        "fused_bottleneck": (I, *(P,) * 11, I, I, I, I, I, I, P),
+        # device, x, w1t, s1, b1, w2t, s2, b2, w3t, s3, b3, wpt, sp, bp, out,
+        # is_bf16, n, hw, cin, cmid, cout, stride, band, stream
+        "fused_transition": (I, *(P,) * 14, *(I,) * 8, P),
+    },
 }
 
 #: one lock per source: a source is built and loaded once, while different
