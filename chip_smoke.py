@@ -41,11 +41,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 9. train_ref — a tiny f32 GPT: loss and every gradient through the kernels
              on the card against the plain path on the CPU (atol 1e-4);
 10. train  — the bench's GPT-2-medium-class config at full width (b 8,
-             L 1024), 8 AdamW steps through the kernels (24 launches of each
-             per step), then the same 8 steps through the plain attention
-             (no launch): finite losses, step-1 losses within 0.02,
-             trajectories within 0.05, falling loss; step ms, tokens/s,
-             peak memory and mfu (the bench's FLOP count over 989 TF/s);
+             L 1024), the counted reference step then 8 AdamW steps through
+             the kernels (24 launches of each per step), then the same
+             through the plain attention (no launch): finite losses, step-1
+             losses within 0.02, trajectories within 0.05, falling loss; step
+             ms, tokens/s, peak memory, the counted and the bench's analytic
+             FLOPs, mfu and the step breakdown;
 11. train_profile — host ms of unprofiled train steps, then one step under
              torch.profiler: device-busy share, top kernels, the flash
              kernels' share of the step (every one of their launches seen);
@@ -64,15 +65,35 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              per step), the same 8 steps through the plain versions (no
              launch; losses within 1e-2 at step 1 and 5e-2 over the run), and
              4 steps of the unfused model as a yardstick; step ms, images/s,
-             mfu (the bench's FLOP count over 989 TF/s) and peak memory;
+             peak memory, the counted (an unfused step) and the bench's
+             analytic FLOPs, mfu and the step breakdown;
 15. resnet_profile — one ResNet-50 step under torch.profiler: device-busy
              share, top kernels, the fused-block kernels' share (all 16 of
-             their launches seen).
+             their launches seen);
+16. stream_kernels — the two streaming-copy kernels at the probe's shapes
+             (bf16 [802816, 256] and [256, 56, 56, 256]): stream_copy with
+             2-D and 4-D blocks and stream_copy_dma, each run twice and held
+             bit for bit (``torch.equal``) against ``stream_copy_plain``;
+             every refused shape raises; per call: ms, device ms, plain ms,
+             ``torch.mul`` ms, the bound and GB/s;
+17. probe  — ``kubeflow_tpu_torch.e2e.fused_bottleneck_probe.main()`` at its
+             full shapes: its six rows (composite, fused kernel, torch.mul,
+             the three copies), one line each;
+18. ceiling — the device-ceiling probe's ``sweep()`` (bf16 matmul and conv
+             TF/s, f32 triad GB/s) and ``flash_sweep()`` (the flash kernels
+             forward + backward at 8192 tokens);
+19. step_profiles — ``profile_step`` (ResNet-50, batch 256) and
+             ``gpt_profile`` (b 8, L 1024), fewer steps.
+
+The peaks in every bound and mfu come from the port's catalog
+(``kubeflow_tpu_torch.training.flops`` with ``detect_generation()``, which
+raises on a card it does not list); ``mfu`` in phases 10 and 14 is the
+counted FLOPs of a step over its median time.
 
 The launch counts reported per kernel come from its main-path phase (the
 serving phases for the KV writes, ``train`` for flash attention,
-``resnet_train`` for the fused blocks): they are reset just before the run
-and read just after. The fused-block kernels' entries in the kernels line
+``resnet_train`` for the fused blocks, ``probe`` for the streaming
+copies): they are reset just before the run and read just after. The fused-block kernels' entries in the kernels line
 sum their per-call times over the blocks of one training step (2, 3, 5
 and 2 identity blocks; one of each stage head); their ``max_abs_err`` is
 the largest over the shapes. Every phase runs on every call; the last line
@@ -93,10 +114,8 @@ import urllib.request
 import numpy as np
 import torch
 
-#: published H100 SXM HBM3 rate (NVIDIA data sheet), bytes/s
-HBM_BYTES_PER_S = 3.35e12
-#: published H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), FLOP/s
-BF16_FLOPS_PER_S = 989e12
+#: the card's peaks from the port's catalog, set in main()
+HBM_BYTES_PER_S = BF16_FLOPS_PER_S = float("nan")
 MAX_NEW = 32
 PROMPT_LENS = (16, 23, 40, 64, 97, 128, 200, 256)
 
@@ -158,16 +177,19 @@ def kernel_device_ms(fn, match: str, iters: int = 50) -> float:
     """Mean execution time on the device of the kernels whose name holds
     ``match``, per launch (torch.profiler): the kernel alone, without the
     host-side launch cost that ``cuda_ms`` of back-to-back calls includes.
-    The trace must hold every one of the ``iters`` launches."""
+    The trace must hold every one of the ``iters`` launches; a window that
+    lost some (the profiler's first events, now and then) is taken again,
+    up to three times."""
     def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
 
-    ms = cuda_kernel_ms(profiled(run)[0], match)
-    if len(ms) != iters:
-        raise AssertionError(f"profiler saw {len(ms)} {match} kernels for {iters} calls")
-    return sum(ms) / iters
+    for _ in range(3):
+        ms = cuda_kernel_ms(profiled(run)[0], match)
+        if len(ms) == iters:
+            return sum(ms) / iters
+    raise AssertionError(f"profiler saw {len(ms)} {match} kernels for {iters} calls")
 
 
 def device_ms_by_kernel(prof) -> dict:
@@ -649,13 +671,17 @@ def train_phase(card: str):
         runs[label] = res
         emit(phase="train", path=label, card=card, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
              n_params=res["n_params"], losses=losses, step_ms=res["step_ms"],
-             step_ms_median=steady, tokens_per_s=tokens / steady * 1e3,
-             mfu=res["flops_per_step"] / (steady / 1e3) / BF16_FLOPS_PER_S,
+             step_ms_median=steady, tokens_per_s=tokens / steady * 1e3, mfu=res["mfu"],
              flops_per_step=res["flops_per_step"],
-             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+             analytic_flops_per_step=res["analytic_flops_per_step"],
+             counted_over_analytic=res["flops_per_step"] / res["analytic_flops_per_step"],
+             step_breakdown=res["step_breakdown"],
+             peak_mem_gib=res["peak_hbm_bytes"] / 2**30, launches=launches)
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"train {label}: losses {losses}")
-        want = cfg.n_layers * TRAIN_STEPS if attn is None else 0
+        # train() first runs the counted reference step (FLOPs) through the
+        # same attention, then the 8 steps
+        want = cfg.n_layers * (TRAIN_STEPS + 1) if attn is None else 0
         if any(n != want for n in launches.values()):
             raise AssertionError(f"train {label}: launches {launches}, expected {want} each")
         if attn is None:
@@ -945,10 +971,12 @@ def resnet_train_phase(card: str):
         emit(phase="resnet_train", path=label, card=card, batch=cfg.batch, image=cfg.image,
              n_params=res["n_params"], losses=losses, accuracy=res["accuracy"],
              step_ms=res["step_ms"], step_ms_median=steady,
-             images_per_s=cfg.batch / steady * 1e3,
-             mfu=res["flops_per_step"] / (steady / 1e3) / BF16_FLOPS_PER_S,
+             images_per_s=cfg.batch / steady * 1e3, mfu=res["mfu"],
              flops_per_step=res["flops_per_step"],
-             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+             analytic_flops_per_step=res["analytic_flops_per_step"],
+             counted_over_analytic=res["flops_per_step"] / res["analytic_flops_per_step"],
+             step_breakdown=res["step_breakdown"],
+             peak_mem_gib=res["peak_hbm_bytes"] / 2**30, launches=launches)
         if not all(np.isfinite(losses)):
             raise AssertionError(f"resnet_train {label}: losses {losses}")
         want = ({"fused_bottleneck": 12 * steps, "fused_transition": 4 * steps}
@@ -1012,19 +1040,178 @@ def resnet_profile_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phases 16-19: the device-evidence path ------------------------------------------
+
+STREAM_SOURCE = "kubeflow_tpu_torch/ops/csrc/stream_copy.cu"
+STREAM_REPLACES = {
+    "stream_copy": "e2e/fused_bottleneck_probe.py:95 (kern in _pallas_copy, pallas_call :100)",
+    "stream_copy_dma":
+        "e2e/fused_bottleneck_probe.py:107 (kern in _manual_dma_copy, pallas_call :143)",
+}
+#: the probe's stage-1 activations: N, HW, CIN
+PROBE_N, PROBE_HW, PROBE_C = 256, 56, 256
+
+
+def refused(call, label: str) -> None:
+    try:
+        call()
+    except ValueError:
+        return
+    raise AssertionError(f"stream_kernels: {label} was not refused")
+
+
+def stream_kernels_phase(card: str):
+    """Both streaming-copy kernels at the probe's shapes against the plain
+    version, bit for bit, twice; the refused shapes; per call the kernel's
+    time (back-to-back calls, and alone on the device), the plain version's,
+    one ``torch.mul`` by SCALE (the library call; the plain version is that
+    same call) and the bytes bound: x read once, the output written once."""
+    from kubeflow_tpu_torch.ops import stream_copy as sc
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x4 = (torch.randn(PROBE_N, PROBE_HW, PROBE_HW, PROBE_C, generator=g, device="cuda")
+          * 0.3).to(torch.bfloat16)
+    flat = x4.view(-1, PROBE_C)
+    cases = {
+        "stream_copy_2d": ("stream_copy", flat, lambda: sc.stream_copy(flat, (3136, PROBE_C))),
+        "stream_copy_4d": ("stream_copy", x4,
+                           lambda: sc.stream_copy(x4, (1, PROBE_HW, PROBE_HW, PROBE_C))),
+        "stream_copy_dma": ("stream_copy_dma", flat, lambda: sc.stream_copy_dma(flat, 4096)),
+    }
+    results = {}
+    for label, (name, x, call) in cases.items():
+        sc.reset_launches()
+        a, b = call(), call()
+        want = sc.stream_copy_plain(x)
+        torch.cuda.synchronize()
+        if sc.LAUNCHES[name] != 2:
+            raise AssertionError(f"stream_kernels {label}: launches {sc.LAUNCHES}")
+        if not (torch.equal(a, b) and torch.equal(a, want)):
+            raise AssertionError(f"stream_kernels {label}: differs from the plain version "
+                                 f"or between runs (max {max_abs_err(a, want)})")
+        del a, b, want
+        nbytes = 2.0 * x.numel() * x.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(call, iters=20, warmup=3)
+        dev_ms = kernel_device_ms(call, name + "_kernel", iters=10)
+        plain_ms = cuda_ms(lambda: sc.stream_copy_plain(x), iters=20, warmup=3)
+        library_ms = cuda_ms(lambda: torch.mul(x, sc.SCALE), iters=20, warmup=3)
+        emit(phase="stream_kernels", kernel=label, card=card, shape=list(x.shape),
+             bit_equal=True, deterministic=True, kernel_ms=ms, kernel_device_ms=dev_ms,
+             plain_ms=plain_ms, library_ms=library_ms, library="torch.mul(x, SCALE)",
+             bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+             gbps=nbytes / ms / 1e6, device_gbps=nbytes / dev_ms / 1e6,
+             bound_share=bound_ms / dev_ms)
+        if label != "stream_copy_4d":
+            results[name] = dict(name=name, route="cuda", source=STREAM_SOURCE,
+                                 replaces=STREAM_REPLACES[name], max_abs_err=0.0, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                                 library_ms=library_ms)
+    small = flat[:8192]
+    refused(lambda: sc.stream_copy(flat, (3000, PROBE_C)), "a block not dividing dim 0")
+    refused(lambda: sc.stream_copy(flat, (3136, 128)), "a block narrower than dim 1")
+    refused(lambda: sc.stream_copy(x4, (1, PROBE_HW, 28, PROBE_C)), "a 4-D block not whole")
+    refused(lambda: sc.stream_copy(small.float(), (8192, PROBE_C)), "an f32 tensor")
+    refused(lambda: sc.stream_copy(small.t(), (PROBE_C, 8192)), "a transposed view")
+    refused(lambda: sc.stream_copy(small.view(-1)[1:8193], (8192,)), "a misaligned view")
+    refused(lambda: sc.stream_copy(small[:3, :3].contiguous(), (3, 3)), "an odd size")
+    refused(lambda: sc.stream_copy_dma(flat[:5000], 4096), "m not a multiple of bm")
+    refused(lambda: sc.stream_copy_dma(flat[:4096], 4096), "a single tile")
+    refused(lambda: sc.stream_copy_dma(x4, 4096), "a 4-D tensor")
+    emit(phase="stream_kernels", card=card, refused=10)
+    del x4, flat, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+PROBE_CHAIN = 4
+
+
+def probe_phase(card: str) -> dict:
+    """The fused-block probe at its full shapes, in-process (its six rows
+    print one line each). Returns the streaming kernels' launches of the
+    run, which must both be above 0."""
+    from kubeflow_tpu_torch.e2e import fused_bottleneck_probe as fbp
+    from kubeflow_tpu_torch.ops import stream_copy as sc
+
+    sc.reset_launches()
+    if fbp.main(["--chain", str(PROBE_CHAIN)]) != 0:
+        raise AssertionError("probe: main() failed")
+    launches = dict(sc.LAUNCHES)
+    emit(phase="probe", card=card, chain=PROBE_CHAIN, launches=launches)
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"probe: a streaming kernel was never launched: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ceiling_phase(card: str) -> None:
+    """The device-ceiling probe's rows, each beside the catalog's peak, at
+    the probe's own iteration counts (~5 s)."""
+    from kubeflow_tpu_torch.e2e import ceiling
+
+    out = ceiling.sweep()
+    for r in out["kernels"]:
+        emit(phase="ceiling", card=card, **r, of_peak=r["tflops"] * 1e12 / BF16_FLOPS_PER_S)
+    emit(phase="ceiling", card=card, **out["hbm"],
+         of_peak=out["hbm"]["gbs"] * 1e9 / HBM_BYTES_PER_S)
+    for r in ceiling.flash_sweep():
+        emit(phase="ceiling", card=card, **r, of_peak=r["tflops"] * 1e12 / BF16_FLOPS_PER_S)
+    rates = [r["tflops"] for r in out["kernels"]] + [out["hbm"]["gbs"]]
+    if not all(np.isfinite(rates)) or min(rates) <= 0:
+        raise AssertionError(f"ceiling: rates {rates}")
+    emit(phase="ceiling", card=card, ceiling_tflops=out["ceiling_tflops"],
+         peak_tflops=BF16_FLOPS_PER_S / 1e12, hbm_gbs=out["hbm"]["gbs"],
+         peak_hbm_gbs=HBM_BYTES_PER_S / 1e9)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+PROFILE_STEPS = 8
+
+
+def step_profiles_phase(card: str) -> None:
+    """The two step decompositions at their full shapes, fewer steps."""
+    from kubeflow_tpu_torch.e2e import gpt_profile, profile_step
+
+    out = profile_step.profile(batch=256, steps=PROFILE_STEPS)
+    ms = {k: v * 1e3 for k, v in out["seconds"].items()}
+    delta_ms = {k: v * 1e3 for k, v in profile_step.deltas(out["seconds"]).items()}
+    emit(phase="step_profiles", probe="profile_step", card=card, batch=256,
+         steps=PROFILE_STEPS, ms=ms, delta_ms=delta_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = gpt_profile.profile(batch=8, seq=1024, steps=PROFILE_STEPS)
+    emit(phase="step_profiles", probe="gpt_profile", card=card, batch=8, seq=1024,
+         steps=PROFILE_STEPS, rows=rows,
+         sum_ms=sum(r.get("x24_ms", r["ms"]) for r in rows))
+    if not all(np.isfinite(list(ms.values()) + [r["ms"] for r in rows])):
+        raise AssertionError("step_profiles: a time is not finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.training import flops
 
+    global BF16_FLOPS_PER_S, HBM_BYTES_PER_S
     card = smi()
     print(card, flush=True)
+    generation = flops.detect_generation()
+    BF16_FLOPS_PER_S = flops.peak_flops_per_chip(generation)
+    HBM_BYTES_PER_S = flops.peak_hbm_bandwidth(generation)
     t0 = time.perf_counter()
     _build.load_all()
     emit(phase="build", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=time.perf_counter() - t0)
+         build_s=time.perf_counter() - t0, generation=generation,
+         peak_bf16_flops_per_s=BF16_FLOPS_PER_S, peak_hbm_bytes_per_s=HBM_BYTES_PER_S)
 
     seconds = {}
 
@@ -1046,13 +1233,17 @@ def main() -> int:
     timed("resnet_ref", resnet_ref_phase)
     launches.update(timed("resnet_train", resnet_train_phase))
     timed("resnet_profile", resnet_profile_phase)
+    kernels.update(timed("stream_kernels", stream_kernels_phase))
+    launches.update(timed("probe", probe_phase))
+    timed("ceiling", ceiling_phase)
+    timed("step_profiles", step_profiles_phase)
     emit(phase="timing", card=card, seconds=seconds)
     for name, n in launches.items():
         kernels[name]["launches"] = n
 
     order = ("kv_row_update", "kv_block_update", "kv_block_update_quant",
              "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-             "fused_bottleneck", "fused_transition")
+             "fused_bottleneck", "fused_transition", "stream_copy", "stream_copy_dma")
     emit(kernels=[kernels[k] for k in order])
     print(smi(), flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

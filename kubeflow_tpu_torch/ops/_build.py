@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: C signatures of every entry point, by source. Each takes the CUDA device
 #: ordinal first and returns an int (the cudaError_t of the launch).
@@ -57,6 +57,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # device, x, w1t, s1, b1, w2t, s2, b2, w3t, s3, b3, wpt, sp, bp, out,
         # is_bf16, n, hw, cin, cmid, cout, stride, band, stream
         "fused_transition": (I, *(P,) * 14, *(I,) * 8, P),
+    },
+    "stream_copy.cu": {
+        # device, x, out, n_elems, scale, stream
+        "stream_copy": (I, P, P, L, F, P),
+        "stream_copy_dma": (I, P, P, L, F, P),
     },
 }
 

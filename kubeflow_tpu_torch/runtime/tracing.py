@@ -4,7 +4,8 @@ A trimmed copy of ``kubeflow_tpu/runtime/tracing.py``: the OpenTelemetry
 vocabulary (traceId/spanId/parentSpanId, nanosecond epochs, status,
 attributes), an in-memory ring buffer, a thread-local current span, the
 manual ``start_span``/``end_span`` lifecycle a serving request needs (it
-starts on the HTTP thread and ends on the engine worker) and the W3C
+starts on the HTTP thread and ends on the engine worker), ``emit_span``
+for an interval already elapsed (a training step) and the W3C
 ``traceparent`` codec.
 """
 
@@ -86,6 +87,28 @@ class Tracer:
             start_ns=time.time_ns(),
             attributes={"service.name": self.service, **attributes},
         )
+
+    def emit_span(self, name: str, start_ns: int, end_ns: int,
+                  events: Optional[List[Dict[str, Any]]] = None,
+                  parent: Optional[Span] = None, **attributes: Any) -> Span:
+        """Record an already-elapsed interval as a span (StepClock's per-step
+        hook: the step is only known to be a span at ``end_step()``)."""
+        if parent is None:
+            parent = self.current_span()
+        span = Span(
+            name=name,
+            trace_id=parent.trace_id if parent else _rand_hex(16),
+            span_id=_rand_hex(8),
+            parent_span_id=parent.span_id if parent else None,
+            start_ns=start_ns,
+            end_ns=end_ns,
+            attributes={"service.name": self.service, **attributes},
+        )
+        if events:
+            span.events = list(events)
+        with self._lock:
+            self._spans.append(span)
+        return span
 
     def end_span(self, span: Span, error: Optional[BaseException] = None) -> Span:
         if error is not None:

@@ -18,7 +18,9 @@ or at a tiny size on the CPU, through the kernels' plain versions::
 
     python -m kubeflow_tpu_torch.training.resnet --steps 3 --tiny --device cpu
 
-Each step prints one JSON line: loss, accuracy, step ms, images/s.
+Each step prints one JSON line: loss, accuracy, step ms, images/s; the
+last line holds the FLOP counts, mfu (on the card), the step breakdown and
+the peak device memory.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -34,7 +35,11 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..gpu.profiling import StepClock, step_breakdown
 from ..models.resnet import BottleneckBlock, ResNet
+from ..ops import _build
+from ..runtime.tracing import TRACER
+from . import flops
 from .classifier import ClassifierTask, sgd_momentum
 
 #: ``bench.py``'s fallback FLOP count: ResNet-50's forward at 224 x 224 is
@@ -86,8 +91,26 @@ def make_batch(cfg: ResNetBenchConfig, seed: int, device: DeviceLike
 
 
 def flops_per_step(batch: int) -> float:
-    """The bench's FLOP count of one step: 3 x the analytic forward."""
+    """The bench's analytic FLOP count of one step: 3 x the analytic
+    forward."""
     return 3.0 * ANALYTIC_FWD_FLOPS_PER_IMAGE * batch
+
+
+def make_task(cfg: ResNetBenchConfig, model: ResNet) -> ClassifierTask:
+    return ClassifierTask(model, functools.partial(sgd_momentum, lr=cfg.lr,
+                                                   total_steps=cfg.total_steps))
+
+
+def counted_flops_per_step(cfg: ResNetBenchConfig, images: torch.Tensor,
+                           labels: torch.Tensor, seed: int = 0) -> float:
+    """The step's FLOPs as ``bench.py`` counts them: one train step of the
+    UNFUSED model (the same math; the fused blocks' kernels are invisible
+    to the counter, as a Pallas call is to XLA's cost analysis), counted by
+    :func:`flops.counted_flops` on a throwaway model on ``images``'s
+    device."""
+    model = make_model(cfg, seed=seed, device=images.device, fused_blocks=False)
+    task = make_task(cfg, model)
+    return float(flops.counted_flops(task.train_step, task.init(), images, labels))
 
 
 def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLike = "cuda",
@@ -95,32 +118,54 @@ def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLi
           on_step: Optional[Callable[[Dict[str, Any]], None]] = None) -> Dict[str, Any]:
     """``steps`` SGD steps from seeded weights on one seeded batch.
 
-    Returns the per-step losses, accuracies and host step times (each step
-    ends in a read of its loss, which waits for the device), the images per
-    step and the bench's FLOPs per step. ``on_step`` gets each step's record."""
+    Each step runs under a :class:`StepClock`: ``compute`` around the step's
+    dispatch, ``fetch`` around the read of its loss (which waits for the
+    device); the kernels' first-use build is charged to ``compile``. Returns
+    the per-step losses, accuracies and step times, the images per step,
+    the step's counted FLOPs (:func:`counted_flops_per_step`) beside the
+    bench's analytic count, ``mfu`` of the median step after the first (on
+    the card; None on the CPU, which has no catalog peak), the
+    ``step_breakdown`` and ``peak_hbm_bytes`` of the training loop (None on
+    the CPU). ``on_step`` gets each step's record."""
     dev = resolve_device(device)
     images, labels = make_batch(cfg, seed, dev)
+    clock = StepClock(tracer=TRACER)
+    fused = cfg.fused_blocks if fused_blocks is None else fused_blocks
+    if dev.type == "cuda" and fused and not plain_kernels:
+        with clock.compile():
+            _build.load("fused_bottleneck.cu")
+    counted = counted_flops_per_step(cfg, images, labels, seed)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     model = make_model(cfg, seed=seed, device=dev, fused_blocks=fused_blocks,
                        plain_kernels=plain_kernels)
-    task = ClassifierTask(model, functools.partial(sgd_momentum, lr=cfg.lr,
-                                                   total_steps=cfg.total_steps))
+    task = make_task(cfg, model)
     state = task.init()
     losses: List[float] = []
     accuracy: List[float] = []
     step_ms: List[float] = []
+    clock.mark()
     for step in range(steps):
-        t0 = time.perf_counter()
-        state, metrics = task.train_step(state, images, labels)
-        loss = float(metrics["loss"])
-        ms = (time.perf_counter() - t0) * 1e3
+        with clock.compute():
+            state, metrics = task.train_step(state, images, labels)
+        with clock.fetch():
+            loss = float(metrics["loss"])
+        ms = clock.end_step()["total"] * 1e3
         losses.append(loss)
         accuracy.append(float(metrics["accuracy"]))
         step_ms.append(ms)
         if on_step is not None:
             on_step({"step": step + 1, "loss": loss, "accuracy": accuracy[-1],
                      "step_ms": ms, "images_per_s": cfg.batch / ms * 1e3})
+    steady_s = float(np.median(step_ms[1:] or step_ms)) / 1e3
+    mem = flops.memory_stats(dev)
     return {"losses": losses, "accuracy": accuracy, "step_ms": step_ms,
-            "images_per_step": cfg.batch, "flops_per_step": flops_per_step(cfg.batch),
+            "images_per_step": cfg.batch, "flops_per_step": counted,
+            "analytic_flops_per_step": flops_per_step(cfg.batch),
+            "mfu": (flops.mfu(counted, steady_s, generation=flops.detect_generation(dev))
+                    if dev.type == "cuda" else None),
+            "step_breakdown": step_breakdown(clock),
+            "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
             "n_params": sum(p.numel() for p in model.parameters())}
 
 
@@ -135,8 +180,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = tiny_config() if args.tiny else bench_config()
     result = train(cfg, steps=args.steps, device=args.device,
                    on_step=lambda r: print(json.dumps(r), flush=True))
-    print(json.dumps({"n_params": result["n_params"],
-                      "flops_per_step": result["flops_per_step"]}), flush=True)
+    keys = ("n_params", "flops_per_step", "analytic_flops_per_step", "mfu",
+            "step_breakdown", "peak_hbm_bytes")
+    print(json.dumps({k: result[k] for k in keys}), flush=True)
     return 0
 
 
