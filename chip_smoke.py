@@ -35,9 +35,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              plain versions (atol 2e-2 on out/dq/dk/dv, 1e-3 on lse), at f32
              shapes (b 2, h 2, L 256, d 32 and 64; atol 1e-4), non-causal,
              lq != lk, q_offset = lk, k_offset = 10 lk (every row masked:
-             zeros, lse -1e30) and bf16_dots; each kernel run twice and
+             zeros, lse -1e30), the same edges in bf16 (d 32 and 128,
+             ragged 100/130 at d 128; atol 2e-2, lse 1e-3: the tensor-core
+             forward and dk/dv) and bf16_dots; the split: at d 32, 64
+             and 128, out, dk and dv differ from the f32 answer rounded to
+             bf16 in at most 2% of elements (p and ds as hi + lo), and in
+             more under bf16_dots (hi alone); each kernel run twice and
              compared bit for bit; per-call times beside the bound, the
-             plain versions and PyTorch's scaled_dot_product_attention;
+             plain versions and PyTorch's scaled_dot_product_attention
+             (achieved TF/s, device ms over SDPA's);
 9. train_ref — a tiny f32 GPT: loss and every gradient through the kernels
              on the card against the plain path on the CPU (atol 1e-4);
 10. train  — the bench's GPT-2-medium-class config at full width (b 8,
@@ -538,6 +544,41 @@ def flash_case(fa, label, b, h, lq, lk, d, dtype, atol, lse_atol, causal=True,
     return (q, k, v, do, kw), errs
 
 
+# share of out, dk and dv elements that may differ from the f32 answer rounded
+# to bf16, where p and ds enter their dots as hi + lo (ties at a rounding edge)
+SPLIT_LIMIT = 0.02
+
+
+def flash_split_case(fa, d, b=2, h=4, L=1024, seed=1):
+    """The tensor-core kernels' numeric contract on the card: with bf16_dots
+    off, p and ds enter their dots as hi + lo, so out, dk and dv are the f32
+    plain answer on the same bf16 values, rounded to bf16, in all but at most
+    SPLIT_LIMIT of their elements. hi alone (the bf16_dots kernels) moves
+    far more of them past a rounding edge, which shows the check can fail."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, L, h, d, generator=g).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    kw = dict(causal=True, scale=d ** -0.5, q_offset=0, k_offset=0)
+    ref_out, _ = fa.flash_attention_fwd_plain(qf, kf, vf, **kw)
+    share = {}
+    for dots in (False, True):
+        out, lse = fa.flash_attention_fwd(q, k, v, bf16_dots=dots, **kw)
+        dk, dv = fa.bwd_dkv_kernel(q, k, v, do, lse, fa._delta(out, do), bf16_dots=dots, **kw)
+        # the backward's f32 answer from the kernel's own out and lse, so that
+        # delta = rowsum(dout * out) is the same in both
+        _, ref_dk, ref_dv = fa.flash_attention_bwd_plain(qf, kf, vf, out.float(), lse, dof, **kw)
+        share["hi" if dots else "hi+lo"] = {
+            n: float((x != r.to(torch.bfloat16)).float().mean())
+            for n, x, r in (("out", out, ref_out), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
+    emit(phase="flash", case=f"split_d{d}", shape=[b, L, L, h, d],
+         share_off_bf16_of_f32=share, limit=SPLIT_LIMIT)
+    if not max(share["hi+lo"].values()) <= SPLIT_LIMIT:
+        raise AssertionError(f"flash split_d{d}: hi + lo off the f32 answer: {share}")
+    if not min(share["hi"].values()) > SPLIT_LIMIT:
+        raise AssertionError(f"flash split_d{d}: hi alone passes the split check: {share}")
+
+
 def flash_phase(card: str):
     """The flash-attention kernels: correctness over the cases the issue
     names, then times at the training path's shapes."""
@@ -557,6 +598,15 @@ def flash_phase(card: str):
     flash_case(fa, "q_offset_lk", 2, 2, 256, 256, 64, torch.float32, 1e-4, 1e-4, q_offset=256)
     flash_case(fa, "k_offset_10lk", 2, 2, 256, 256, 64, torch.float32, 1e-4, 1e-4,
                k_offset=2560)
+    # the same edges in bf16, through the tensor-core forward and dk/dv
+    bf = dict(dtype=torch.bfloat16, atol=2e-2, lse_atol=1e-3)
+    for dd in (32, 128):
+        flash_case(fa, f"bf16_d{dd}", 2, 2, 256, 256, dd, **bf)
+    flash_case(fa, "bf16_non_causal", 2, 2, 256, 256, 64, causal=False, **bf)
+    flash_case(fa, "bf16_lq_ne_lk", 2, 2, 192, 320, 64, **bf)
+    flash_case(fa, "bf16_ragged_d128", 1, 3, 100, 130, 128, **bf)
+    flash_case(fa, "bf16_q_offset_lk", 2, 2, 256, 256, 64, q_offset=256, **bf)
+    flash_case(fa, "bf16_k_offset_10lk", 2, 2, 256, 256, 64, k_offset=2560, **bf)
     flash_case(fa, "bf16_dots", 2, 2, 256, 256, 64, torch.float32, 2e-2, 1e-3, bf16_dots=True)
     flash_case(fa, "bf16_dots_bf16", 2, 4, 512, 512, 64, torch.bfloat16, 2e-2, 1e-3,
                bf16_dots=True)
@@ -599,7 +649,7 @@ def flash_phase(card: str):
         emit(phase="flash", kernel=name, card=card, kernel_ms=ms, kernel_device_ms=dev_ms,
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bd["bound_ms"],
              bound_by=bd["bound_by"], flops=bd["flops"], bytes=bd["bytes"],
-             achieved_tflops=bd["flops"] / dev_ms / 1e9,
+             achieved_tflops=bd["flops"] / dev_ms / 1e9, device_ms_over_library=dev_ms / library_ms,
              library="sdpa forward" if name == "flash_fwd" else
              "sdpa backward (dq, dk and dv together: fwd+bwd minus fwd)",
              plain="plain forward" if name == "flash_fwd" else
@@ -607,6 +657,10 @@ def flash_phase(card: str):
     del q, k, v, do, out, lse, delta, qt, kt, vt
     gc.collect()
     torch.cuda.empty_cache()
+    # after the times: in a run with these before them, the profiler's
+    # windows lost every flash_fwd launch (torch 2.11, CUDA 12.8, H100)
+    for dd in (32, 64, 128):
+        flash_split_case(fa, dd)
     return results
 
 

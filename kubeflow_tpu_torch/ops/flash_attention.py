@@ -17,7 +17,11 @@ masking: a row that sees no key gives zeros and ``lse = -1e30``.
 
 Precision as in JAX: by default every dot runs on f32 operands
 (``bf16_dots=False``); ``bf16_dots=True`` rounds each operand, ``p`` and
-``ds`` included, to bf16 first, with f32 sums.
+``ds`` included, to bf16 first, with f32 sums. On bf16 inputs the forward
+and dk/dv kernels run their dots on the tensor cores (bf16 ``mma``, f32
+sums): q, k, v and dout products are exact, and with ``bf16_dots=False``
+``p`` and ``ds`` enter as two bf16 terms ``hi + lo`` (within 2^-16 of the
+f32 value, relative); f32 inputs and dq keep f32 SIMT products.
 
 A wrapper takes the plain PyTorch versions (:func:`flash_attention_fwd_plain`,
 :func:`flash_attention_bwd_plain`, which materialize the scores in f32) only
@@ -172,6 +176,13 @@ def _check_cuda(q: torch.Tensor, *others: torch.Tensor) -> None:
                          "must be [b, lq, h, d] and [b, lk, h, d]")
 
 
+def _check_aligned(*ts: torch.Tensor) -> None:
+    """The bf16 kernels move rows in 16-byte vectors."""
+    for t in ts:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("flash_attention: tensors must start on a 16-byte boundary")
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _build.entry(SOURCE, name)(device.index, *args, stream)
@@ -199,6 +210,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_cuda(q, k, v)
     q, k, v = q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous()
     b, lq, h, _ = q.shape
+    _check_aligned(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -239,6 +251,7 @@ def bwd_dq_kernel(q, k, v, dout, lse, delta, **kw) -> torch.Tensor:
 
 def bwd_dkv_kernel(q, k, v, dout, lse, delta, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_bwd_dkv``; inputs as :func:`bwd_dq_kernel`."""
+    _check_aligned(q, k, v, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),

@@ -6,7 +6,7 @@ On the CPU the port runs its plain versions through the same
 in interpret mode, as tests/test_ops.py does (``_fwd``/``_bwd`` for the
 log-sum-exp and the raw gradients, ``jax.grad`` of ``flash_attention`` for
 the wired-up VJP). Inputs are made with numpy from a seed and handed to
-both.
+both; JAX's answer for each of ``CASES`` is computed once and shared.
 
 Tolerances. f32: the same math with sums in another order, so ``out`` and
 ``lse`` within 2e-5 (test_ops.py's bound against exact attention) and
@@ -17,6 +17,7 @@ with a single JAX tile (L <= 128) the formulas are the same, so only f32
 sum order differs, which can move a bf16 rounding of p by one ULP: 1e-3.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -61,19 +62,42 @@ CASES = {
 }
 
 
+def _bf16_values(*xs):
+    """f32 arrays rounded to bf16 values, so that every product is exact."""
+    return [torch.tensor(x).to(torch.bfloat16).float().numpy() for x in xs]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(case):
+    """Inputs for ``CASES[case]`` and JAX's interpret-mode ``_fwd`` then
+    ``_bwd`` on them with the case's blocks, under one jit: ((q, k, v, do),
+    (out, lse, (dq, dk, dv))). The inputs are made from a seed and rounded
+    to bf16 values, so that the tensor-core model below sees exact products.
+    Computed once a case and shared by the tests that hold the f32 path and
+    the model against JAX."""
+    b, lq, lk, h, d, causal, qo, ko, blk = CASES[case]
+    q, k, v = _bf16_values(*_qkv(0, b, lq, lk, h, d))
+    (do,) = _bf16_values(np.random.default_rng(3).normal(size=(b, lq, h, d)).astype(np.float32))
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko)
+
+    def run(q, k, v, do):
+        out, lse = jfa._fwd(q, k, v, block_q=blk, block_k=blk, interpret=True, **kw)
+        return out, lse, jfa._bwd(q, k, v, out, lse, do, block_q=blk, block_k=blk,
+                                  interpret=True, **kw)
+    return (q, k, v, do), jax.tree.map(np.asarray, jax.jit(run)(*_j(q, k, v, do)))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_forward_out_and_lse_match_jax(case):
     b, lq, lk, h, d, causal, qo, ko, blk = CASES[case]
-    q, k, v = _qkv(0, b, lq, lk, h, d)
+    (q, k, v, _), (want_out, want_lse, _) = _jax_reference(case)
     scale = d ** -0.5
-    want_out, want_lse = jfa._fwd(*_j(q, k, v), causal=causal, scale=scale, q_offset=qo,
-                                  k_offset=ko, block_q=blk, block_k=blk, interpret=True)
     out, lse = tfa.flash_attention_fwd(*_t(q, k, v), causal=causal, scale=scale,
                                        q_offset=qo, k_offset=ko)
     assert out.shape == (b, lq, h, d) and lse.shape == (b, h, lq)
     assert lse.dtype == torch.float32
-    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-5, rtol=0)
-    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=2e-5, rtol=0)
+    np.testing.assert_allclose(out.numpy(), want_out, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse[..., 0], atol=2e-5, rtol=0)
 
 
 def test_fully_masked_rows_give_zeros_and_neg_big_lse():
@@ -90,19 +114,13 @@ def test_fully_masked_rows_give_zeros_and_neg_big_lse():
 @pytest.mark.parametrize("case", ["causal", "lq_ne_lk", "k_offset_partly_masked"])
 def test_raw_backward_matches_jax_bwd(case):
     b, lq, lk, h, d, causal, qo, ko, blk = CASES[case]
-    q, k, v = _qkv(2, b, lq, lk, h, d)
-    do = np.random.default_rng(3).normal(size=(b, lq, h, d)).astype(np.float32)
+    (q, k, v, do), (_, _, want) = _jax_reference(case)
     kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko)
-    jq, jk, jv, jdo = _j(q, k, v, do)
-    jout, jlse = jfa._fwd(jq, jk, jv, block_q=blk, block_k=blk, interpret=True, **kw)
-    want = jfa._bwd(jq, jk, jv, jout, jlse, jdo, block_q=blk, block_k=blk,
-                    interpret=True, **kw)
     tq, tk, tv, tdo = _t(q, k, v, do)
     out, lse = tfa.flash_attention_fwd(tq, tk, tv, **kw)
     got = tfa.flash_attention_bwd(tq, tk, tv, out, lse, tdo, **kw)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0,
-                                   err_msg=name)
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4, rtol=0, err_msg=name)
 
 
 def _jax_grads(q, k, v, dtype, **kw):
@@ -223,3 +241,187 @@ def test_kernels_match_plain_on_the_card():
             assert (lse - p_lse).abs().max() <= 1e-3
             for g, p in zip(grads, p_grads):
                 assert (g.float() - p.float()).abs().max() <= atol
+
+
+# -- the tensor-core kernels' arithmetic ---------------------------------------
+#
+# On bf16 inputs the forward and dk/dv kernels run every dot on bf16 mma with
+# f32 sums. q, k, v and dout are bf16, so their products are exact; p and ds
+# are f32 and enter their dots as hi = bf16(x) and lo = bf16(x - hi), two
+# mma summed in f32 (hi alone under bf16_dots). The model below is the plain
+# forward and backward with that one change; with bf16-representable inputs
+# it must meet JAX's f32 kernels at the f32 tolerances above.
+
+
+def _split(x):
+    """x as two bf16 terms in f32: hi = bf16_rn(x), lo = bf16_rn(x - hi)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_dot(eq, x, y, bf16_dots):
+    """einsum(eq, x, y) with x entering as its two bf16 terms (hi alone
+    under ``bf16_dots``), each product summed in f32 and then added."""
+    hi, lo = _split(x)
+    out = torch.einsum(eq, hi, y)
+    return out if bf16_dots else out + torch.einsum(eq, lo, y)
+
+
+def _mma_model(q, k, v, do, *, causal, scale, q_offset, k_offset, bf16_dots=False):
+    """(out, lse, dq, dk, dv) as the tensor-core kernels compute them, on f32
+    tensors that hold bf16 values; dq as the SIMT kernel (f32 ds)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = tfa._visible(q.shape[1], k.shape[1], causal, q_offset, k_offset, q.device)
+    if mask is not None:
+        s = s.masked_fill(~mask, tfa.NEG_BIG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = (_split_dot("bhqk,bkhd->bhqd", p, v, bf16_dots) / l_safe).transpose(1, 2)
+    lse = torch.where(l == 0.0, torch.full_like(l, tfa.NEG_BIG), m + torch.log(l_safe))
+    p = torch.exp(s - lse)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - tfa._delta(out, do)[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = _split_dot("bhqk,bqhd->bkhd", ds, q, bf16_dots)
+    dv = _split_dot("bhqk,bqhd->bkhd", p, do, bf16_dots)
+    return out, lse[..., 0], dq, dk, dv
+
+
+def _jax_one_tile(q, k, v, do, **kw):
+    """JAX's interpret-mode ``_fwd`` then ``_bwd`` with one tile per (batch,
+    head), under one jit: (out, lse, (dq, dk, dv))."""
+    lq, lk = q.shape[1], k.shape[1]
+
+    def run(q, k, v, do):
+        out, lse = jfa._fwd(q, k, v, block_q=lq, block_k=lk, interpret=True, **kw)
+        return out, lse, jfa._bwd(q, k, v, out, lse, do, block_q=lq, block_k=lk,
+                                  interpret=True, **kw)
+    return jax.jit(run)(*_j(q, k, v, do))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tensor_core_arithmetic_matches_jax_f32(case):
+    """The hi + lo split keeps the kernels' bf16 path at JAX's f32 answer:
+    out and lse within 2e-5, gradients within 1e-4."""
+    b, lq, lk, h, d, causal, qo, ko, _ = CASES[case]
+    (q, k, v, do), (jout, jlse, want) = _jax_reference(case)
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko)
+    out, lse, *got = _mma_model(*_t(q, k, v, do), **kw)
+    np.testing.assert_allclose(out.numpy(), jout, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), jlse[..., 0], atol=2e-5, rtol=0)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["causal", "k_offset_partly_masked"])
+def test_tensor_core_arithmetic_with_bf16_dots_matches_jax(case):
+    """Under ``bf16_dots`` the kernels take hi alone, which is JAX's
+    ``p.astype(bfloat16)``: the tolerance of test_bf16_dots_match_jax."""
+    b, lq, lk, h, d, causal, qo, ko, _ = CASES[case]
+    q, k, v = _bf16_values(*_qkv(13, b, lq, lk, h, d))
+    (do,) = _bf16_values(np.random.default_rng(14).normal(size=(b, lq, h, d)).astype(np.float32))
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko, bf16_dots=True)
+    jout, jlse, want = _jax_one_tile(q, k, v, do, **kw)
+    out, lse, _, dk, dv = _mma_model(*_t(q, k, v, do), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0], atol=1e-3, rtol=0)
+    for g, w, name in zip((dk, dv), want[1:], ("dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3, rtol=0, err_msg=name)
+
+
+def test_hi_lo_split_is_within_two_to_the_minus_16():
+    p = torch.tensor(1.0 - np.random.default_rng(15).random(100_000), dtype=torch.float32)
+    assert p.min() > 0 and p.max() <= 1
+    hi, lo = _split(p)
+    assert ((p - (hi + lo)).abs() / p).max() <= 2.0 ** -16
+    # hi alone is bf16's own rounding, far coarser
+    assert ((p - hi).abs() / p).max() > 2.0 ** -10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_dots", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tensor_core_kernels_match_plain_on_the_card(d, bf16_dots):
+    """flash_fwd and flash_bwd_dkv on bf16 (the mma kernels) against their
+    plain versions at toy shapes with ragged lengths and offsets: out and
+    dk, dv within 2e-2 (bf16 outputs), lse within 1e-3; twice for the same
+    bits; a row that sees no key gives zeros and lse -1e30."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    for (b, lq, lk, h, causal, qo, ko) in [(2, 100, 100, 2, True, 0, 0),
+                                           (1, 64, 200, 3, False, 0, 0),
+                                           (1, 130, 70, 1, True, 60, 0),
+                                           (1, 96, 160, 2, True, 0, 32),
+                                           (1, 64, 64, 2, True, 0, 640)]:
+        q, k, v = (x.cuda().to(torch.bfloat16) for x in _t(*_qkv(16, b, lq, lk, h, d)))
+        do = torch.randn(b, lq, h, d, device="cuda").to(torch.bfloat16)
+        kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko,
+                  bf16_dots=bf16_dots)
+        tfa.reset_launches()
+        runs = []
+        for _ in range(2):
+            out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+            delta = tfa._delta(out, do)
+            runs.append((out, lse, *tfa.bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)))
+        torch.cuda.synchronize()
+        assert tfa.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 0, "flash_bwd_dkv": 2}
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        out, lse, dk, dv = runs[0]
+        p_out, p_lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+        _, p_dk, p_dv = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        assert (out.float() - p_out.float()).abs().max() <= 2e-2
+        assert (lse - p_lse).abs().max() <= 1e-3
+        assert (dk.float() - p_dk.float()).abs().max() <= 2e-2
+        assert (dv.float() - p_dv.float()).abs().max() <= 2e-2
+        if ko >= qo + lq:
+            assert torch.equal(out, torch.zeros_like(out)) and (lse == tfa.NEG_BIG).all()
+
+
+
+def _share_off_bf16(x, ref):
+    """Share of elements of bf16 ``x`` that differ from f32 ``ref`` rounded to bf16."""
+    return float((x.to(torch.bfloat16) != ref.to(torch.bfloat16)).float().mean())
+
+
+def test_split_rounds_to_the_f32_answer_where_hi_alone_does_not():
+    """The bound that chip_smoke.py holds the kernels to: with p and ds as
+    hi + lo, out, dk and dv are the f32 answer rounded to bf16 in all but at
+    most 2% of elements; hi alone moves far more past a rounding edge."""
+    q, k, v, do = _t(*_bf16_values(*_qkv(17, 1, 256, 256, 2, 32),
+                                   np.random.default_rng(18).normal(size=(1, 256, 2, 32))))
+    kw = dict(causal=True, scale=32 ** -0.5, q_offset=0, k_offset=0)
+    ref_out, _ = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+    for bf16_dots, check in ((False, lambda s: s <= 0.02), (True, lambda s: s > 0.02)):
+        out, lse, _, dk, dv = _mma_model(q, k, v, do, bf16_dots=bf16_dots, **kw)
+        _, ref_dk, ref_dv = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        for name, x, ref in (("out", out, ref_out), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            assert check(_share_off_bf16(x, ref)), (name, bf16_dots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_split_rounds_to_the_f32_answer_on_the_card(d):
+    """The kernels themselves under the same bound: bf16_dots off (hi + lo)
+    within 2% of elements off the f32 answer rounded to bf16, bf16_dots on
+    (hi alone) beyond it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = (x.cuda().to(torch.bfloat16) for x in _t(
+        *_qkv(19, 2, 512, 512, 2, d), np.random.default_rng(20).normal(size=(2, 512, 2, d))))
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    kw = dict(causal=True, scale=d ** -0.5, q_offset=0, k_offset=0)
+    ref_out, _ = tfa.flash_attention_fwd_plain(qf, kf, vf, **kw)
+    for bf16_dots, check in ((False, lambda s: s <= 0.02), (True, lambda s: s > 0.02)):
+        out, lse = tfa.flash_attention_fwd(q, k, v, bf16_dots=bf16_dots, **kw)
+        dk, dv = tfa.bwd_dkv_kernel(q, k, v, do, lse, tfa._delta(out, do),
+                                    bf16_dots=bf16_dots, **kw)
+        _, ref_dk, ref_dv = tfa.flash_attention_bwd_plain(qf, kf, vf, out.float(), lse, dof, **kw)
+        for name, x, ref in (("out", out, ref_out), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            assert check(_share_off_bf16(x, ref)), (name, bf16_dots)
