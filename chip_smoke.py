@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              (``torch.equal``) against its plain PyTorch version on the
              card; per-call times of kernel (back-to-back calls, and the kernel
              alone on the device), plain version and one PyTorch
-             ``index_put_`` beside the bytes bound;
+             ``index_put_`` (by call, and its kernels alone on the device)
+             beside the bytes bound;
 3. serve   — GPT-small (seeded random weights) behind ``ModelServer`` on
              port 0, paged bf16 arena, 8 slots: 8 concurrent greedy HTTP
              requests, prompts of 16-256 tokens, 32 new tokens each, once
@@ -35,15 +36,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              plain versions (atol 2e-2 on out/dq/dk/dv, 1e-3 on lse), at f32
              shapes (b 2, h 2, L 256, d 32 and 64; atol 1e-4), non-causal,
              lq != lk, q_offset = lk, k_offset = 10 lk (every row masked:
-             zeros, lse -1e30), the same edges in bf16 (d 32 and 128,
+             zeros, lse -1e30, dq 0), the same edges in bf16 (d 32 and 128,
              ragged 100/130 at d 128; atol 2e-2, lse 1e-3: the tensor-core
-             forward and dk/dv) and bf16_dots; the split: at d 32, 64
-             and 128, out, dk and dv differ from the f32 answer rounded to
-             bf16 in at most 2% of elements (p and ds as hi + lo), and in
-             more under bf16_dots (hi alone); each kernel run twice and
-             compared bit for bit; per-call times beside the bound, the
-             plain versions and PyTorch's scaled_dot_product_attention
-             (achieved TF/s, device ms over SDPA's);
+             kernels) and bf16_dots; the split: at d 32, 64 and 128, out,
+             dq, dk and dv differ from the f32 answer rounded to bf16 in at
+             most 2% of elements (p and ds as hi + lo), and in more under
+             bf16_dots (hi alone); each kernel run twice and compared bit
+             for bit; per-call times beside the bound, the plain versions
+             and PyTorch's scaled_dot_product_attention (event time, and
+             the device time of every kernel it launches: achieved TF/s,
+             device ms over SDPA's device ms); the port's whole backward
+             (``flash_bwd_whole``: delta, dq, dk/dv) against SDPA's
+             backward alone, on the device, and a check that the bf16
+             backward ran the tensor-core dq kernel;
 9. train_ref — a tiny f32 GPT: loss and every gradient through the kernels
              on the card against the plain path on the CPU (atol 1e-4);
 10. train  — the bench's GPT-2-medium-class config at full width (b 8,
@@ -116,6 +121,7 @@ import sys
 import threading
 import time
 import urllib.request
+from collections import Counter
 
 import numpy as np
 import torch
@@ -171,12 +177,20 @@ def profiled(run, activities=("cuda",)):
     return prof, wall_ms
 
 
-def cuda_kernel_ms(prof, match: str) -> list:
-    """Device ms of each kernel in a trace whose name holds ``match``."""
+def device_events(prof) -> list:
+    """(name, device ms) of each kernel, copy and memset in a torch.profiler
+    trace. Spans of user annotations on the device timeline
+    (``Optimizer.step#...``) are left out: they cover kernels counted on
+    their own."""
     from torch.autograd import DeviceType
 
-    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-            if e.device_type == DeviceType.CUDA and match in e.name]
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def cuda_kernel_ms(prof, match: str) -> list:
+    """Device ms of each kernel in a trace whose name holds ``match``."""
+    return [ms for name, ms in device_events(prof) if match in name]
 
 
 def kernel_device_ms(fn, match: str, iters: int = 50) -> float:
@@ -199,16 +213,31 @@ def kernel_device_ms(fn, match: str, iters: int = 50) -> float:
 
 
 def device_ms_by_kernel(prof) -> dict:
-    """Device time (ms) per kernel name in a torch.profiler trace. Spans of
-    user annotations on the device timeline (``Optimizer.step#...``) are
-    left out: they cover kernels counted on their own."""
-    from torch.autograd import DeviceType
-
+    """Device time (ms) per kernel name in a torch.profiler trace."""
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, ms in device_events(prof):
+        by_name[name] = by_name.get(name, 0.0) + ms
     return by_name
+
+
+def library_device_ms(fn, iters: int = 20):
+    """Device ms per call of every CUDA kernel that ``fn`` launches (a
+    library call's yardstick, by the profiler method of
+    ``kernel_device_ms``), and the sorted names of those kernels. Each
+    kernel of a call runs once per call or a fixed number of times, so a
+    window in which some name's launches are not a multiple of ``iters``
+    lost launches and is taken again, up to three times."""
+    def run():
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    for _ in range(3):
+        events = device_events(profiled(run)[0])
+        counts = Counter(name for name, _ in events)
+        if counts and all(n % iters == 0 for n in counts.values()):
+            return sum(ms for _, ms in events) / iters, sorted(counts)
+    raise AssertionError(f"profiler saw {counts} kernels for {iters} calls")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -252,17 +281,25 @@ def kernel_phase(card: str):
 
     results = {}
 
-    def report(name, replaces, err, call, plain_ms, library_ms, nbytes):
+    def report(name, replaces, err, call, plain_ms, library, nbytes):
+        """``library``: one PyTorch call writing the same rows, or None;
+        timed by call (CUDA events) and on the device (its kernels alone)."""
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ms = cuda_ms(call)
+        dev_ms = kernel_device_ms(call, name + "_kernel")
+        library_ms = lib_dev_ms = lib_names = None
+        if library is not None:
+            library_ms = cuda_ms(library)
+            lib_dev_ms, lib_names = library_device_ms(library)
         results[name] = dict(name=name, route="cuda",
                              source="kubeflow_tpu_torch/ops/csrc/kv_cache.cu",
                              replaces=replaces, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                              library_ms=library_ms)
         emit(phase="kernels", kernel=name, card=card, bit_equal=err == 0.0,
-             kernel_ms=ms, kernel_device_ms=kernel_device_ms(call, name + "_kernel"),
-             plain_ms=plain_ms, library_ms=library_ms,
+             kernel_ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
+             library_ms=library_ms, library_device_ms=lib_dev_ms, library_kernels=lib_names,
+             device_ms_over_library=None if lib_dev_ms is None else dev_ms / lib_dev_ms,
              bound_ms=bound_ms, bytes=nbytes, launches_per_token=2 * n_layers)
 
     # kv_row_update
@@ -276,7 +313,7 @@ def kernel_phase(card: str):
            max_abs_err(a, b),
            lambda: kc.kv_row_update(work, new, cur_d),
            cuda_ms(lambda: kc.kv_row_update_plain(work, new, cur_d)),
-           cuda_ms(lambda: work.index_put_((rows_v, pos_v), new_v)),
+           lambda: work.index_put_((rows_v, pos_v), new_v),
            cursor_bytes + 2 * n_valid * row)
 
     # kv_block_update
@@ -291,7 +328,7 @@ def kernel_phase(card: str):
            max_abs_err(a, b),
            lambda: kc.kv_block_update(work, new, cur_d, tables_d, max_seq=T),
            cuda_ms(lambda: kc.kv_block_update_plain(work, new, cur_d, tables_d, max_seq=T)),
-           cuda_ms(lambda: work.index_put_((blk_v, off_v), new_v)),
+           lambda: work.index_put_((blk_v, off_v), new_v),
            cursor_bytes + entry_bytes + 2 * n_valid * row)
 
     # kv_block_update_quant
@@ -497,7 +534,9 @@ def flash_bounds(b, h, lq, lk, d, causal, q_offset, k_offset, elt):
     qb, kb, rows = b * lq * h * d * elt, b * lk * h * d * elt, b * h * lq * 4
     work = {"flash_fwd": (2 * dot, 2 * qb + 2 * kb + rows),          # q k v -> out lse
             "flash_bwd_dq": (3 * dot, 3 * qb + 2 * kb + 2 * rows),   # q k v do lse delta -> dq
-            "flash_bwd_dkv": (4 * dot, 2 * qb + 4 * kb + 2 * rows)}  # ... -> dk dv
+            "flash_bwd_dkv": (4 * dot, 2 * qb + 4 * kb + 2 * rows),  # ... -> dk dv
+            # S, dP, dS K, dS^T Q, P^T dO once each; q k v out do lse -> dq dk dv
+            "flash_bwd_whole": (5 * dot, 4 * qb + 4 * kb + rows)}
     out = {}
     for name, (flops, nbytes) in work.items():
         t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -534,8 +573,9 @@ def flash_case(fa, label, b, h, lq, lk, d, dtype, atol, lse_atol, causal=True,
     if bad or not all(torch.isfinite(t.float()).all() for t in runs[0]):
         raise AssertionError(f"flash {label}: kernel vs plain {errs} (limits {limits})")
     if k_offset >= q_offset + lq:  # no query sees any key
-        if out.abs().max() != 0 or not (lse == fa.NEG_BIG).all():
-            raise AssertionError(f"flash {label}: fully masked rows must give 0 and -1e30")
+        if out.abs().max() != 0 or dq.abs().max() != 0 or not (lse == fa.NEG_BIG).all():
+            raise AssertionError(f"flash {label}: fully masked rows must give out 0, dq 0 "
+                                 "and lse -1e30")
     emit(phase="flash", case=label, shape=[b, lq, lk, h, d], dtype=str(dtype),
          causal=causal, q_offset=q_offset, k_offset=k_offset, bf16_dots=bf16_dots,
          max_abs_err=errs, limits=limits, max_abs={n: float(t.float().abs().max())
@@ -551,9 +591,9 @@ SPLIT_LIMIT = 0.02
 
 def flash_split_case(fa, d, b=2, h=4, L=1024, seed=1):
     """The tensor-core kernels' numeric contract on the card: with bf16_dots
-    off, p and ds enter their dots as hi + lo, so out, dk and dv are the f32
-    plain answer on the same bf16 values, rounded to bf16, in all but at most
-    SPLIT_LIMIT of their elements. hi alone (the bf16_dots kernels) moves
+    off, p and ds enter their dots as hi + lo, so out, dq, dk and dv are the
+    f32 plain answer on the same bf16 values, rounded to bf16, in all but at
+    most SPLIT_LIMIT of their elements. hi alone (the bf16_dots kernels) moves
     far more of them past a rounding edge, which shows the check can fail."""
     g = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(b, L, h, d, generator=g).to("cuda", torch.bfloat16)
@@ -564,13 +604,17 @@ def flash_split_case(fa, d, b=2, h=4, L=1024, seed=1):
     share = {}
     for dots in (False, True):
         out, lse = fa.flash_attention_fwd(q, k, v, bf16_dots=dots, **kw)
-        dk, dv = fa.bwd_dkv_kernel(q, k, v, do, lse, fa._delta(out, do), bf16_dots=dots, **kw)
+        delta = fa._delta(out, do)
+        dq = fa.bwd_dq_kernel(q, k, v, do, lse, delta, bf16_dots=dots, **kw)
+        dk, dv = fa.bwd_dkv_kernel(q, k, v, do, lse, delta, bf16_dots=dots, **kw)
         # the backward's f32 answer from the kernel's own out and lse, so that
         # delta = rowsum(dout * out) is the same in both
-        _, ref_dk, ref_dv = fa.flash_attention_bwd_plain(qf, kf, vf, out.float(), lse, dof, **kw)
+        ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_plain(qf, kf, vf, out.float(), lse, dof,
+                                                              **kw)
         share["hi" if dots else "hi+lo"] = {
             n: float((x != r.to(torch.bfloat16)).float().mean())
-            for n, x, r in (("out", out, ref_out), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
+            for n, x, r in (("out", out, ref_out), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                            ("dv", dv, ref_dv))}
     emit(phase="flash", case=f"split_d{d}", shape=[b, L, L, h, d],
          share_off_bf16_of_f32=share, limit=SPLIT_LIMIT)
     if not max(share["hi+lo"].values()) <= SPLIT_LIMIT:
@@ -615,10 +659,12 @@ def flash_phase(card: str):
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     delta = fa._delta(out, do)
     bwd_in = (q, k, v, do, lse, delta)
+    # the bf16 calls must reach the tensor-core kernels: each profiler match
+    # names the mma kernel, and a SIMT launch would leave its window short
     calls = {
-        "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw), "flash_fwd_kernel"),
-        "flash_bwd_dq": (lambda: fa.bwd_dq_kernel(*bwd_in, **kw), "flash_bwd_dq_kernel"),
-        "flash_bwd_dkv": (lambda: fa.bwd_dkv_kernel(*bwd_in, **kw), "flash_bwd_dkv_kernel"),
+        "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw), "flash_fwd_kernel_mma"),
+        "flash_bwd_dq": (lambda: fa.bwd_dq_kernel(*bwd_in, **kw), "flash_bwd_dq_kernel_mma"),
+        "flash_bwd_dkv": (lambda: fa.bwd_dkv_kernel(*bwd_in, **kw), "flash_bwd_dkv_kernel_mma"),
     }
     plain_fwd = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw), iters=10, warmup=2)
     plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw),
@@ -632,29 +678,54 @@ def flash_phase(card: str):
         torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
     lib_bwd = cuda_ms(sdpa_fwd_bwd, iters=50) - lib_fwd
+    # the same yardsticks as device time, by the kernels' own profiler method:
+    # the forward, and the backward alone (one forward outside the window)
+    lib_fwd_dev, lib_fwd_names = library_device_ms(sdpa)
+    sdpa_out = sdpa()
+    lib_bwd_dev, lib_bwd_names = library_device_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
     bounds = flash_bounds(b, h, L, L, d, True, 0, 0, 2)
     results = {}
     for name, (call, match) in calls.items():
         ms = cuda_ms(call, iters=20, warmup=3)
         dev_ms = kernel_device_ms(call, match, iters=10)
-        plain_ms = plain_fwd if name == "flash_fwd" else plain_bwd
-        library_ms = lib_fwd if name == "flash_fwd" else lib_bwd
+        fwd = name == "flash_fwd"
+        plain_ms = plain_fwd if fwd else plain_bwd
+        library_ms = lib_fwd if fwd else lib_bwd
+        lib_dev = lib_fwd_dev if fwd else lib_bwd_dev
         bd = bounds[name]
-        err = errs["out"] if name == "flash_fwd" else (
+        err = errs["out"] if fwd else (
             errs["dq"] if name == "flash_bwd_dq" else max(errs["dk"], errs["dv"]))
         results[name] = dict(name=name, route="cuda", source=FLASH_SOURCE,
                              replaces=FLASH_REPLACES[name], max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bd["bound_ms"],
                              bound_by=bd["bound_by"], library_ms=library_ms)
-        emit(phase="flash", kernel=name, card=card, kernel_ms=ms, kernel_device_ms=dev_ms,
-             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bd["bound_ms"],
-             bound_by=bd["bound_by"], flops=bd["flops"], bytes=bd["bytes"],
-             achieved_tflops=bd["flops"] / dev_ms / 1e9, device_ms_over_library=dev_ms / library_ms,
-             library="sdpa forward" if name == "flash_fwd" else
-             "sdpa backward (dq, dk and dv together: fwd+bwd minus fwd)",
-             plain="plain forward" if name == "flash_fwd" else
-             "plain backward (dq, dk and dv together)")
-    del q, k, v, do, out, lse, delta, qt, kt, vt
+        emit(phase="flash", kernel=name, card=card, match=match, kernel_ms=ms,
+             kernel_device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+             library_device_ms=lib_dev,
+             library_kernels=lib_fwd_names if fwd else lib_bwd_names,
+             bound_ms=bd["bound_ms"], bound_by=bd["bound_by"], flops=bd["flops"],
+             bytes=bd["bytes"], achieved_tflops=bd["flops"] / dev_ms / 1e9,
+             device_ms_over_library=dev_ms / lib_dev,
+             library="sdpa forward" if fwd else
+             "sdpa backward alone (dq, dk and dv together); library_ms: fwd+bwd minus fwd",
+             plain="plain forward" if fwd else "plain backward (dq, dk and dv together)")
+
+    # the port's whole backward (delta's kernels, dq, dk/dv) against SDPA's
+    whole_ms, whole_names = library_device_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+    dq_names = [n for n in whole_names if "flash_bwd_dq_kernel" in n]
+    if not dq_names or not all("flash_bwd_dq_kernel_mma" in n for n in dq_names):
+        raise AssertionError(f"flash: the bf16 backward launched {dq_names}, "
+                             "not the tensor-core dq kernel")
+    bd = bounds["flash_bwd_whole"]
+    emit(phase="flash", kernel="flash_bwd_whole", card=card, device_ms=whole_ms,
+         kernels=whole_names, library_device_ms=lib_bwd_dev, library_kernels=lib_bwd_names,
+         device_ms_over_library=whole_ms / lib_bwd_dev, bound_ms=bd["bound_ms"],
+         bound_by=bd["bound_by"], flops=bd["flops"], bytes=bd["bytes"],
+         achieved_tflops=bd["flops"] / whole_ms / 1e9,
+         library_achieved_tflops=bd["flops"] / lib_bwd_dev / 1e9)
+    del q, k, v, do, out, lse, delta, qt, kt, vt, sdpa_out
     gc.collect()
     torch.cuda.empty_cache()
     # after the times: in a run with these before them, the profiler's
@@ -755,7 +826,8 @@ def train_profile_phase(card: str) -> None:
     """The bench config's train step: host ms of 3 unprofiled steps after a
     warm-up step, then one step under torch.profiler after a warm-up cycle:
     device-busy share of that step's wall time, the top kernels, and the
-    flash kernels' share (every one of their launches must be in the trace).
+    flash kernels' share (every one of their launches must be in the trace,
+    each the tensor-core kernel: the step is bf16).
     The profiled step's device ms over the unprofiled steps' host ms is an
     estimate of the busy share without the profiler."""
     from kubeflow_tpu_torch.models.gpt import GptLM, init_params
@@ -782,11 +854,11 @@ def train_profile_phase(card: str) -> None:
     by_name = device_ms_by_kernel(prof)
     device_ms = sum(by_name.values())
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    seen = {n: len(cuda_kernel_ms(prof, n + "_kernel")) for n in names}
+    seen = {n: len(cuda_kernel_ms(prof, n + "_kernel_mma")) for n in names}
     if seen != {n: cfg.n_layers for n in names}:
-        raise AssertionError(f"train_profile: the trace holds {seen} flash launches, "
-                             f"expected {cfg.n_layers} of each")
-    flash_ms = {n: sum(cuda_kernel_ms(prof, n + "_kernel")) for n in names}
+        raise AssertionError(f"train_profile: the trace holds {seen} tensor-core flash "
+                             f"launches, expected {cfg.n_layers} of each")
+    flash_ms = {n: sum(cuda_kernel_ms(prof, n + "_kernel_mma")) for n in names}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     emit(phase="train_profile", card=card, step_ms_unprofiled=unprofiled_ms,
          step_wall_ms=wall_ms, device_ms=device_ms,

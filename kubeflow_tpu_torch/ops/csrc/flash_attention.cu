@@ -28,14 +28,15 @@
 //
 // Two designs.
 //
-// bf16 forward and dk/dv (`flash_fwd_kernel_mma`, `flash_bwd_dkv_kernel_mma`)
-// run every dot on the tensor cores: mma.sync.m16n8k16 bf16 x bf16 -> f32.
-// Each warp owns 16 rows of the output tile (query rows in the forward, key
-// rows in dk/dv). Tiles arrive in bf16 shared memory by 16-byte cp.async,
-// double buffered: the copy of tile i+1 is issued before tile i is
-// computed. Rows are padded to d + 8 elements (16 bytes), so the 8 row
-// addresses of an ldmatrix fall in 8 distinct 16-byte bank groups. The
-// ragged edge of lq and lk is the zero-fill form of cp.async (src-size 0).
+// bf16 forward, dq and dk/dv (`flash_fwd_kernel_mma`, `flash_bwd_dq_kernel_mma`,
+// `flash_bwd_dkv_kernel_mma`) run every dot on the tensor cores:
+// mma.sync.m16n8k16 bf16 x bf16 -> f32. Each warp owns 16 rows of the output
+// tile (query rows in the forward and dq, key rows in dk/dv). Tiles arrive in
+// bf16 shared memory by 16-byte cp.async, double buffered: the copy of tile
+// i+1 is issued before tile i is computed. Rows are padded to d + 8 elements
+// (16 bytes), so the 8 row addresses of an ldmatrix fall in 8 distinct
+// 16-byte bank groups. The ragged edge of lq and lk is the zero-fill form of
+// cp.async (src-size 0).
 //   forward: Q's A fragments come once from shared memory by ldmatrix;
 //     S = Q K^T takes K's rows as B columns (plain ldmatrix); the online
 //     softmax runs on the C fragments in registers (row max and sum over the
@@ -43,19 +44,34 @@
 //     reuses P's C fragments as A fragments in registers and takes V by
 //     ldmatrix.trans. The out tile goes back through the warp's own rows of
 //     the Q tile as 16-byte stores. Tile: 64 query rows (4 warps) x 64 keys.
+//   dq: the forward with a second score product and no online softmax. Q and
+//     dO are A fragments, held in registers for the block's lifetime at
+//     d <= 64 (at d 128, which would spill, they stay in shared memory and
+//     are reloaded by ldmatrix for each k-tile). S = Q K^T and dP = dO V^T
+//     take K and V rows as B columns from the double-buffered k-tiles; P =
+//     exp(S scale - lse) and dS = P (dP - delta) scale are formed on the C
+//     fragments in registers (lse and delta: 2 rows a thread); dQ += dS K
+//     reuses dS's C fragments as A fragments and takes K, from the same
+//     shared tile, by ldmatrix.trans. Tile: 64 query rows (4 warps) x 64 keys.
 //   dk/dv: K and V are A fragments, held in registers for the block's
-//     lifetime at d <= 64 (at d 128, which would spill, they stay in shared
-//     memory and are reloaded by ldmatrix for each q-tile). S^T = K Q^T and
-//     dP^T = V dO^T take Q and dO as B operands from the double-buffered
-//     tiles, with lse and delta staged beside them; P^T = exp(S^T scale -
+//     lifetime at d <= 64 (at d 128 they stay in shared memory, as dq's Q
+//     and dO). S^T = K Q^T and dP^T = V dO^T take Q and dO as B operands
+//     from the double-buffered tiles, with lse and delta staged beside them; P^T = exp(S^T scale -
 //     lse) and dS^T = P^T (dP^T - delta) scale are formed in registers,
 //     already in A-fragment layout; dV += P^T dO and dK += dS^T Q take dO and
 //     Q by ldmatrix.trans. Tile: 64 keys (4 warps) x 64 queries (32 at d 128).
-//   Tiles: 4 warps, 64 x 64 for both kernels (dk/dv 64 x 32 at d 128).
+//   Tiles: 4 warps, 64 x 64 for every kernel (dk/dv 64 x 32 at d 128).
 //     At b 8, h 16, L 1024, d 64 on the H100 these beat 8-warp blocks and
 //     wider k- or q-tiles (128 x 64, 64 x 128, 128 x 128 forward; 128 x 64,
 //     128 x 32 dk/dv), and 64 x 32 dk/dv was no faster (PERF.md).
-//     ptxas reports no spills at any head_dim.
+//     ptxas -v: dq and dk/dv spill nothing at any head_dim (the forward at
+//     d 32 under bf16_dots spills 4 bytes); dq's registers a thread
+//     (bf16_dots 0 / 1) are 127 / 127 at d 32, 211 / 211 at d 64 and
+//     233 / 234 at d 128, with Q and dO in shared memory there.
+//   Masking: the element mask runs only on tiles that cross the diagonal or
+//     the ragged edge of lk, and overwrites p with 0 there: a row that sees
+//     no key has lse = -1e30, so its exp is inf, and the mask must win (such
+//     a row's dq is 0, its dk/dv terms are 0).
 //
 // Numerics. q, k, v and dout are bf16, and a bf16 x bf16 product is exact in
 // f32, so S and dP are the f32 SIMT kernel's products with only the order of
@@ -64,26 +80,27 @@
 // lo = bf16_rn(x - hi), so two mma give the f32 dot within 2^-16 of |x|
 // relative (hi and lo each round to within 2^-8 relative, so
 // |x - hi - lo| <= 2^-8 |x - hi| <= 2^-16 |x|),
-// below the half-ULP 2^-9 at which out, dk and dv are rounded to bf16. With
-// bf16_dots = 1 every operand is rounded to bf16 and sums stay f32: hi alone,
-// one mma. No product on this path runs on the f32 SIMT units.
+// below the half-ULP 2^-9 at which out, dq, dk and dv are rounded to bf16.
+// With bf16_dots = 1 every operand is rounded to bf16 and sums stay f32: hi
+// alone, one mma, as JAX's ds.astype(bfloat16). No product on this path runs
+// on the f32 SIMT units.
 //
-// f32 (every kernel) and bf16 dq (`flash_bwd_dq_kernel`) keep the SIMT
-// design: 64 x 64 tiles, 256 threads as a 16 x 16 grid, f32 tiles in shared
-// memory padded to d + 1, every product an f32 FMA (bf16_dots rounds each
-// operand to bf16 first). f32 inputs have no exact bf16 product, so the
-// tensor cores would change their answer. `chip_smoke.py` holds this path
-// in phase `train_ref` (a tiny f32 GPT, gradients within 1e-4) and in the
-// f32 cases of phase `flash`.
+// f32 inputs (every kernel) keep the SIMT design: 64 x 64 tiles, 256 threads
+// as a 16 x 16 grid, f32 tiles in shared memory padded to d + 1, every
+// product an f32 FMA (bf16_dots rounds each operand to bf16 first). f32
+// inputs have no exact bf16 product, so the tensor cores would change their
+// answer. `chip_smoke.py` holds this path in phase `train_ref` (a tiny f32
+// GPT, gradients within 1e-4) and in the f32 cases of phase `flash`.
 //
 // Bound (b 8, h 16, L 1024, d 64, causal, bf16; H100 SXM: 989 TF/s bf16,
 // 3.35 TB/s; the function's work, not the kernels'): forward 2 causal dots
 // 17.2 GFLOP (17.4 us) vs 67.6 MB (20.2 us): bytes; dq 3 dots 25.8 GFLOP
 // (26.1 us) vs 85 MB (25.4 us): operations; dk/dv 4 dots 34.4 GFLOP
 // (34.8 us) vs 102 MB (30.4 us): operations. The hi/lo split runs the p and
-// ds dots twice, so the tensor cores execute 1.5x those operations, and the
-// diagonal tiles compute their masked half. exp2 on the special-function
-// unit (16 a clock per SM) costs about as much as the mma of a d-64 score.
+// ds dots twice, so the tensor cores execute 1.5x those operations (dq
+// 1.33x: only dS K is split), and the diagonal tiles compute their masked
+// half. exp2 on the special-function unit (16 a clock per SM) costs about
+// as much as the mma of a d-64 score.
 //
 // Each entry point first makes `device` current (this library links its own
 // CUDA runtime), launches on the caller's stream and returns
@@ -611,6 +628,9 @@ constexpr int FWD_BQ = 64;  // query rows of a forward block
 constexpr int FWD_BK = 64;  // keys of a forward k-tile
 constexpr int DKV_THREADS = 128;
 constexpr int DKV_BK = 64;  // key rows of a dk/dv block
+constexpr int DQ_THREADS = 128;
+constexpr int DQ_BQ = 64;  // query rows of a dq block
+constexpr int DQ_BK = 64;  // keys of a dq k-tile
 // queries of a dk/dv q-tile; 32 at d 128, where 64 would spill registers
 template <int D> __host__ __device__ constexpr int dkv_bq() { return D == 128 ? 32 : 64; }
 
@@ -932,6 +952,157 @@ flash_bwd_dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dva, one, Vs + warp * 16 * LDS, dv + kbase, rs, row0, a.lk);
 }
 
+// dq. LO: ds enters dS K as hi + lo (bf16_dots = 0), else as hi alone.
+template <int D, bool LO>
+__global__ void __launch_bounds__(DQ_THREADS)
+flash_bwd_dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, Args a) {
+  constexpr int LDS = D + 8, KC = D / 16, NT = DQ_BK / 8, DT = D / 8;
+  constexpr bool QO_REGS = D <= 64;  // Q and dO fragments in registers for the block's life
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [DQ_BQ][LDS]
+  bf16* dOs = Qs + DQ_BQ * LDS;                   // [DQ_BQ][LDS]
+  bf16* Ks = dOs + DQ_BQ * LDS;                   // [2][DQ_BK][LDS]
+  bf16* Vs = Ks + 2 * DQ_BK * LDS;                // [2][DQ_BK][LDS]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int ih = blockIdx.y, ib = blockIdx.z;
+  const int q_lo = blockIdx.x * DQ_BQ;
+  const int64_t rs = (int64_t)a.h * D;
+  const int64_t qbase = ((int64_t)ib * a.lq * a.h + ih) * D;
+  const bf16* kb = k + ((int64_t)ib * a.lk * a.h + ih) * D;
+  const bf16* vb = v + ((int64_t)ib * a.lk * a.h + ih) * D;
+  const float sl2 = a.scale * LOG2E;
+
+  int nk = (a.lk + DQ_BK - 1) / DQ_BK;  // k-tiles to visit, as in the forward
+  if (a.causal) {
+    const int last = a.q_offset + min(q_lo + DQ_BQ, a.lq) - 1 - a.k_offset;
+    nk = last < 0 ? 0 : min(nk, last / DQ_BK + 1);
+  }
+
+  // this thread's rows qr0 (e 0, 1) and qr0 + 8 (e 2, 3): lse in log2 units, delta
+  const int qr0 = q_lo + warp * 16 + g;
+  const float* lse_bh = lse + ((int64_t)ib * a.h + ih) * a.lq;
+  const float* delta_bh = delta + ((int64_t)ib * a.h + ih) * a.lq;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = qr0 + 8 * r < a.lq;
+    lse2[r] = ok ? lse_bh[qr0 + 8 * r] * LOG2E : 0.0f;
+    dlt[r] = ok ? delta_bh[qr0 + 8 * r] : 0.0f;
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  uint32_t qf[QO_REGS ? KC : 1][4], of[QO_REGS ? KC : 1][4];
+  if (nk > 0) {
+    load_tile_async<DQ_BQ, D, DQ_THREADS>(Qs, q + qbase, rs, q_lo, a.lq);
+    load_tile_async<DQ_BQ, D, DQ_THREADS>(dOs, dout + qbase, rs, q_lo, a.lq);
+    load_tile_async<DQ_BK, D, DQ_THREADS>(Ks, kb, rs, 0, a.lk);
+    load_tile_async<DQ_BK, D, DQ_THREADS>(Vs, vb, rs, 0, a.lk);
+  }
+  cp_async_commit();
+
+  const bf16* Qw = Qs + warp * 16 * LDS;  // this warp's 16 query rows
+  const bf16* dOw = dOs + warp * 16 * LDS;
+  for (int ik = 0; ik < nk; ++ik) {
+    const int st = ik & 1, k_lo = ik * DQ_BK;
+    if (ik + 1 < nk) {  // tile ik + 1 into the other stage, read by no warp since the last barrier
+      load_tile_async<DQ_BK, D, DQ_THREADS>(Ks + (st ^ 1) * DQ_BK * LDS, kb, rs, k_lo + DQ_BK,
+                                            a.lk);
+      load_tile_async<DQ_BK, D, DQ_THREADS>(Vs + (st ^ 1) * DQ_BK * LDS, vb, rs, k_lo + DQ_BK,
+                                            a.lk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + st * DQ_BK * LDS;
+    const bf16* Vt = Vs + st * DQ_BK * LDS;
+    if (QO_REGS && ik == 0) {
+#pragma unroll
+      for (int kc = 0; kc < (QO_REGS ? KC : 1); ++kc) {
+        ldmatrix_x4(qf[kc], smem_addr(Qw + (lane % 16) * LDS + kc * 16 + (lane / 16) * 8));
+        ldmatrix_x4(of[kc], smem_addr(dOw + (lane % 16) * LDS + kc * 16 + (lane / 16) * 8));
+      }
+    }
+
+    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys a warp, K and V rows as B columns
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], oa[4];
+      if (QO_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[QO_REGS ? kc : 0][e];
+          oa[e] = of[QO_REGS ? kc : 0][e];
+        }
+      } else {
+        ldmatrix_x4(qa, smem_addr(Qw + (lane % 16) * LDS + kc * 16 + (lane / 16) * 8));
+        ldmatrix_x4(oa, smem_addr(dOw + (lane % 16) * LDS + kc * 16 + (lane / 16) * 8));
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int off = (np * 16 + lane % 8 + (lane / 16) * 8) * LDS + kc * 16 + ((lane / 8) % 2) * 8;
+        uint32_t b[4];
+        ldmatrix_x4(b, smem_addr(Kt + off));
+        mma(s[2 * np], qa, b[0], b[1]);
+        mma(s[2 * np + 1], qa, b[2], b[3]);
+        ldmatrix_x4(b, smem_addr(Vt + off));
+        mma(dp[2 * np], oa, b[0], b[1]);
+        mma(dp[2 * np + 1], oa, b[2], b[3]);
+      }
+    }
+
+    // dS = P (dP - delta) scale in registers, in place of dP; a masked p is 0,
+    // also in a row that sees no key (lse -1e30 makes its exp inf)
+    const bool edge = k_lo + DQ_BK > a.lk ||
+                      (a.causal && a.q_offset + q_lo < a.k_offset + k_lo + DQ_BK - 1);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        float p = exp2f(s[n][e] * sl2 - lse2[r]);
+        if (edge) {
+          const int kc = k_lo + n * 8 + 2 * t + (e & 1);
+          if (kc >= a.lk || (a.causal && a.q_offset + qr0 + 8 * r < a.k_offset + kc)) p = 0.0f;
+        }
+        dp[n][e] = p * (dp[n][e] - dlt[r]) * a.scale;
+      }
+
+    // dQ += dS K: dS's C fragments are the A fragments, K by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk) {
+      uint32_t dh[4], dl[4];
+      c_to_a(dp, kk, dh, dl);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t b[4];  // keys 16 kk + [0, 16), d 16 dd + [0, 8) and + [8, 16)
+        ldmatrix_x4_trans(b, smem_addr(Kt + (kk * 16 + lane % 16) * LDS + dd * 16 + (lane / 16) * 8));
+        mma(acc[2 * dd], dh, b[0], b[1]);
+        mma(acc[2 * dd + 1], dh, b[2], b[3]);
+        if (LO) {
+          mma(acc[2 * dd], dl, b[0], b[1]);
+          mma(acc[2 * dd + 1], dl, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+  // only this warp reads its 16 rows of Qs
+  const float one[2] = {1.0f, 1.0f};
+  store_rows<D>(acc, one, Qs + warp * 16 * LDS, dq + qbase, rs, q_lo + warp * 16, a.lq);
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -946,6 +1117,9 @@ template <int D> constexpr size_t fwd_mma_smem() {
 }
 template <int D> constexpr size_t dkv_mma_smem() {
   return sizeof(bf16) * (2 * DKV_BK + 4 * dkv_bq<D>()) * (D + 8) + sizeof(float) * 4 * dkv_bq<D>();
+}
+template <int D> constexpr size_t dq_mma_smem() {
+  return sizeof(bf16) * (2 * DQ_BQ + 4 * DQ_BK) * (D + 8);
 }
 
 template <typename Kernel, typename... Ptrs>
@@ -1007,20 +1181,26 @@ cudaError_t bwd_dkv_mma(const void* q, const void* k, const void* v, const void*
                 static_cast<bf16*>(dk), static_cast<bf16*>(dv));
 }
 
-// Returns FN<T, D>(...) for the element type and head_dim given at run
-// time; anything else is cudaErrorInvalidValue (the wrapper raises first).
-#define FLASH_DISPATCH(FN, ...)                                      \
-  {                                                                  \
-    if (is_bf16) {                                                   \
-      if (d == 32) return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__);   \
-      if (d == 64) return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);   \
-      if (d == 128) return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__); \
-    } else {                                                         \
-      if (d == 32) return (int)FN<float, 32>(__VA_ARGS__);           \
-      if (d == 64) return (int)FN<float, 64>(__VA_ARGS__);           \
-      if (d == 128) return (int)FN<float, 128>(__VA_ARGS__);         \
-    }                                                                \
-    return (int)cudaErrorInvalidValue;                               \
+template <int D>
+cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, int b, const Args& a,
+                       cudaStream_t st) {
+  auto kernel = a.bf16_dots ? flash_bwd_dq_kernel_mma<D, false> : flash_bwd_dq_kernel_mma<D, true>;
+  return launch(kernel, DQ_THREADS, dq_mma_smem<D>(), (a.lq + DQ_BQ - 1) / DQ_BQ, a.h, b, st, a,
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+                static_cast<bf16*>(dq));
+}
+
+// Returns FN<float, D>(...) for the head_dim given at run time (the f32
+// SIMT kernels: every entry point sends bf16 to the tensor-core kernels
+// first); anything else is cudaErrorInvalidValue (the wrapper raises first).
+#define FLASH_DISPATCH(FN, ...)                             \
+  {                                                         \
+    if (d == 32) return (int)FN<float, 32>(__VA_ARGS__);    \
+    if (d == 64) return (int)FN<float, 64>(__VA_ARGS__);    \
+    if (d == 128) return (int)FN<float, 128>(__VA_ARGS__);  \
+    return (int)cudaErrorInvalidValue;                      \
   }
 
 // Returns FN<D>(...) for the head_dim given at run time (the bf16
@@ -1057,7 +1237,9 @@ int flash_bwd_dq(int device, const void* q, const void* k, const void* v,
   if (set != cudaSuccess) return (int)set;
   if (b == 0 || lq == 0 || h == 0) return (int)cudaGetLastError();
   const Args a{lq, lk, h, scale, causal, q_offset, k_offset, bf16_dots};
-  FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, b, a, (cudaStream_t)stream)
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16) HEAD_DIM_DISPATCH(bwd_dq_mma, q, k, v, dout, lse, delta, dq, b, a, st)
+  FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, b, a, st)
 }
 
 int flash_bwd_dkv(int device, const void* q, const void* k, const void* v,

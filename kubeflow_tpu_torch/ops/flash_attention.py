@@ -17,11 +17,11 @@ masking: a row that sees no key gives zeros and ``lse = -1e30``.
 
 Precision as in JAX: by default every dot runs on f32 operands
 (``bf16_dots=False``); ``bf16_dots=True`` rounds each operand, ``p`` and
-``ds`` included, to bf16 first, with f32 sums. On bf16 inputs the forward
-and dk/dv kernels run their dots on the tensor cores (bf16 ``mma``, f32
-sums): q, k, v and dout products are exact, and with ``bf16_dots=False``
-``p`` and ``ds`` enter as two bf16 terms ``hi + lo`` (within 2^-16 of the
-f32 value, relative); f32 inputs and dq keep f32 SIMT products.
+``ds`` included, to bf16 first, with f32 sums. On bf16 inputs all three
+kernels run their dots on the tensor cores (bf16 ``mma``, f32 sums): q, k,
+v and dout products are exact, and with ``bf16_dots=False`` ``p`` and
+``ds`` enter as two bf16 terms ``hi + lo`` (within 2^-16 of the f32 value,
+relative); f32 inputs keep f32 SIMT products.
 
 A wrapper takes the plain PyTorch versions (:func:`flash_attention_fwd_plain`,
 :func:`flash_attention_bwd_plain`, which materialize the scores in f32) only
@@ -242,6 +242,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_dq_kernel(q, k, v, dout, lse, delta, **kw) -> torch.Tensor:
     """Launch ``flash_bwd_dq`` on contiguous CUDA tensors of one dtype
     (lse, delta: [b, h, lq] f32); :func:`flash_attention_bwd` prepares them."""
+    _check_aligned(q, k, v, dout)
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),

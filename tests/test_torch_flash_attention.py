@@ -245,9 +245,9 @@ def test_kernels_match_plain_on_the_card():
 
 # -- the tensor-core kernels' arithmetic ---------------------------------------
 #
-# On bf16 inputs the forward and dk/dv kernels run every dot on bf16 mma with
-# f32 sums. q, k, v and dout are bf16, so their products are exact; p and ds
-# are f32 and enter their dots as hi = bf16(x) and lo = bf16(x - hi), two
+# On bf16 inputs the forward, dq and dk/dv kernels run every dot on bf16 mma
+# with f32 sums. q, k, v and dout are bf16, so their products are exact; p
+# and ds are f32 and enter their dots as hi = bf16(x) and lo = bf16(x - hi), two
 # mma summed in f32 (hi alone under bf16_dots). The model below is the plain
 # forward and backward with that one change; with bf16-representable inputs
 # it must meet JAX's f32 kernels at the f32 tolerances above.
@@ -269,7 +269,8 @@ def _split_dot(eq, x, y, bf16_dots):
 
 def _mma_model(q, k, v, do, *, causal, scale, q_offset, k_offset, bf16_dots=False):
     """(out, lse, dq, dk, dv) as the tensor-core kernels compute them, on f32
-    tensors that hold bf16 values; dq as the SIMT kernel (f32 ds)."""
+    tensors that hold bf16 values: p enters P V and dP^T dO, and ds enters
+    dS K and dS^T Q, as hi + lo (hi alone under ``bf16_dots``)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     mask = tfa._visible(q.shape[1], k.shape[1], causal, q_offset, k_offset, q.device)
     if mask is not None:
@@ -287,7 +288,7 @@ def _mma_model(q, k, v, do, *, causal, scale, q_offset, k_offset, bf16_dots=Fals
         p = p.masked_fill(~mask, 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
     ds = p * (dp - tfa._delta(out, do)[..., None]) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dq = _split_dot("bhqk,bkhd->bqhd", ds, k, bf16_dots)
     dk = _split_dot("bhqk,bqhd->bkhd", ds, q, bf16_dots)
     dv = _split_dot("bhqk,bqhd->bkhd", p, do, bf16_dots)
     return out, lse[..., 0], dq, dk, dv
@@ -328,10 +329,10 @@ def test_tensor_core_arithmetic_with_bf16_dots_matches_jax(case):
     (do,) = _bf16_values(np.random.default_rng(14).normal(size=(b, lq, h, d)).astype(np.float32))
     kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko, bf16_dots=True)
     jout, jlse, want = _jax_one_tile(q, k, v, do, **kw)
-    out, lse, _, dk, dv = _mma_model(*_t(q, k, v, do), **kw)
+    out, lse, *got = _mma_model(*_t(q, k, v, do), **kw)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-3, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0], atol=1e-3, rtol=0)
-    for g, w, name in zip((dk, dv), want[1:], ("dk", "dv")):
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3, rtol=0, err_msg=name)
 
 
@@ -348,10 +349,11 @@ def test_hi_lo_split_is_within_two_to_the_minus_16():
 @pytest.mark.parametrize("bf16_dots", [False, True])
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_tensor_core_kernels_match_plain_on_the_card(d, bf16_dots):
-    """flash_fwd and flash_bwd_dkv on bf16 (the mma kernels) against their
-    plain versions at toy shapes with ragged lengths and offsets: out and
-    dk, dv within 2e-2 (bf16 outputs), lse within 1e-3; twice for the same
-    bits; a row that sees no key gives zeros and lse -1e30."""
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv on bf16 (the mma kernels)
+    against their plain versions at toy shapes with ragged lengths and
+    offsets: out, dq, dk and dv within 2e-2 (bf16 outputs), lse within 1e-3;
+    twice for the same bits; a row that sees no key gives zeros, lse -1e30
+    and dq 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
     for (b, lq, lk, h, causal, qo, ko) in [(2, 100, 100, 2, True, 0, 0),
@@ -368,19 +370,59 @@ def test_tensor_core_kernels_match_plain_on_the_card(d, bf16_dots):
         for _ in range(2):
             out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
             delta = tfa._delta(out, do)
-            runs.append((out, lse, *tfa.bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)))
+            runs.append((out, lse, tfa.bwd_dq_kernel(q, k, v, do, lse, delta, **kw),
+                         *tfa.bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)))
         torch.cuda.synchronize()
-        assert tfa.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 0, "flash_bwd_dkv": 2}
+        assert tfa.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
         assert all(torch.equal(x, y) for x, y in zip(*runs))
-        out, lse, dk, dv = runs[0]
+        out, lse, dq, dk, dv = runs[0]
         p_out, p_lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
-        _, p_dk, p_dv = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        p_dq, p_dk, p_dv = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
         assert (out.float() - p_out.float()).abs().max() <= 2e-2
         assert (lse - p_lse).abs().max() <= 1e-3
-        assert (dk.float() - p_dk.float()).abs().max() <= 2e-2
-        assert (dv.float() - p_dv.float()).abs().max() <= 2e-2
+        for g, p in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
+            assert (g.float() - p.float()).abs().max() <= 2e-2
         if ko >= qo + lq:
             assert torch.equal(out, torch.zeros_like(out)) and (lse == tfa.NEG_BIG).all()
+            assert torch.equal(dq, torch.zeros_like(dq))
+
+
+def _off_16_bytes(x):
+    """A copy of ``x`` whose storage starts one element past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    skip = (-flat.data_ptr() % 16) // x.element_size() + 1
+    return flat[skip:skip + x.numel()].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("wrapper", ["bwd_dq_kernel", "bwd_dkv_kernel"])
+def test_backward_wrappers_refuse_bf16_off_a_16_byte_boundary(wrapper):
+    """The tensor-core kernels move rows by 16-byte cp.async: both backward
+    wrappers raise before they launch when a bf16 tensor does not start on
+    a 16-byte boundary (checked on the host, so the CPU can hold it)."""
+    q, k, v, do = (x.to(torch.bfloat16) for x in _t(*_qkv(21, 1, 64, 64, 1, 32),
+                                                    np.zeros((1, 64, 1, 32))))
+    lse = delta = torch.zeros(1, 1, 64)
+    bad = _off_16_bytes(k)
+    assert bad.data_ptr() % 16 and torch.equal(bad, k)
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        getattr(tfa, wrapper)(q, bad, v, do, lse, delta, causal=True, scale=0.2)
+    assert not any(tfa.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_bwd_dq_kernel_refuses_bf16_off_a_16_byte_boundary_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    q, k, v, do = (x.cuda().to(torch.bfloat16) for x in _t(*_qkv(22, 1, 64, 64, 2, 64),
+                                                           np.ones((1, 64, 2, 64))))
+    lse = delta = torch.zeros(1, 2, 64, device="cuda")
+    for i in range(4):
+        args = [q, k, v, do]
+        args[i] = _off_16_bytes(args[i])
+        assert args[i].data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            tfa.bwd_dq_kernel(*args, lse, delta, causal=True, scale=0.125)
 
 
 
@@ -391,25 +433,26 @@ def _share_off_bf16(x, ref):
 
 def test_split_rounds_to_the_f32_answer_where_hi_alone_does_not():
     """The bound that chip_smoke.py holds the kernels to: with p and ds as
-    hi + lo, out, dk and dv are the f32 answer rounded to bf16 in all but at
-    most 2% of elements; hi alone moves far more past a rounding edge."""
+    hi + lo, out, dq, dk and dv are the f32 answer rounded to bf16 in all but
+    at most 2% of elements; hi alone moves far more past a rounding edge."""
     q, k, v, do = _t(*_bf16_values(*_qkv(17, 1, 256, 256, 2, 32),
                                    np.random.default_rng(18).normal(size=(1, 256, 2, 32))))
     kw = dict(causal=True, scale=32 ** -0.5, q_offset=0, k_offset=0)
     ref_out, _ = tfa.flash_attention_fwd_plain(q, k, v, **kw)
     for bf16_dots, check in ((False, lambda s: s <= 0.02), (True, lambda s: s > 0.02)):
-        out, lse, _, dk, dv = _mma_model(q, k, v, do, bf16_dots=bf16_dots, **kw)
-        _, ref_dk, ref_dv = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
-        for name, x, ref in (("out", out, ref_out), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        out, lse, dq, dk, dv = _mma_model(q, k, v, do, bf16_dots=bf16_dots, **kw)
+        ref_dq, ref_dk, ref_dv = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        for name, x, ref in (("out", out, ref_out), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                             ("dv", dv, ref_dv)):
             assert check(_share_off_bf16(x, ref)), (name, bf16_dots)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_split_rounds_to_the_f32_answer_on_the_card(d):
-    """The kernels themselves under the same bound: bf16_dots off (hi + lo)
-    within 2% of elements off the f32 answer rounded to bf16, bf16_dots on
-    (hi alone) beyond it."""
+    """The kernels themselves (out, dq, dk, dv) under the same bound:
+    bf16_dots off (hi + lo) within 2% of elements off the f32 answer rounded
+    to bf16, bf16_dots on (hi alone) beyond it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -420,8 +463,11 @@ def test_split_rounds_to_the_f32_answer_on_the_card(d):
     ref_out, _ = tfa.flash_attention_fwd_plain(qf, kf, vf, **kw)
     for bf16_dots, check in ((False, lambda s: s <= 0.02), (True, lambda s: s > 0.02)):
         out, lse = tfa.flash_attention_fwd(q, k, v, bf16_dots=bf16_dots, **kw)
-        dk, dv = tfa.bwd_dkv_kernel(q, k, v, do, lse, tfa._delta(out, do),
-                                    bf16_dots=bf16_dots, **kw)
-        _, ref_dk, ref_dv = tfa.flash_attention_bwd_plain(qf, kf, vf, out.float(), lse, dof, **kw)
-        for name, x, ref in (("out", out, ref_out), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        delta = tfa._delta(out, do)
+        dq = tfa.bwd_dq_kernel(q, k, v, do, lse, delta, bf16_dots=bf16_dots, **kw)
+        dk, dv = tfa.bwd_dkv_kernel(q, k, v, do, lse, delta, bf16_dots=bf16_dots, **kw)
+        ref_dq, ref_dk, ref_dv = tfa.flash_attention_bwd_plain(qf, kf, vf, out.float(), lse,
+                                                               dof, **kw)
+        for name, x, ref in (("out", out, ref_out), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                             ("dv", dv, ref_dv)):
             assert check(_share_off_bf16(x, ref)), (name, bf16_dots)
