@@ -65,8 +65,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              block shapes (batch 256, bf16 x) against their plain versions
              (max abs error at most 1e-2 of the output's largest magnitude),
              each run twice for the same bits, odd hw at stride 2 refused;
-             per shape: ms per call, device ms, plain ms, a cuDNN yardstick
-             (several calls) and the bound;
+             per shape: ms per call, device ms (read by profiler name:
+             ``fused_bottleneck_kernel_mma`` on this bf16 path), TF/s,
+             plain ms, a cuDNN yardstick (several calls) by call and on
+             the device, and the bound;
 13. resnet_ref — a tiny fused ResNet with f32 activations: loss and every
              gradient through the kernels on the card against the plain path
              on the CPU (loss 1e-3, gradients 2e-2 of their largest value);
@@ -80,13 +82,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              analytic FLOPs, mfu and the step breakdown;
 15. resnet_profile — one ResNet-50 step under torch.profiler: device-busy
              share, top kernels, the fused-block kernels' share (all 16 of
-             their launches seen);
+             their launches seen, by the names of phase 12);
 16. stream_kernels — the two streaming-copy kernels at the probe's shapes
              (bf16 [802816, 256] and [256, 56, 56, 256]): stream_copy with
              2-D and 4-D blocks and stream_copy_dma, each run twice and held
              bit for bit (``torch.equal``) against ``stream_copy_plain``;
              every refused shape raises; per call: ms, device ms, plain ms,
-             ``torch.mul`` ms, the bound and GB/s;
+             ``torch.mul`` by call and on the device, the bound and GB/s;
 17. probe  — ``kubeflow_tpu_torch.e2e.fused_bottleneck_probe.main()`` at its
              full shapes: its six rows (composite, fused kernel, torch.mul,
              the three copies), one line each;
@@ -224,9 +226,13 @@ def library_device_ms(fn, iters: int = 20):
     """Device ms per call of every CUDA kernel that ``fn`` launches (a
     library call's yardstick, by the profiler method of
     ``kernel_device_ms``), and the sorted names of those kernels. Each
-    kernel of a call runs once per call or a fixed number of times, so a
-    window in which some name's launches are not a multiple of ``iters``
-    lost launches and is taken again, up to three times."""
+    kernel of a call runs a fixed number of times per call, and at least
+    one runs once, so the least count is the number of whole calls the
+    window saw. Late in a long process a window can lose the first calls'
+    launches (phase resnet_kernels' cuDNN composite: 7 of 10 calls, three
+    windows running); the time is taken over the calls seen, at least half
+    of ``iters``. A window whose counts are not all whole multiples of the
+    calls seen cut a call and is taken again, up to three times."""
     def run():
         for _ in range(iters):
             fn()
@@ -235,8 +241,9 @@ def library_device_ms(fn, iters: int = 20):
     for _ in range(3):
         events = device_events(profiled(run)[0])
         counts = Counter(name for name, _ in events)
-        if counts and all(n % iters == 0 for n in counts.values()):
-            return sum(ms for _, ms in events) / iters, sorted(counts)
+        calls = min(counts.values(), default=0)
+        if 2 * calls >= iters and all(n % calls == 0 for n in counts.values()):
+            return sum(ms for _, ms in events) / calls, sorted(counts)
     raise AssertionError(f"profiler saw {counts} kernels for {iters} calls")
 
 
@@ -881,6 +888,11 @@ FB_REPLACES = {
     "fused_transition":
         "kubeflow_tpu/ops/fused_bottleneck.py:237 (_transition_kernel, pallas_call :325)",
 }
+#: the profiler name of each kernel on the bf16 path: a launch of the f32
+#: x's fused_bottleneck kernel there fails phases resnet_kernels and
+#: resnet_profile
+FB_MATCH = {"fused_bottleneck": "fused_bottleneck_kernel_mma",
+            "fused_transition": "fused_transition_kernel"}
 RESNET_BATCH, RESNET_STEPS = 256, 8
 #: ResNet-50's block shapes at 224 x 224 and how many blocks of each a step
 #: runs: (hw, stride, cin, cmid, cout, blocks)
@@ -960,16 +972,19 @@ def resnet_kernels_phase(card: str):
     error at most 1e-2 of the output's largest magnitude, about one bf16 ULP:
     the kernel sums in another f32 order, which can flip one bf16 rounding
     of h1 or h2), then times beside the bound, the plain version and the
-    cuDNN yardstick. Returns each kernel's entry for the kernels line, its
-    times summed over the blocks of one training step."""
+    cuDNN yardstick, by call and on the device (every kernel it launches).
+    The device time is read from the kernel's profiler name in FB_MATCH, so
+    a launch of another kernel fails the phase. Returns each kernel's entry
+    for the kernels line, its times summed over the blocks of one training
+    step."""
     from kubeflow_tpu_torch.ops import fused_bottleneck as fb
 
     n = RESNET_BATCH
     results = {}
     for name, shapes in FB_SHAPES.items():
         proj = name == "fused_transition"
-        total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                     flops=0.0, bytes=0.0)
+        total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                     library_device_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0)
         worst = 0.0
         for seed, (hw, stride, cin, cmid, cout, blocks) in enumerate(shapes):
             args = fb_inputs(n, hw, cin, cmid, cout, proj, seed)
@@ -988,21 +1003,29 @@ def resnet_kernels_phase(card: str):
                 raise AssertionError(f"{name} {hw}: kernel vs plain {err} (max {top})")
             del y1, y2, want
             ms = cuda_ms(call, iters=20, warmup=3)
-            dev_ms = kernel_device_ms(call, name + "_kernel", iters=10)
+            dev_ms = kernel_device_ms(call, FB_MATCH[name], iters=10)
             plain_ms = cuda_ms(plain, iters=5, warmup=2)
-            library_ms = cuda_ms(fb_library(args, stride, proj), iters=20, warmup=3)
+            library = fb_library(args, stride, proj)
+            library_ms = cuda_ms(library, iters=20, warmup=3)
+            lib_dev_ms, lib_names = library_device_ms(library, iters=10)
+            lib_names = [n[:90] for n in lib_names]
             bd = fb_bound(n, hw, stride, cin, cmid, cout, proj)
             worst = max(worst, err)
             for key, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
-                               ("library_ms", library_ms), ("bound_ms", bd["bound_ms"]),
+                               ("library_ms", library_ms), ("library_device_ms", lib_dev_ms),
+                               ("bound_ms", bd["bound_ms"]),
                                ("flops", bd["flops"]), ("bytes", bd["bytes"])):
                 total[key] += blocks * value
             emit(phase="resnet_kernels", kernel=name, card=card,
                  shape=dict(n=n, hw=hw, stride=stride, cin=cin, cmid=cmid, cout=cout),
-                 blocks_per_step=blocks, band=fb.plan_band(hw, stride, cin, cmid, cout, proj),
+                 blocks_per_step=blocks, match=FB_MATCH[name],
+                 band=(fb.plan_band(hw, stride, cin, cmid, cout, proj) if proj
+                       else fb.plan_band_mma(hw, cin, cmid, cout)),
                  max_abs_err=err, max_abs=top, deterministic=True, kernel_ms=ms,
                  kernel_device_ms=dev_ms, plain_ms=plain_ms,
                  library_ms=library_ms, library="cuDNN conv2d x3-4 + addcmul/relu (bf16)",
+                 library_device_ms=lib_dev_ms, library_kernels=lib_names,
+                 device_over_library_device=dev_ms / lib_dev_ms,
                  bound_ms=bd["bound_ms"], bound_by=bd["bound_by"], flops=bd["flops"],
                  bytes=bd["bytes"], achieved_tflops=bd["flops"] / dev_ms / 1e9,
                  bound_share=bd["bound_ms"] / dev_ms)
@@ -1017,6 +1040,9 @@ def resnet_kernels_phase(card: str):
         emit(phase="resnet_kernels", kernel=name, card=card, per_step_of_blocks=True,
              kernel_ms=total["ms"], kernel_device_ms=total["device_ms"],
              plain_ms=total["plain_ms"], library_ms=total["library_ms"],
+             library_device_ms=total["library_device_ms"],
+             device_over_library_device=total["device_ms"] / total["library_device_ms"],
+             achieved_tflops=total["flops"] / total["device_ms"] / 1e9,
              bound_ms=total["bound_ms"], max_abs_err=worst)
     # odd hw at stride 2 has no SAME (0, 1) form: the wrapper raises
     odd = fb_inputs(2, 7, 64, 64, 256, True, 99)
@@ -1150,10 +1176,10 @@ def resnet_profile_phase(card: str) -> None:
     prof, wall_ms = profiled(step, ("cpu", "cuda"))
     by_name = device_ms_by_kernel(prof)
     device_ms = sum(by_name.values())
-    seen = {n: len(cuda_kernel_ms(prof, n + "_kernel")) for n in FB_REPLACES}
+    seen = {n: len(cuda_kernel_ms(prof, FB_MATCH[n])) for n in FB_REPLACES}
     if seen != {"fused_bottleneck": 12, "fused_transition": 4}:
         raise AssertionError(f"resnet_profile: the trace holds {seen} fused-block launches")
-    fb_ms = {n: sum(cuda_kernel_ms(prof, n + "_kernel")) for n in FB_REPLACES}
+    fb_ms = {n: sum(cuda_kernel_ms(prof, FB_MATCH[n])) for n in FB_REPLACES}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     emit(phase="resnet_profile", card=card, step_ms_unprofiled=unprofiled_ms,
          step_wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
@@ -1222,9 +1248,13 @@ def stream_kernels_phase(card: str):
         dev_ms = kernel_device_ms(call, name + "_kernel", iters=10)
         plain_ms = cuda_ms(lambda: sc.stream_copy_plain(x), iters=20, warmup=3)
         library_ms = cuda_ms(lambda: torch.mul(x, sc.SCALE), iters=20, warmup=3)
+        lib_dev_ms, lib_names = library_device_ms(lambda: torch.mul(x, sc.SCALE), iters=10)
+        lib_names = [n[:90] for n in lib_names]
         emit(phase="stream_kernels", kernel=label, card=card, shape=list(x.shape),
              bit_equal=True, deterministic=True, kernel_ms=ms, kernel_device_ms=dev_ms,
              plain_ms=plain_ms, library_ms=library_ms, library="torch.mul(x, SCALE)",
+             library_device_ms=lib_dev_ms, library_kernels=lib_names,
+             device_over_library_device=dev_ms / lib_dev_ms,
              bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
              gbps=nbytes / ms / 1e6, device_gbps=nbytes / dev_ms / 1e6,
              bound_share=bound_ms / dev_ms)

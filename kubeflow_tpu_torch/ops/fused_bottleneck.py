@@ -29,6 +29,13 @@ package has no backward kernel for these blocks, and neither has the port.
 The recompute runs with TF32 off in cuDNN and cuBLAS, so that it is f32 as
 the JAX package's is.
 
+For bf16 x the identity block runs ``fused_bottleneck_kernel_mma``: the
+weights (and the reduce's x rows) staged in shared memory by ``cp.async``,
+fragments by ``ldmatrix``, 64 x 64 warp tiles on ``mma.sync``, bands from
+:func:`plan_band_mma`. f32 x and the transition run the first kernels,
+which load their operands straight into registers (bands from
+:func:`plan_band`).
+
 A wrapper takes the plain PyTorch versions (:func:`fused_bottleneck_plain`,
 :func:`fused_transition_plain`: the same bf16 roundings, f32 convolutions)
 only when x lies on the CPU; on a CUDA tensor it launches the kernel or
@@ -260,6 +267,119 @@ def plan_band(hw: int, stride: int, cin: int, cmid: int, cout: int, proj: bool) 
     return best[1]
 
 
+#: the bf16 identity kernel (``fused_bottleneck_kernel_mma``): warps a
+#: block, m16 tiles and channels a warp holds, k-chunks in its ring, and the
+#: most rows of a 64-deep chunk (a chunk of more rows is 32 deep)
+MMA_WARPS, MMA_WARP_TILES, MMA_WARP_CHANNELS, MMA_STAGES, MMA_KC_ROWS = 8, 4, 64, 2, 256
+
+
+def _warps_n(n: int) -> int:
+    """Warps along the channels for a phase of ``n`` output channels (the
+    source's ``warps_n``): the largest power of two up to 8 whose
+    64-channel slices ``n`` fills."""
+    w = 1
+    while w * 2 <= MMA_WARPS and w * 2 * MMA_WARP_CHANNELS <= n:
+        w *= 2
+    return w
+
+
+def _chunk_rows(n: int) -> int:
+    """Weight rows of a phase's staged k-chunk (the source's ``chunk_rows``)."""
+    return min(n, _warps_n(n) * MMA_WARP_CHANNELS)
+
+
+def _chunk_depth(rows: int) -> int:
+    """Depth of a staged k-chunk of ``rows`` rows (``chunk_depth``): 64, a
+    whole 128-byte line of each bf16 weight row, up to 256 rows, else 32."""
+    return 64 if rows <= MMA_KC_ROWS else 32
+
+
+def mma_layout(hw: int, cmid: int, cout: int, band: int) -> Dict[str, int]:
+    """The source's ``MmaLayout``: the chunk depth of each phase (``kc1``..
+    ``kc3``) and the bytes of the three regions
+    of a block's shared memory: the h1 tile with its zero border (in phase
+    3, the warps' f32 epilogue staging); h2 (in phase 1, the ring of x
+    chunks); the ring of weight chunks. Rows are padded by 8 bf16 values."""
+    lda = cmid + 8
+    tiles1 = -(-min(band + 2, hw) * hw // 16)
+    xrows = min(MMA_WARPS // _warps_n(cmid) * MMA_WARP_TILES, tiles1) * 16
+    r1, r3 = _chunk_rows(cmid), _chunk_rows(cout)
+    kc1, kc2, kc3 = _chunk_depth(max(r1, xrows)), _chunk_depth(r1), _chunk_depth(r3)
+    bstride = max(r1 * (kc1 + 8), r1 * (kc2 + 8), r3 * (kc3 + 8))
+    staging = MMA_WARPS * 16 * (MMA_WARP_CHANNELS + 4) * 4
+    return dict(kc1=kc1, kc2=kc2, kc3=kc3,
+                region1=max((band + 2) * (hw + 2) * lda * 2, staging),
+                region2=max(band * hw * lda * 2, MMA_STAGES * xrows * (kc1 + 8) * 2),
+                region3=MMA_STAGES * bstride * 2)
+
+
+def smem_bytes_mma(hw: int, cmid: int, cout: int, band: int) -> int:
+    """Shared memory of one ``fused_bottleneck_kernel_mma`` block."""
+    lay = mma_layout(hw, cmid, cout, band)
+    return lay["region1"] + lay["region2"] + lay["region3"]
+
+
+def mma_sweeps(m: int, n: int) -> list:
+    """How ``fused_bottleneck_kernel_mma`` covers a phase of ``m`` pixels by
+    ``n`` channels: one (first m16 tile, m16 tiles) pair per warp along M
+    for each sweep. Each sweep is computed once for each chunk of
+    ``_warps_n(n) * 64`` channels."""
+    wm = MMA_WARPS // _warps_n(n)
+    tiles, per, out = -(-m // 16), wm * MMA_WARP_TILES, []
+    for t0 in range(0, tiles, per):
+        ts = min(per, tiles - t0)
+        tpw = -(-ts // wm)
+        out.append([(t0 + i * tpw, max(0, min(tpw, t0 + ts - (t0 + i * tpw))))
+                    for i in range(wm)])
+    return out
+
+
+#: the plan's weights of a staged byte and of a warp's mma in one k-chunk,
+#: set so that the model picks the band that ran fastest on an H100 at each
+#: ResNet-50 shape (PERF.md)
+_NS_PER_BYTE, _NS_PER_MMA = 1 / 23, 6
+
+
+@functools.lru_cache(maxsize=None)
+def plan_band_mma(hw: int, cin: int, cmid: int, cout: int) -> int:
+    """Output rows per ``fused_bottleneck_kernel_mma`` block (the last band
+    of an image may be shorter): the band whose blocks take the least
+    modelled time among those whose shared memory fits. Each k-chunk of a
+    (sweep, channel chunk) pass costs its staged bytes (weights, and phase
+    1's x rows) and its longest warp's mma; h1's halo rows are recomputed
+    by both neighbours."""
+    def phase(m: int, n: int, k: int, taps: int, kc: int, staged_x: bool) -> float:
+        rows, ns = _chunk_rows(n), 0.0
+        chunks = -(-k // kc) * taps
+        for sweep in mma_sweeps(m, n):
+            tpw = max(mt for _, mt in sweep)
+            pixels = sum(mt for _, mt in sweep) * 16 if staged_x else 0
+            for n0 in range(0, n, _warps_n(n) * MMA_WARP_CHANNELS):
+                nt = min(8, (n - n0) // 8)
+                per_chunk = ((min(rows, n - n0) + pixels) * kc * 2 * _NS_PER_BYTE
+                             + tpw * nt * kc // 16 * _NS_PER_MMA)
+                ns += chunks * per_chunk
+        return ns
+
+    best = None
+    for band in range(1, hw + 1):
+        if smem_bytes_mma(hw, cmid, cout, band) > SMEM_MAX:
+            continue
+        lay, cost = mma_layout(hw, cmid, cout, band), 0.0
+        for i0 in range(0, hw, band):
+            rows = min(band, hw - i0)
+            m1 = (min(i0 + rows + 1, hw) - max(i0 - 1, 0)) * hw
+            cost += (phase(m1, cmid, cin, 1, lay["kc1"], True)
+                     + phase(rows * hw, cmid, cmid, 9, lay["kc2"], False)
+                     + phase(rows * hw, cout, cmid, 1, lay["kc3"], False))
+        if best is None or cost < best[0]:
+            best = (cost, band)
+    if best is None:
+        raise ValueError(f"fused_bottleneck: hw {hw}, cmid {cmid} needs more than "
+                         f"{SMEM_MAX} bytes of shared memory for one output row")
+    return best[1]
+
+
 def _pad_to(t: Tensor, sizes: Sequence[int]) -> Tensor:
     """``t`` zero-padded at the end of each axis to ``sizes``."""
     pad = []
@@ -307,7 +427,10 @@ def _launch(name: str, x: Tensor, main: Sequence[Tensor],
         tensors += [bf16_t(wp, (ci, co)), f32(sp, co), f32(bp, co)]
     ho = hw // stride
     out = torch.empty((n, ho, ho, co), dtype=x.dtype, device=x.device)
-    band = plan_band(hw, stride, ci, cm, co, proj is not None)
+    if proj is None and x.dtype == torch.bfloat16:
+        band = plan_band_mma(hw, ci, cm, co)
+    else:
+        band = plan_band(hw, stride, ci, cm, co, proj is not None)
     dims = (n, hw, ci, cm, co, stride) if proj is not None else (n, hw, ci, cm)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.entry(SOURCE, name)(x.device.index, *[t.data_ptr() for t in tensors],

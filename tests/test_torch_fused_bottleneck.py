@@ -203,6 +203,44 @@ def test_band_plan_at_resnet50_shapes():
     assert tfb.smem_bytes(56, 1, 64, 4) == (6 * 58 + 4 * 56) * 72 * 2
 
 
+@pytest.mark.parametrize("hw,cin,cmid", [(56, 256, 64), (28, 512, 128), (14, 1024, 256),
+                                         (7, 2048, 512)])
+def test_mma_plan_at_resnet50_shapes(hw, cin, cmid):
+    """The bf16 identity kernel's plan at each ResNet-50 shape: its shared
+    memory fits the card's 227 KB, its bands cover every output row once,
+    and in every phase the warps' m16 tiles cover every pixel once."""
+    band = tfb.plan_band_mma(hw, cin, cmid, cin)
+    assert band == {56: 7, 28: 7, 14: 8, 7: 7}[hw]
+    lay = tfb.mma_layout(hw, cmid, cin, band)
+    assert (lay["kc1"], lay["kc2"], lay["kc3"]) == {56: (32, 64, 64), 28: (64, 64, 32),
+                                                    14: (64, 64, 32), 7: (32, 32, 32)}[hw]
+    assert tfb.smem_bytes_mma(hw, cmid, cin, band) <= tfb.SMEM_MAX
+    starts = list(range(0, hw, band))
+    assert sum(min(band, hw - i0) for i0 in starts) == hw
+    for i0 in starts:
+        rows = min(band, hw - i0)
+        m1 = (min(i0 + rows + 1, hw) - max(i0 - 1, 0)) * hw
+        for m, n in ((m1, cmid), (rows * hw, cmid), (rows * hw, cin)):
+            covered = [t0 + i for sweep in tfb.mma_sweeps(m, n) for t0, mt in sweep
+                       for i in range(mt)]
+            assert sorted(covered) == list(range(-(-m // 16)))
+            assert all(mt <= tfb.MMA_WARP_TILES for sweep in tfb.mma_sweeps(m, n)
+                       for _, mt in sweep)
+
+
+def test_mma_plan_layout():
+    """The shared-memory sum of the source's MmaLayout at one small shape,
+    the warps along N for each channel count and the chunk depths."""
+    assert [tfb._warps_n(n) for n in (16, 48, 64, 128, 192, 256, 512, 2048)] == \
+        [1, 1, 1, 2, 2, 4, 8, 8]
+    assert [tfb._chunk_depth(tfb._chunk_rows(n)) for n in (16, 256, 512, 2048)] == \
+        [64, 64, 32, 32]
+    # hw 6, cmid 16, cout 32, band 6: h1 8 x 8 x 24 x 2 = 3072 < the f32
+    # staging 8 x 16 x 68 x 4; h2 36 x 24 x 2 = 1728 < x chunks 2 x 48 x 72 x 2;
+    # weights 2 x 32 x 72 x 2
+    assert tfb.smem_bytes_mma(6, 16, 32, 6) == 34816 + 13824 + 9216
+
+
 def test_f32_convolutions_restores_the_flags():
     before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     with tfb.f32_convolutions():
@@ -215,11 +253,15 @@ def test_f32_convolutions_restores_the_flags():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
     """Each kernel against its plain version on the card at ResNet-50's
-    shapes (batch 4), bf16 and f32 x, channel counts the wrapper pads, and
-    twice for the same bits."""
+    shapes (batch 4), bf16 and f32 x, twice for the same bits: the four
+    identity shapes; pixel counts per band that are not a multiple of the
+    bf16 kernel's 16-pixel tiles (hw 6, 9); cmid 16 and 48 (not multiples
+    of 64); channel counts the wrapper pads (cin 24, cmid 8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
-    cases = [(56, 1, 256, 64, 256, False), (7, 1, 2048, 512, 2048, False),
+    cases = [(56, 1, 256, 64, 256, False), (28, 1, 512, 128, 512, False),
+             (14, 1, 1024, 256, 1024, False), (7, 1, 2048, 512, 2048, False),
+             (9, 1, 64, 48, 64, False), (6, 1, 32, 16, 32, False),
              (56, 1, 64, 64, 256, True), (14, 2, 1024, 512, 2048, True),
              (8, 2, 8, 8, 32, True), (6, 1, 24, 8, 24, False)]
     for hw, s, cin, cmid, cout, proj in cases:
