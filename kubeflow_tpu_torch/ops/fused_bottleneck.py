@@ -29,10 +29,12 @@ package has no backward kernel for these blocks, and neither has the port.
 The recompute runs with TF32 off in cuDNN and cuBLAS, so that it is f32 as
 the JAX package's is.
 
-For bf16 x the identity block runs ``fused_bottleneck_kernel_mma``: the
-weights (and the reduce's x rows) staged in shared memory by ``cp.async``,
-fragments by ``ldmatrix``, 64 x 64 warp tiles on ``mma.sync``, bands from
-:func:`plan_band_mma`. f32 x and the transition run the first kernels,
+For bf16 x both blocks run the shared-memory kernels
+(``fused_bottleneck_kernel_mma``, ``fused_transition_kernel_mma``): the
+weights and the x rows (the reduce's, and the projection's x[::s, ::s])
+staged in shared memory by ``cp.async``, fragments by ``ldmatrix``, 64 x 64
+warp tiles on ``mma.sync`` (64 x 32 for each of the projection phase's two
+GEMMs), bands from :func:`plan_band_mma`. f32 x runs the first kernels,
 which load their operands straight into registers (bands from
 :func:`plan_band`).
 
@@ -236,12 +238,13 @@ def smem_bytes(hw: int, stride: int, cmid: int, band: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def plan_band(hw: int, stride: int, cin: int, cmid: int, cout: int, proj: bool) -> int:
-    """Output rows per kernel block (the last band of an image may be
-    shorter): the band whose blocks do the least tensor-core work — h1's
-    halo rows are recomputed by both neighbours, and each warp's pixel tile
-    is padded to 16 — among those whose shared memory fits; a block too
-    large for two per SM counts 1.3 times (half the warps per SM to hide
-    latency; the factor is a guess, not a measurement)."""
+    """Output rows per block of the register-load kernels (f32 x; the last
+    band of an image may be shorter): the band whose blocks do the least
+    tensor-core work — h1's halo rows are recomputed by both neighbours,
+    and each warp's pixel tile is padded to 16 — among those whose shared
+    memory fits; a block too large for two per SM counts 1.3 times (half
+    the warps per SM to hide latency; the factor is a guess, not a
+    measurement)."""
     ho = hw // stride
     pad16 = lambda m: -(-m // 16) * 16  # noqa: E731
     per_pixel = 9 * cmid * cmid + cmid * cout + (cin * cout if proj else 0)
@@ -267,64 +270,134 @@ def plan_band(hw: int, stride: int, cin: int, cmid: int, cout: int, proj: bool) 
     return best[1]
 
 
-#: the bf16 identity kernel (``fused_bottleneck_kernel_mma``): warps a
-#: block, m16 tiles and channels a warp holds, k-chunks in its ring, and the
-#: most rows of a 64-deep chunk (a chunk of more rows is 32 deep)
+#: the bf16 kernels (``fused_bottleneck_kernel_mma``,
+#: ``fused_transition_kernel_mma``): warps a block, m16 tiles and channels a
+#: warp holds (32 in the transition's phase 3, which holds two sets of
+#: sums), k-chunks in the ring, and the most rows of a 64-deep chunk (a
+#: chunk of more rows is 32 deep)
 MMA_WARPS, MMA_WARP_TILES, MMA_WARP_CHANNELS, MMA_STAGES, MMA_KC_ROWS = 8, 4, 64, 2, 256
+MMA_DUAL_CHANNELS = 32
 
 
-def _warps_n(n: int) -> int:
-    """Warps along the channels for a phase of ``n`` output channels (the
-    source's ``warps_n``): the largest power of two up to 8 whose
-    64-channel slices ``n`` fills."""
+def _warps_n(n: int, width: int = MMA_WARP_CHANNELS) -> int:
+    """Warps along the channels for a phase of ``n`` output channels,
+    ``width`` a warp (the source's ``warps_n``): the largest power of two
+    up to 8 whose slices ``n`` fills."""
     w = 1
-    while w * 2 <= MMA_WARPS and w * 2 * MMA_WARP_CHANNELS <= n:
+    while w * 2 <= MMA_WARPS and w * 2 * width <= n:
         w *= 2
     return w
 
 
-def _chunk_rows(n: int) -> int:
-    """Weight rows of a phase's staged k-chunk (the source's ``chunk_rows``)."""
-    return min(n, _warps_n(n) * MMA_WARP_CHANNELS)
+def _chunk_rows(n: int, width: int = MMA_WARP_CHANNELS, wn: Optional[int] = None) -> int:
+    """Weight rows of a phase's staged k-chunk: ``wn`` (by default
+    :func:`_warps_n`'s) warps of ``width`` channels."""
+    return min(n, (wn or _warps_n(n, width)) * width)
 
 
-def _chunk_depth(rows: int) -> int:
+def _sweeps(m: int, wn: int) -> int:
+    """Sweeps over ``m`` pixels with ``wn`` warps along N (``sweeps``)."""
+    return -(-m // (MMA_WARPS // wn * MMA_WARP_TILES * 16))
+
+
+#: the weights of a phase worth fitting its warps to its pixels (the
+#: source's FIT_WEIGHTS): below it, the x rows re-staged by the extra
+#: channel passes outweigh the weights a sweep saves
+FIT_WEIGHTS = 128 * 1024
+
+
+def _phase_warps_n(m: int, n: int, width: int, fit_m: bool) -> int:
+    """Warps along N for a phase of ``m`` pixels by ``n`` channels (the
+    source's ``phase_warps_n``): :func:`_warps_n`, and for the transition
+    (``fit_m``) then halved while that saves a sweep over the pixels, since
+    every sweep re-reads the phase's weights."""
+    wn = _warps_n(n, width)
+    while fit_m and wn > 1 and _sweeps(m, wn // 2) < _sweeps(m, wn):
+        wn //= 2
+    return wn
+
+
+def _chunk_depth(rows: int, kc_rows: int = MMA_KC_ROWS) -> int:
     """Depth of a staged k-chunk of ``rows`` rows (``chunk_depth``): 64, a
-    whole 128-byte line of each bf16 weight row, up to 256 rows, else 32."""
-    return 64 if rows <= MMA_KC_ROWS else 32
+    whole 128-byte line of each bf16 weight row, up to ``kc_rows`` rows,
+    else 32."""
+    return 64 if rows <= kc_rows else 32
 
 
-def mma_layout(hw: int, cmid: int, cout: int, band: int) -> Dict[str, int]:
-    """The source's ``MmaLayout``: the chunk depth of each phase (``kc1``..
-    ``kc3``) and the bytes of the three regions
-    of a block's shared memory: the h1 tile with its zero border (in phase
-    3, the warps' f32 epilogue staging); h2 (in phase 1, the ring of x
-    chunks); the ring of weight chunks. Rows are padded by 8 bf16 values."""
-    lda = cmid + 8
-    tiles1 = -(-min(band + 2, hw) * hw // 16)
-    xrows = min(MMA_WARPS // _warps_n(cmid) * MMA_WARP_TILES, tiles1) * 16
-    r1, r3 = _chunk_rows(cmid), _chunk_rows(cout)
-    kc1, kc2, kc3 = _chunk_depth(max(r1, xrows)), _chunk_depth(r1), _chunk_depth(r3)
-    bstride = max(r1 * (kc1 + 8), r1 * (kc2 + 8), r3 * (kc3 + 8))
+def _h1_rows(band: int, stride: int) -> int:
+    """Image rows of a block's h1 tile: the band and a halo row each side
+    (stride 1), or rows 2 i0 .. 2 i0 + 2 band (stride 2)."""
+    return band + 2 if stride == 1 else 2 * band + 1
+
+
+def mma_layout(hw: int, cmid: int, cout: int, band: int, stride: int = 1,
+               proj: bool = False, choices: Optional[Tuple[int, bool]] = None,
+               cin: Optional[int] = None) -> Dict[str, int]:
+    """The source's ``MmaLayout``: the warps along N (``wn1``..``wn3``) and
+    chunk depth (``kc1``..``kc3``) of each phase, the layout choices
+    (``kc_rows``, ``fit1``; by default :func:`mma_choices`') and the bytes
+    of the three regions of a block's shared memory: the h1 tile with its
+    zero border (in phase 3, the warps' f32 epilogue staging and, for the
+    projection, its ring of x chunks); h2 (in phase 1, the ring of x
+    chunks); the ring of weight chunks. Rows are padded by 8 bf16 values.
+    ``cin`` defaults to ``cout`` (the identity block's)."""
+    cin = cin or cout
+    kc_rows, fit1 = choices or mma_choices(hw, cmid, cout, band, stride, proj, cin)
+    ho, hr = hw // stride, _h1_rows(band, stride)
+    wc = hw + 2 if stride == 1 else hw + 1
+    w3 = MMA_DUAL_CHANNELS if proj else MMA_WARP_CHANNELS
+    lda, m1, m2 = cmid + 8, min(hr, hw) * hw, band * ho
+    # each phase's weights: cin cmid, 9 cmid cmid, and (cmid + cin) cout
+    wn1 = _phase_warps_n(m1, cmid, 64, proj and fit1 and cin * cmid >= FIT_WEIGHTS)
+    wn2 = _phase_warps_n(m2, cmid, 64, proj and 9 * cmid * cmid >= FIT_WEIGHTS)
+    wn3 = _phase_warps_n(m2, cout, w3, proj and (cmid + cin) * cout >= FIT_WEIGHTS)
+    xrows = min(MMA_WARPS // wn1 * MMA_WARP_TILES, -(-m1 // 16)) * 16
+    xrows3 = min(MMA_WARPS // wn3 * MMA_WARP_TILES, -(-m2 // 16)) * 16 if proj else 0
+    r1, r2, r3 = _chunk_rows(cmid, 64, wn1), _chunk_rows(cmid, 64, wn2), _chunk_rows(cout, w3, wn3)
+    kc1, kc2 = _chunk_depth(max(r1, xrows), kc_rows), _chunk_depth(r2, kc_rows)
+    kc3 = _chunk_depth(max(r3, xrows3), kc_rows)
+    bstride = max(r1 * (kc1 + 8), r2 * (kc2 + 8), r3 * (kc3 + 8))
     staging = MMA_WARPS * 16 * (MMA_WARP_CHANNELS + 4) * 4
-    return dict(kc1=kc1, kc2=kc2, kc3=kc3,
-                region1=max((band + 2) * (hw + 2) * lda * 2, staging),
-                region2=max(band * hw * lda * 2, MMA_STAGES * xrows * (kc1 + 8) * 2),
-                region3=MMA_STAGES * bstride * 2)
+    region1 = max(hr * wc * lda * 2, staging + MMA_STAGES * xrows3 * (kc3 + 8) * 2)
+    region2 = max(band * ho * lda * 2, MMA_STAGES * xrows * (kc1 + 8) * 2)
+    return dict(wn1=wn1, wn2=wn2, wn3=wn3, kc1=kc1, kc2=kc2, kc3=kc3, kc_rows=kc_rows,
+                fit1=fit1, region1=region1, region2=region2, region3=MMA_STAGES * bstride * 2)
 
 
-def smem_bytes_mma(hw: int, cmid: int, cout: int, band: int) -> int:
-    """Shared memory of one ``fused_bottleneck_kernel_mma`` block."""
-    lay = mma_layout(hw, cmid, cout, band)
+def smem_bytes_mma(hw: int, cmid: int, cout: int, band: int, stride: int = 1,
+                   proj: bool = False, choices: Optional[Tuple[int, bool]] = None,
+                   cin: Optional[int] = None) -> int:
+    """Shared memory of one block of the bf16 kernels."""
+    lay = mma_layout(hw, cmid, cout, band, stride, proj, choices, cin)
     return lay["region1"] + lay["region2"] + lay["region3"]
 
 
-def mma_sweeps(m: int, n: int) -> list:
-    """How ``fused_bottleneck_kernel_mma`` covers a phase of ``m`` pixels by
-    ``n`` channels: one (first m16 tile, m16 tiles) pair per warp along M
-    for each sweep. Each sweep is computed once for each chunk of
-    ``_warps_n(n) * 64`` channels."""
-    wm = MMA_WARPS // _warps_n(n)
+def mma_choices(hw: int, cmid: int, cout: int, band: int, stride: int = 1,
+                proj: bool = False, cin: Optional[int] = None) -> Tuple[int, bool]:
+    """The layout choices of a launch (the source's ``mma_choices``): the
+    most rows of a 64-deep chunk, and whether phase 1's warps are fitted to
+    its pixels. The identity block takes ``(MMA_KC_ROWS, False)``; the
+    transition the first of these that fits: chunks 64 deep up to
+    ``MMA_KC_ROWS`` rows, then up to half that (leaving room for a deeper
+    band), each with phase 1's warps fitted (which widens phase 1's ring of
+    x chunks), then not."""
+    if not proj:
+        return MMA_KC_ROWS, False
+    for choice in ((MMA_KC_ROWS, True), (MMA_KC_ROWS, False), (MMA_KC_ROWS // 2, True),
+                   (MMA_KC_ROWS // 2, False)):
+        if smem_bytes_mma(hw, cmid, cout, band, stride, proj, choice, cin) <= SMEM_MAX:
+            return choice
+    return MMA_KC_ROWS // 2, False
+
+
+def mma_sweeps(m: int, n: int, width: int = MMA_WARP_CHANNELS,
+               wn: Optional[int] = None) -> list:
+    """How the bf16 kernels cover a phase of ``m`` pixels by ``n`` channels
+    with ``wn`` (by default :func:`_warps_n`'s) warps along N of ``width``
+    channels: one (first m16 tile, m16 tiles) pair per warp along M for each
+    sweep. Each sweep is computed once for each chunk of ``wn * width``
+    channels."""
+    wm = MMA_WARPS // (wn or _warps_n(n, width))
     tiles, per, out = -(-m // 16), wm * MMA_WARP_TILES, []
     for t0 in range(0, tiles, per):
         ts = min(per, tiles - t0)
@@ -335,49 +408,79 @@ def mma_sweeps(m: int, n: int) -> list:
 
 
 #: the plan's weights of a staged byte and of a warp's mma in one k-chunk,
-#: set so that the model picks the band that ran fastest on an H100 at each
-#: ResNet-50 shape (PERF.md)
-_NS_PER_BYTE, _NS_PER_MMA = 1 / 23, 6
+#: and of a k-chunk itself (its barrier and wait), set so that the model
+#: picks the band that ran fastest on an H100 at each ResNet-50 shape
+#: (``e2e/fused_block_sweep.py``; PERF.md)
+_NS_PER_BYTE, _NS_PER_MMA, _NS_PER_CHUNK = 1 / 23, 6, 400
+
+
+def _phase_ns(m: int, n: int, gemms: Sequence[Tuple[int, int, bool]], kc: int, wn: int,
+              width: int = MMA_WARP_CHANNELS) -> float:
+    """Modelled ns of one block-wide phase of ``m`` pixels by ``n`` channels,
+    ``wn`` warps along N of ``width`` channels each, whose GEMMs ``gemms``
+    are (k, taps, x staged): each k-chunk of a (sweep, channel chunk) pass
+    costs its staged bytes (weights, and staged x rows), its longest warp's
+    mma and a fixed cost."""
+    rows, ns = _chunk_rows(n, width, wn), 0.0
+    for sweep in mma_sweeps(m, n, width, wn):
+        tpw = max(mt for _, mt in sweep)
+        pixels = sum(mt for _, mt in sweep) * 16
+        for n0 in range(0, n, wn * width):
+            nt = min(width // 8, (n - n0) // 8)
+            for k, taps, staged in gemms:
+                per_chunk = ((min(rows, n - n0) + (pixels if staged else 0)) * kc * 2
+                             * _NS_PER_BYTE + tpw * nt * kc // 16 * _NS_PER_MMA
+                             + _NS_PER_CHUNK)
+                ns += -(-k // kc) * taps * per_chunk
+    return ns
+
+
+def mma_band_ns(hw: int, cin: int, cmid: int, cout: int, band: int, stride: int = 1,
+                proj: bool = False) -> float:
+    """Modelled ns of all of one image's blocks at ``band`` rows a block
+    (:func:`_phase_ns` of each phase): h1's halo rows are recomputed by
+    both neighbouring bands, and every block re-reads all the weights."""
+    ho, lay, ns = hw // stride, mma_layout(hw, cmid, cout, band, stride, proj, cin=cin), 0.0
+    w3 = MMA_DUAL_CHANNELS if proj else MMA_WARP_CHANNELS
+    gemms3 = [(cmid, 1, False)] + ([(cin, 1, True)] if proj else [])
+    for i0 in range(0, ho, band):
+        rows = min(band, ho - i0)
+        row0 = i0 - 1 if stride == 1 else 2 * i0
+        m1 = (min(row0 + _h1_rows(rows, stride), hw) - max(row0, 0)) * hw
+        ns += (_phase_ns(m1, cmid, [(cin, 1, True)], lay["kc1"], lay["wn1"])
+               + _phase_ns(rows * ho, cmid, [(cmid, 9, False)], lay["kc2"], lay["wn2"])
+               + _phase_ns(rows * ho, cout, gemms3, lay["kc3"], lay["wn3"], w3))
+    return ns
+
+
+def mma_bands(hw: int, cmid: int, cout: int, stride: int = 1, proj: bool = False,
+              cin: Optional[int] = None) -> list:
+    """The bands whose block fits the card's shared memory."""
+    return [band for band in range(1, hw // stride + 1)
+            if smem_bytes_mma(hw, cmid, cout, band, stride, proj, cin=cin) <= SMEM_MAX]
 
 
 @functools.lru_cache(maxsize=None)
-def plan_band_mma(hw: int, cin: int, cmid: int, cout: int) -> int:
-    """Output rows per ``fused_bottleneck_kernel_mma`` block (the last band
-    of an image may be shorter): the band whose blocks take the least
-    modelled time among those whose shared memory fits. Each k-chunk of a
-    (sweep, channel chunk) pass costs its staged bytes (weights, and phase
-    1's x rows) and its longest warp's mma; h1's halo rows are recomputed
-    by both neighbours."""
-    def phase(m: int, n: int, k: int, taps: int, kc: int, staged_x: bool) -> float:
-        rows, ns = _chunk_rows(n), 0.0
-        chunks = -(-k // kc) * taps
-        for sweep in mma_sweeps(m, n):
-            tpw = max(mt for _, mt in sweep)
-            pixels = sum(mt for _, mt in sweep) * 16 if staged_x else 0
-            for n0 in range(0, n, _warps_n(n) * MMA_WARP_CHANNELS):
-                nt = min(8, (n - n0) // 8)
-                per_chunk = ((min(rows, n - n0) + pixels) * kc * 2 * _NS_PER_BYTE
-                             + tpw * nt * kc // 16 * _NS_PER_MMA)
-                ns += chunks * per_chunk
-        return ns
-
-    best = None
-    for band in range(1, hw + 1):
-        if smem_bytes_mma(hw, cmid, cout, band) > SMEM_MAX:
-            continue
-        lay, cost = mma_layout(hw, cmid, cout, band), 0.0
-        for i0 in range(0, hw, band):
-            rows = min(band, hw - i0)
-            m1 = (min(i0 + rows + 1, hw) - max(i0 - 1, 0)) * hw
-            cost += (phase(m1, cmid, cin, 1, lay["kc1"], True)
-                     + phase(rows * hw, cmid, cmid, 9, lay["kc2"], False)
-                     + phase(rows * hw, cout, cmid, 1, lay["kc3"], False))
-        if best is None or cost < best[0]:
-            best = (cost, band)
-    if best is None:
-        raise ValueError(f"fused_bottleneck: hw {hw}, cmid {cmid} needs more than "
+def plan_band_mma(hw: int, cin: int, cmid: int, cout: int, stride: int = 1,
+                  proj: bool = False) -> int:
+    """Output rows per block of the bf16 kernels (the last band of an image
+    may be shorter): of the bands that fit, the one of least
+    :func:`mma_band_ns`. ``proj``: the transition, stride 1 or 2."""
+    bands = mma_bands(hw, cmid, cout, stride, proj, cin)
+    if not bands:
+        raise ValueError(f"fused block: hw {hw}, cmid {cmid} needs more than "
                          f"{SMEM_MAX} bytes of shared memory for one output row")
-    return best[1]
+    return min(bands, key=lambda b: mma_band_ns(hw, cin, cmid, cout, b, stride, proj))
+
+
+def plan_for(dtype: torch.dtype, hw: int, stride: int, cin: int, cmid: int, cout: int,
+             proj: bool) -> int:
+    """The band a launch takes: :func:`plan_band_mma` for bf16 x (the
+    shared-memory kernels), :func:`plan_band` for f32 x. Channel counts are
+    the padded ones (multiples of 16)."""
+    if dtype == torch.bfloat16:
+        return plan_band_mma(hw, cin, cmid, cout, stride, proj)
+    return plan_band(hw, stride, cin, cmid, cout, proj)
 
 
 def _pad_to(t: Tensor, sizes: Sequence[int]) -> Tensor:
@@ -389,11 +492,13 @@ def _pad_to(t: Tensor, sizes: Sequence[int]) -> Tensor:
 
 
 def _launch(name: str, x: Tensor, main: Sequence[Tensor],
-            proj: Optional[Sequence[Tensor]], stride: int) -> Tensor:
-    """Run kernel ``name`` on CUDA tensors. Channel counts that are not
-    multiples of 16 (the mma depth) are zero-padded here and the output
-    sliced back: zero weights, scales and biases keep the padded channels
-    at zero. ResNet-50's channels need no padding."""
+            proj: Optional[Sequence[Tensor]], stride: int,
+            band: Optional[int] = None) -> Tensor:
+    """Run kernel ``name`` on CUDA tensors, with ``band`` output rows a
+    block (by default the plan's). Channel counts that are not multiples of
+    16 (the mma depth) are zero-padded here and the output sliced back: zero
+    weights, scales and biases keep the padded channels at zero. ResNet-50's
+    channels need no padding."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must lie on the CPU (plain version) or on a "
                          f"CUDA device, got {x.device}")
@@ -427,10 +532,8 @@ def _launch(name: str, x: Tensor, main: Sequence[Tensor],
         tensors += [bf16_t(wp, (ci, co)), f32(sp, co), f32(bp, co)]
     ho = hw // stride
     out = torch.empty((n, ho, ho, co), dtype=x.dtype, device=x.device)
-    if proj is None and x.dtype == torch.bfloat16:
-        band = plan_band_mma(hw, ci, cm, co)
-    else:
-        band = plan_band(hw, stride, ci, cm, co, proj is not None)
+    if band is None:
+        band = plan_for(x.dtype, hw, stride, ci, cm, co, proj is not None)
     dims = (n, hw, ci, cm, co, stride) if proj is not None else (n, hw, ci, cm)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.entry(SOURCE, name)(x.device.index, *[t.data_ptr() for t in tensors],

@@ -241,6 +241,139 @@ def test_mma_plan_layout():
     assert tfb.smem_bytes_mma(6, 16, 32, 6) == 34816 + 13824 + 9216
 
 
+#: ResNet-50's stage heads at 224 x 224: (hw, stride, cin, cmid, cout)
+TRANSITION_SHAPES = [(56, 1, 64, 64, 256), (56, 2, 256, 128, 512), (28, 2, 512, 256, 1024),
+                     (14, 2, 1024, 512, 2048)]
+
+
+@pytest.mark.parametrize("hw,stride,cin,cmid,cout", TRANSITION_SHAPES)
+def test_transition_mma_plan_at_resnet50_shapes(hw, stride, cin, cmid, cout):
+    """The bf16 transition kernel's plan at each ResNet-50 stage head: its
+    shared memory fits the card's 227 KB, its bands cover every output row
+    once, and in every phase the warps' m16 tiles cover every pixel once
+    (phase 3 at 32 channels a warp)."""
+    band = tfb.plan_band_mma(hw, cin, cmid, cout, stride, True)
+    assert band == {(56, 1): 7, (56, 2): 4, (28, 2): 4, (14, 2): 3}[hw, stride]
+    assert tfb.smem_bytes_mma(hw, cmid, cout, band, stride, True, cin=cin) <= tfb.SMEM_MAX
+    assert band in tfb.mma_bands(hw, cmid, cout, stride, True, cin)
+    lay, ho = tfb.mma_layout(hw, cmid, cout, band, stride, True, cin=cin), hw // stride
+    starts = list(range(0, ho, band))
+    assert sum(min(band, ho - i0) for i0 in starts) == ho
+    for i0 in starts:
+        rows = min(band, ho - i0)
+        row0, held = (i0 - 1, rows + 2) if stride == 1 else (2 * i0, 2 * rows + 1)
+        m1 = (min(row0 + held, hw) - max(row0, 0)) * hw
+        for m, n, width, wn in ((m1, cmid, 64, lay["wn1"]), (rows * ho, cmid, 64, lay["wn2"]),
+                                (rows * ho, cout, 32, lay["wn3"])):
+            sweeps = tfb.mma_sweeps(m, n, width, wn)
+            covered = [t0 + i for sweep in sweeps for t0, mt in sweep for i in range(mt)]
+            assert sorted(covered) == list(range(-(-m // 16)))
+            assert all(mt <= tfb.MMA_WARP_TILES for sweep in sweeps for _, mt in sweep)
+
+
+def test_transition_mma_layout():
+    """The shared-memory sum of the source's MmaLayout for the transition at
+    one small shape, and the shallower chunks it takes where a band does not
+    fit otherwise."""
+    # hw 8, stride 2, cmid 16, cout 32, band 2: h1 5 x 9 x 24 x 2 = 2160 <
+    # the f32 staging 8 x 16 x 68 x 4 + the projection's x chunks 2 x 16 x
+    # 72 x 2; h2 8 x 24 x 2 < phase 1's x chunks 2 x 48 x 72 x 2; weights
+    # 2 x 32 x 72 x 2
+    assert tfb.smem_bytes_mma(8, 16, 32, 2, 2, True) == 39424 + 13824 + 9216
+    # stage 2's band 4 fits only with 32-deep chunks of 256 rows
+    lay = tfb.mma_layout(56, 128, 512, 4, 2, True, cin=256)
+    assert lay["kc_rows"] == 128 and (lay["kc1"], lay["kc2"], lay["kc3"]) == (32, 64, 64)
+    assert tfb.smem_bytes_mma(56, 128, 512, 4, 2, True, (256, False), cin=256) > tfb.SMEM_MAX
+    # warps fitted to the band's pixels where the weights are large: stage
+    # 2's phase 3 (384 K values) covers its 112 pixels in one sweep of 2 x
+    # 64 (4 warps along N), not two of 64; stage 4's phase 1 (512 K) its 98
+    # pixels likewise
+    assert lay["wn3"] == 4
+    lay = tfb.mma_layout(14, 512, 2048, 3, 2, True, cin=1024)
+    assert (lay["kc_rows"], lay["fit1"], lay["wn1"]) == (256, True, 4)
+    # stage 1's phase 3 (32 K values) keeps 8 warps along N
+    assert tfb.mma_layout(56, 64, 256, 7, 1, True, cin=64)["wn3"] == 8
+    # the identity block keeps 64-deep chunks up to 256 rows at every band
+    assert tfb.mma_choices(56, 64, 256, 7) == (256, False)
+
+
+def _bf16(a):
+    return torch.tensor(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _tile_geometry(hw, stride):
+    """The bf16 kernels' h1 tile (csrc/fused_bottleneck.cu ``block_mma``):
+    pixels a tile row, the tile column of image column j, tile pixels
+    between output rows, and the tile-column offsets of taps dj = 0, 1, 2.
+    Stride 1: a zero border all round. Stride 2: even image columns, then
+    the zero column past the edge, then the odd columns."""
+    ho = hw // stride
+    if stride == 1:
+        return hw + 2, (lambda j: j + 1), hw + 2, (0, 1, 2)
+    return hw + 1, (lambda j: j // 2 + (j % 2) * (ho + 1)), 2 * (hw + 1), (0, ho + 1, 1)
+
+
+def _im2col_through_tile(h1, stride, band):
+    """[n, ho * ho, 9 cmid]: each band's h1 tile laid out as the kernel's
+    phase 1 stores it (pixel rows padded by 8 values, zeros elsewhere) and
+    read at the per-lane ldmatrix row addresses of phase 2, tap by tap."""
+    n, hw, _, cmid = h1.shape
+    ho, lda = hw // stride, cmid + 8
+    wc, col, opitch, tapc = _tile_geometry(hw, stride)
+    out = np.full((n, ho * ho, 9 * cmid), np.nan, np.float32)
+    for img in range(n):
+        for i0 in range(0, ho, band):
+            rows = min(band, ho - i0)
+            hr, row0 = (rows + 2, i0 - 1) if stride == 1 else (2 * rows + 1, 2 * i0)
+            tile = np.zeros(hr * wc * lda, np.float32)
+            for r in range(max(row0, 0), min(row0 + hr, hw)):
+                for j in range(hw):
+                    at = ((r - row0) * wc + col(j)) * lda
+                    assert tile[at:at + lda].sum() == 0  # each tile pixel written once
+                    tile[at:at + cmid] = h1[img, r, j]
+            for q in range(rows * ho):
+                arow = ((q // ho) * opitch + q % ho) * lda
+                for tap in range(9):
+                    at = arow + ((tap // 3) * wc + tapc[tap % 3]) * lda
+                    assert at + lda <= tile.size
+                    out[img, i0 * ho + q, tap * cmid:(tap + 1) * cmid] = tile[at:at + cmid]
+    return out
+
+
+@pytest.mark.parametrize("hw,stride,band", [(8, 2, 4), (10, 2, 2), (12, 2, 5), (9, 1, 4),
+                                            (8, 1, 8)])
+def test_tap_addresses_are_xla_same_im2col(hw, stride, band):
+    """The kernel's h1 tile and tap addresses, gathered from a random h1,
+    give exactly the im2col of XLA's SAME taps: (1, 1) at stride 1, (0, 1)
+    at stride 2 (the last band ragged where the band does not divide ho)."""
+    h1 = np.random.RandomState(hw + band).randn(2, hw, hw, 16).astype(np.float32)
+    (pt, pb), (pl, pr) = [tfb.same_pads(hw, 3, stride)] * 2
+    padded = np.pad(h1, ((0, 0), (pt, pb), (pl, pr), (0, 0)))
+    ho = hw // stride
+    want = np.stack([padded[:, oi * stride + di, oj * stride + dj]
+                     for oi in range(ho) for oj in range(ho)
+                     for di in range(3) for dj in range(3)], 1).reshape(2, ho * ho, 9 * 16)
+    np.testing.assert_array_equal(_im2col_through_tile(h1, stride, band), want)
+
+
+@pytest.mark.parametrize("stride,band", [(2, 3), (1, 3)])
+def test_tile_path_matches_reference_transition(stride, band):
+    """The whole block computed through the tile's im2col (phase 2 as the
+    kernel gathers it) against the JAX package's ``reference_transition``
+    on the CPU, within 1e-2 of the output's largest magnitude."""
+    args = _inputs(10, 32, 16, 64, proj=True, seed=12)
+    x, w1, s1, b1, w2, s2, b2, w3, s3, b3, wp, sp, bp = args
+    want = jfb.reference_transition(*_jax(args, jnp.bfloat16), stride=stride)
+    xb = _bf16(x)
+    h1 = _bf16(np.maximum(xb @ _bf16(w1) * s1 + b1, 0))
+    cols = _im2col_through_tile(h1, stride, band)
+    h2 = _bf16(np.maximum(cols @ _bf16(w2).reshape(9 * 16, 16) * s2 + b2, 0))
+    ho = 10 // stride
+    y = h2 @ _bf16(w3) * s3 + b3
+    p = xb[:, ::stride, ::stride].reshape(2, ho * ho, 32) @ _bf16(wp) * sp + bp
+    _close(torch.tensor(np.maximum(p + y, 0).reshape(2, ho, ho, 64)), want)
+
+
 def test_f32_convolutions_restores_the_flags():
     before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     with tfb.f32_convolutions():
@@ -254,16 +387,20 @@ def test_f32_convolutions_restores_the_flags():
 def test_kernels_match_plain_on_the_card():
     """Each kernel against its plain version on the card at ResNet-50's
     shapes (batch 4), bf16 and f32 x, twice for the same bits: the four
-    identity shapes; pixel counts per band that are not a multiple of the
-    bf16 kernel's 16-pixel tiles (hw 6, 9); cmid 16 and 48 (not multiples
-    of 64); channel counts the wrapper pads (cin 24, cmid 8)."""
+    identity shapes and the four stage heads; pixel counts per band that
+    are not a multiple of the bf16 kernels' 16-pixel tiles (hw 6, 9); cmid
+    16 and 48 (not multiples of 64), at stride 1 and 2; a stride-2 head
+    whose last band is shorter (ho 5); channel counts the wrapper pads
+    (cin 24, cmid 8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
     cases = [(56, 1, 256, 64, 256, False), (28, 1, 512, 128, 512, False),
              (14, 1, 1024, 256, 1024, False), (7, 1, 2048, 512, 2048, False),
              (9, 1, 64, 48, 64, False), (6, 1, 32, 16, 32, False),
-             (56, 1, 64, 64, 256, True), (14, 2, 1024, 512, 2048, True),
+             *[(*shape, True) for shape in TRANSITION_SHAPES],
+             (10, 2, 64, 512, 512, True), (16, 2, 32, 48, 64, True),
              (8, 2, 8, 8, 32, True), (6, 1, 24, 8, 24, False)]
+    assert 5 % tfb.plan_band_mma(10, 64, 512, 512, 2, True) != 0  # a ragged last band
     for hw, s, cin, cmid, cout, proj in cases:
         for dtype in (torch.bfloat16, torch.float32):
             a = [t.cuda() for t in _torch(_inputs(hw, cin, cmid, cout, proj, n=4), dtype)]
