@@ -89,7 +89,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              2-D and 4-D blocks and stream_copy_dma, each run twice and held
              bit for bit (``torch.equal``) against ``stream_copy_plain``;
              every refused shape raises; per call: ms, device ms, plain ms,
-             ``torch.mul`` by call and on the device, the bound and GB/s;
+             ``torch.mul`` by call and on the device, the bound and GB/s,
+             the device ms of the design each kernel replaced (the sweep's
+             design 0, launched beside it), and the launch shapes (grid,
+             block, registers) of the kernel and of ``torch.mul`` from a
+             profiler trace;
 17. probe  — ``kubeflow_tpu_torch.e2e.fused_bottleneck_probe.main()`` at its
              full shapes: its six rows (composite, fused kernel, torch.mul,
              the three copies), one line each;
@@ -1285,7 +1289,11 @@ def stream_kernels_phase(card: str):
     version, bit for bit, twice; the refused shapes; per call the kernel's
     time (back-to-back calls, and alone on the device), the plain version's,
     one ``torch.mul`` by SCALE (the library call; the plain version is that
-    same call) and the bytes bound: x read once, the output written once."""
+    same call) and the bytes bound: x read once, the output written once;
+    the device ms of the design the kernel replaced, launched through the
+    sweep's entry (not counted), and the launch shapes of the kernel and of
+    ``torch.mul``."""
+    from kubeflow_tpu_torch.e2e import stream_copy_sweep as sweep
     from kubeflow_tpu_torch.ops import stream_copy as sc
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1318,6 +1326,11 @@ def stream_kernels_phase(card: str):
         library_ms = cuda_ms(lambda: torch.mul(x, sc.SCALE), iters=20, warmup=3)
         lib_dev_ms, lib_names = library_device_ms(lambda: torch.mul(x, sc.SCALE), iters=10)
         lib_names = [n[:90] for n in lib_names]
+        parent = sweep.PARENT[name]
+        parent_out = torch.empty_like(x)
+        parent_dev_ms = kernel_device_ms(lambda: sweep.launch(name, parent, x, parent_out),
+                                         f"{name}_{parent['design']}_kernel", iters=10)
+        del parent_out
         emit(phase="stream_kernels", kernel=label, card=card, shape=list(x.shape),
              bit_equal=True, deterministic=True, kernel_ms=ms, kernel_device_ms=dev_ms,
              plain_ms=plain_ms, library_ms=library_ms, library="torch.mul(x, SCALE)",
@@ -1325,7 +1338,10 @@ def stream_kernels_phase(card: str):
              device_over_library_device=dev_ms / lib_dev_ms,
              bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
              gbps=nbytes / ms / 1e6, device_gbps=nbytes / dev_ms / 1e6,
-             bound_share=bound_ms / dev_ms)
+             bound_share=bound_ms / dev_ms, parent_design=parent["design"],
+             parent_device_ms=parent_dev_ms, device_over_parent=dev_ms / parent_dev_ms,
+             launch_shape=sweep.launch_shapes(call),
+             library_launch_shape=sweep.launch_shapes(lambda: torch.mul(x, sc.SCALE)))
         if label != "stream_copy_4d":
             results[name] = dict(name=name, route="cuda", source=STREAM_SOURCE,
                                  replaces=STREAM_REPLACES[name], max_abs_err=0.0, ms=ms,

@@ -62,6 +62,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # device, x, out, n_elems, scale, stream
         "stream_copy": (I, P, P, L, F, P),
         "stream_copy_dma": (I, P, P, L, F, P),
+        # device, x, out, n_elems, scale, design, threads, unroll, load,
+        # store, blocks_per_sm, stream
+        "stream_copy_cfg": (I, P, P, L, F, I, I, I, I, I, I, P),
+        # device, x, out, n_elems, scale, design, stages, tile,
+        # blocks_per_sm, tiles_per_block, consumer_warps, store_lag,
+        # evict_first, stream
+        "stream_copy_dma_cfg": (I, P, P, L, F, *(I,) * 8, P),
     },
 }
 

@@ -7,12 +7,22 @@ kernels (``csrc/stream_copy.cu``), with one plain PyTorch version:
 
 - :func:`stream_copy` — the counterpart of ``_pallas_copy(shape, block)``,
   the copy block-pipelined by the Pallas grid. ``block`` only validates, as
-  ``block_q``/``block_k`` do for flash attention: the kernel streams the
-  whole array with a grid-stride loop;
+  ``block_q``/``block_k`` do for flash attention. The threads move the
+  bytes: each block owns one contiguous 16 KB chunk of 16-byte vectors,
+  one a thread, and the grid holds one block a chunk, as PyTorch launches
+  its own elementwise kernels;
 - :func:`stream_copy_dma` — the counterpart of ``_manual_dma_copy(m, c,
-  bm)``, the hand double-buffered copy: TMA bulk copies in and out of two
-  shared-memory slots each way, overlapped with the scale. ``bm`` keeps its
-  JAX meaning for validation; the device tile is the kernel's own.
+  bm)``, the hand double-buffered copy. The copy engine moves the bytes
+  (TMA bulk copies) and the threads only scale: in each block a producer
+  warp issues the loads of its tiles into a ring of shared-memory stages,
+  and consumer warps scale each stage in place and store it from there.
+  ``bm`` keeps its JAX meaning for validation; the device tile is the
+  kernel's own.
+
+The configuration each wrapper launches was chosen by the sweep
+``kubeflow_tpu_torch.e2e.stream_copy_sweep``, which reaches every variant
+(the designs these replaced among them) through the source's ``*_cfg``
+entries.
 
 ``SCALE`` is ``bf16(0.97)`` = 0.96875 as a bf16 tensor: ``x * 0.97`` with a
 Python float multiplies by 0.97 in f32 and gives other bits than the JAX
