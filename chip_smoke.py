@@ -9,28 +9,46 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 1. build   — the card's name and power limit, torch/CUDA versions, and the
              build of every CUDA kernel from ``kubeflow_tpu_torch/ops/csrc``
              (one nvcc per source, all at once);
-2. kernels — each KV-cache kernel at GPT-small serving shapes (8 slots,
+2. kernels — the KV-cache writes at GPT-small serving shapes (8 slots,
              12 heads x 64, 2048 positions, 16-row blocks), with
              out-of-range cursors and a trash-table entry, held bit for bit
-             (``torch.equal``) against its plain PyTorch version on the
-             card; per-call times of kernel (back-to-back calls, and the kernel
-             alone on the device), plain version and one PyTorch
-             ``index_put_`` (by call, and its kernels alone on the device)
-             beside the bytes bound;
+             (``torch.equal``) against their plain PyTorch versions on the
+             card: ``kv_row_update``, and the paged pairs
+             ``kv_block_update_pair`` and ``kv_block_update_quant_pair``
+             (a layer's K and V in one launch; each run twice, as are two
+             calls of the one-array wrappers over the same kernel, and
+             both designs of the paged writes through
+             ``kv_block_update_cfg``, the replaced one-array kernel as
+             design 0); every refusal of the pair
+             wrappers raises; the launch floor (an empty kernel at the
+             paged write's grid: device ms, and call ms through the
+             wrappers' launch path); per write (per layer for the pairs)
+             the call ms (back-to-back calls), device ms, the plain
+             version, two calls of the one-array wrapper, each design on
+             the device, ``index_put_`` (by call and its kernels alone on
+             the device) and the bytes bound;
 3. serve   — GPT-small (seeded random weights) behind ``ModelServer`` on
              port 0, paged bf16 arena, 8 slots: 8 concurrent greedy HTTP
              requests, prompts of 16-256 tokens, 32 new tokens each, once
              through the kernels and once through the plain writes; the
-             tokens must be identical and ``kv_block_update`` must launch;
+             tokens must be identical, ``kv_block_update_pair`` must launch
+             once per layer and decode step (and ``kv_block_update``
+             never); then one request of a 600-token prompt, over the
+             largest prefill bucket: served by the static ``generate()``
+             path, equal to ``generate()`` on the same weights;
 4. contig  — the same requests with the contiguous cache through
-             ``kv_row_update``: tokens identical to phase 3's;
+             ``kv_row_update`` (twice per layer and step): tokens identical
+             to phase 3's;
 5. int8    — the same requests with the int8 arena through
-             ``kv_block_update_quant``: tokens identical to the int8 plain
-             run; agreement with the bf16 tokens is printed;
+             ``kv_block_update_quant_pair`` (once per layer and step, and
+             ``kv_block_update_quant`` never): tokens identical to the int8
+             plain run; agreement with the bf16 tokens is printed;
 6. ref     — a tiny f32 model's prefill logits and greedy tokens on the
              card against the same model on the CPU;
 7. profile — GPT-small's decode step alone: host ms per step and the
-             device-busy share with the top kernels (torch.profiler);
+             device-busy share with the top kernels (torch.profiler); the
+             KV writes' launches per step (12), their device ms and their
+             host ms per step;
 8. flash   — the three flash-attention kernels at the training path's
              shapes (b 8, h 16, L 1024, d 64, causal, bf16) against their
              plain versions (atol 2e-2 on out/dq/dk/dv, 1e-3 on lse), at f32
@@ -101,7 +119,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              TF/s, f32 triad GB/s) and ``flash_sweep()`` (the flash kernels
              forward + backward at 8192 tokens);
 19. step_profiles — ``profile_step`` (ResNet-50, batch 256) and
-             ``gpt_profile`` (b 8, L 1024), fewer steps.
+             ``gpt_profile`` (b 8, L 1024), fewer steps;
+20. kv_probe — ``kubeflow_tpu_torch.e2e.kv_update_probe``: the KV writes
+             alone (contiguous and paged), the host split of a write's
+             call, the decode chunk per token with the writes plain and
+             through the kernels. It runs last: no profiler window follows
+             its launches.
 
 The peaks in every bound and mfu come from the port's catalog
 (``kubeflow_tpu_torch.training.flops`` with ``detect_generation()``, which
@@ -141,6 +164,8 @@ import torch
 HBM_BYTES_PER_S = BF16_FLOPS_PER_S = float("nan")
 MAX_NEW = 32
 PROMPT_LENS = (16, 23, 40, 64, 97, 128, 200, 256)
+#: the over-bucket request's prompt: above the largest prefill bucket (256)
+LONG_PROMPT = 600
 
 
 def smi() -> str:
@@ -247,35 +272,36 @@ def cuda_kernel_ms(prof, match: str) -> list:
     return [ms for name, ms in device_events(prof) if match in name]
 
 
-def kernel_device_ms(fn, match: str, iters: int = 50) -> float:
+def kernel_device_ms(fn, match: str, iters: int = 50, per_call: int = 1) -> float:
     """Mean execution time on the device of the kernels whose name holds
-    ``match``, per launch (torch.profiler): the kernel alone, without the
-    host-side launch cost that ``cuda_ms`` of back-to-back calls includes.
-    Each call launches one such kernel: a window with more fails the phase,
-    and so does one that kept every record and holds none (another kernel
-    ran). Windows that lost records are taken again, up to TAKES, and the
-    mean is over the records of the takes once they hold ``iters`` (each
-    record is one launch's own time)."""
+    ``match``, per call of ``fn`` (torch.profiler): the kernel alone, without
+    the host-side launch cost that ``cuda_ms`` of back-to-back calls
+    includes. Each call launches ``per_call`` such kernels: a window with
+    more fails the phase, and so does one that kept every record and holds
+    none (another kernel ran). Windows that lost records are taken again, up
+    to TAKES, and the mean is over the records of the takes once they hold
+    ``iters`` calls' worth (each record is one launch's own time)."""
     def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
 
+    want = iters * per_call
     seen = []
     for take in range(TAKES):
         if take:
             time.sleep(RETAKE_PAUSE_S)
         ms = cuda_kernel_ms(profiled(run)[0], match)
-        if len(ms) == iters:
+        if len(ms) == want:
             return sum(ms) / iters
-        if len(ms) > iters or (not ms and whole(WINDOWS[-1], iters)):
+        if len(ms) > want or (not ms and whole(WINDOWS[-1], want)):
             raise AssertionError(f"a window holds {len(ms)} {match} kernels for "
-                                 f"{iters} calls: {WINDOWS[-1]}")
+                                 f"{iters} calls of {per_call}: {WINDOWS[-1]}")
         seen += ms
-        if len(seen) >= iters:
-            return sum(seen) / len(seen)
+        if len(seen) >= want:
+            return sum(seen) / len(seen) * per_call
     raise AssertionError(f"profiler saw {len(seen)} {match} kernels in {TAKES} windows of "
-                         f"{iters} calls: {WINDOWS[-TAKES:]}")
+                         f"{iters} calls of {per_call}: {WINDOWS[-TAKES:]}")
 
 
 def device_ms_by_kernel(prof) -> dict:
@@ -325,7 +351,55 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # -- phase 2 -------------------------------------------------------------------
 
+KV_SOURCE = "kubeflow_tpu_torch/ops/csrc/kv_cache.cu"
+KV_REPLACES = {
+    "kv_row_update": "kubeflow_tpu/ops/kv_cache.py:45 (_kernel, pallas_call :93)",
+    "kv_block_update_pair": "kubeflow_tpu/ops/kv_cache.py:117 (_paged_kernel, pallas_call :168)",
+    "kv_block_update_quant_pair":
+        "kubeflow_tpu/ops/kv_cache.py:222 (_paged_quant_kernel, pallas_call :277)",
+}
+#: profiler names of the paged writes' designs (csrc/kv_cache.cu): 0 is the
+#: replaced one-array kernel, 1 the pair
+KV_DESIGN_MATCH = {
+    "kv_block_update_pair": {0: "kv_block_update_kernel", 1: "kv_block_update_pair_kernel"},
+    "kv_block_update_quant_pair": {0: "kv_block_update_quant_kernel",
+                                   1: "kv_block_update_quant_pair_kernel"},
+}
+
+
+def kv_refusals(kc, arena, qarena, scales, new, cur, tables, T) -> int:
+    """Every refusal of the pair wrappers, on CUDA tensors; returns how many
+    were checked."""
+    N = arena.shape[0]
+    big = torch.zeros((2 * N,) + arena.shape[1:], dtype=arena.dtype, device=arena.device)
+    cases = [
+        ("the same arena twice", kc.kv_block_update_pair, (arena, arena)),
+        ("overlapping arenas", kc.kv_block_update_pair, (big[:N], big[N - 1:2 * N - 1])),
+        ("arenas of different shapes", kc.kv_block_update_pair, (arena, big[:N - 1])),
+        ("arenas of different dtypes", kc.kv_block_update_pair, (arena, arena.float())),
+        ("a non-contiguous arena", kc.kv_block_update_pair, (arena, big[::2])),
+        ("the same scale arena twice", kc.kv_block_update_quant_pair,
+         (qarena, scales, qarena.clone(), scales)),
+        ("the same int8 arena twice", kc.kv_block_update_quant_pair,
+         (qarena, scales, qarena, scales.clone())),
+        ("int8 arenas of different shapes", kc.kv_block_update_quant_pair,
+         (qarena, scales, qarena[:N - 1].clone(), scales[:N - 1].clone())),
+        ("a non-contiguous scale arena", kc.kv_block_update_quant_pair,
+         (qarena, scales, qarena.clone(), torch.zeros_like(scales.expand(-1, -1, -1, 2))[..., :1])),
+    ]
+    for label, fn, arenas in cases:
+        refused(lambda: fn(*arenas, new, new, cur, tables, max_seq=T), f"kernels: {label}")
+    refused(lambda: kc.kv_block_update_pair(arena, arena.clone(), new, new.float(), cur,
+                                            tables, max_seq=T), "kernels: rows of two dtypes")
+    return len(cases) + 1
+
+
 def kernel_phase(card: str):
+    """The KV-cache writes at GPT-small serving shapes, each held bit for bit
+    against its plain version; per write (for the paged pair: per layer, K
+    and V) the call ms, device ms, plain ms, a library yardstick, the bytes
+    bound; the launch floor; the pair's refusals; both designs of the paged
+    writes on this call."""
     from kubeflow_tpu_torch.ops import kv_cache as kc
 
     dev = "cuda"
@@ -345,89 +419,136 @@ def kernel_phase(card: str):
     arena = torch.randn(N, bt, H, D, generator=g).to(dev, torch.bfloat16)
     qarena = torch.randint(-127, 128, (N, bt, H, D), generator=g, dtype=torch.int8).to(dev)
     scales = torch.rand(N, bt, H, 1, generator=g).to(dev)
+    # V's rows and arenas
+    v_new = torch.randn(S, H, D, generator=g).to(dev, torch.bfloat16)
+    v_arena = torch.randn(N, bt, H, D, generator=g).to(dev, torch.bfloat16)
+    v_qarena = torch.randint(-127, 128, (N, bt, H, D), generator=g, dtype=torch.int8).to(dev)
+    v_scales = torch.rand(N, bt, H, 1, generator=g).to(dev)
     cur_d, tables_d = cur.to(dev), tables.to(dev)
     rows_v = torch.arange(S)[valid].to(dev)
     pos_v = cur[valid].long()
     blk_v = tables[torch.arange(S)[valid], pos_v // bt].long().to(dev)
     off_v = (pos_v % bt).to(dev)
     pos_v = pos_v.to(dev)
-    new_v = new[valid.to(dev)]
+    new_v, v_new_v = new[valid.to(dev)], v_new[valid.to(dev)]
     row = H * D * 2
     # bytes each write needs: the S cursors are read; only the n_valid slots
     # whose cursor is in range read their table entry and their row of
-    # `new`, and write one arena row
+    # `new`, and write one arena row (and scale)
     cursor_bytes, entry_bytes = S * 4, n_valid * 4
+
+    floor_call = lambda: kc.kv_launch_floor(arena, S)
+    floor = dict(floor_ms=cuda_ms(floor_call),
+                 floor_device_ms=kernel_device_ms(floor_call, "kv_launch_floor_kernel"))
+    emit(phase="kernels", kernel="kv_launch_floor", card=card, grid=S,
+         kernel_ms=floor["floor_ms"], kernel_device_ms=floor["floor_device_ms"])
 
     results = {}
 
-    def report(name, replaces, err, call, plain_ms, library, nbytes):
-        """``library``: one PyTorch call writing the same rows, or None;
-        timed by call (CUDA events) and on the device (its kernels alone)."""
+    def record(name, err, ms, dev_ms, plain_ms, library_ms, nbytes, **extra):
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ms = cuda_ms(call)
-        dev_ms = kernel_device_ms(call, name + "_kernel")
-        library_ms = lib_dev_ms = lib_names = None
-        if library is not None:
-            library_ms = cuda_ms(library)
-            lib_dev_ms, lib_names = library_device_ms(library)
-        results[name] = dict(name=name, route="cuda",
-                             source="kubeflow_tpu_torch/ops/csrc/kv_cache.cu",
-                             replaces=replaces, max_abs_err=err, ms=ms,
+        results[name] = dict(name=name, route="cuda", source=KV_SOURCE,
+                             replaces=KV_REPLACES[name], max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                             library_ms=library_ms)
+                             library_ms=library_ms, device_ms=dev_ms, **floor)
         emit(phase="kernels", kernel=name, card=card, bit_equal=err == 0.0,
              kernel_ms=ms, kernel_device_ms=dev_ms, plain_ms=plain_ms,
-             library_ms=library_ms, library_device_ms=lib_dev_ms, library_kernels=lib_names,
-             device_ms_over_library=None if lib_dev_ms is None else dev_ms / lib_dev_ms,
-             bound_ms=bound_ms, bytes=nbytes, launches_per_token=2 * n_layers)
+             library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes,
+             device_over_floor=dev_ms / floor["floor_device_ms"], **floor, **extra)
 
-    # kv_row_update
+    # kv_row_update (not redesigned: K and V are two launches a layer)
     a = kc.kv_row_update(cache.clone(), new, cur_d)
     b = kc.kv_row_update_plain(cache.clone(), new, cur_d)
     torch.cuda.synchronize()
     if not torch.equal(a, b):
         raise AssertionError("kv_row_update differs from its plain version")
     work = cache.clone()
-    report("kv_row_update", "kubeflow_tpu/ops/kv_cache.py:45 (_kernel, pallas_call :93)",
-           max_abs_err(a, b),
-           lambda: kc.kv_row_update(work, new, cur_d),
-           cuda_ms(lambda: kc.kv_row_update_plain(work, new, cur_d)),
-           lambda: work.index_put_((rows_v, pos_v), new_v),
-           cursor_bytes + 2 * n_valid * row)
+    call = lambda: kc.kv_row_update(work, new, cur_d)
+    library = lambda: work.index_put_((rows_v, pos_v), new_v)
+    dev_ms = kernel_device_ms(call, "kv_row_update_kernel")
+    lib_dev_ms, lib_names = library_device_ms(library)
+    record("kv_row_update", max_abs_err(a, b), cuda_ms(call), dev_ms,
+           cuda_ms(lambda: kc.kv_row_update_plain(work, new, cur_d)), cuda_ms(library),
+           cursor_bytes + 2 * n_valid * row, library_device_ms=lib_dev_ms,
+           library_kernels=[n[:90] for n in lib_names],
+           device_ms_over_library=dev_ms / lib_dev_ms, launches_per_token=2 * n_layers,
+           layer_device_ms=2 * dev_ms)
+    results["kv_row_update"]["layer_device_ms"] = 2 * dev_ms  # K and V: two launches
+    del a, b, work, cache
 
-    # kv_block_update
-    a = kc.kv_block_update(arena.clone(), new, cur_d, tables_d, max_seq=T)
-    b = kc.kv_block_update_plain(arena.clone(), new, cur_d, tables_d, max_seq=T)
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        raise AssertionError("kv_block_update differs from its plain version")
-    work = arena.clone()
-    report("kv_block_update",
-           "kubeflow_tpu/ops/kv_cache.py:117 (_paged_kernel, pallas_call :168)",
-           max_abs_err(a, b),
-           lambda: kc.kv_block_update(work, new, cur_d, tables_d, max_seq=T),
-           cuda_ms(lambda: kc.kv_block_update_plain(work, new, cur_d, tables_d, max_seq=T)),
-           lambda: work.index_put_((blk_v, off_v), new_v),
-           cursor_bytes + entry_bytes + 2 * n_valid * row)
+    def pair_case(name, start, pair, plain, single, cfg, nbytes, library=None):
+        """One paged pair: bit-equal to its plain version twice, and so are
+        two calls of the one-array wrapper (the same kernel over one array);
+        both designs through ``cfg(design, arenas)`` bit-equal too; the
+        times per layer of the pair, of two one-array calls, of each design
+        on the device, of the plain version and of ``library`` (two calls)."""
+        want = plain([t.clone() for t in start])
+        for fn, label in ((pair, name), (single, f"{name}'s one-array wrapper")):
+            for _ in range(2):
+                got = [t.clone() for t in start]
+                fn(got)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"{label} differs from its plain version")
+        designs = {}
+        for design, match in KV_DESIGN_MATCH[name].items():
+            got = [t.clone() for t in start]
+            cfg(design, got)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{name} design {design} differs from the plain version")
+            work = [t.clone() for t in start]
+            per_call = 2 if design == 0 else 1
+            designs[design] = kernel_device_ms(lambda: cfg(design, work), match,
+                                               per_call=per_call)
+        del got, want
+        work = [t.clone() for t in start]
+        call = lambda: pair(work)
+        ms = cuda_ms(call)
+        dev_ms = kernel_device_ms(call, name)
+        two = lambda: single(work)
+        single_ms = cuda_ms(two)
+        single_dev_ms = kernel_device_ms(two, name, per_call=2)  # the same kernel, one array
+        plain_ms = cuda_ms(lambda: plain(work), iters=50)
+        extra = {}
+        library_ms = None
+        if library is not None:
+            library_ms = cuda_ms(library)
+            one_dev_ms, lib_names = library_device_ms(lambda: library(1))
+            extra = dict(library="index_put_ x2", library_device_ms=2 * one_dev_ms,
+                         library_kernels=[n[:90] for n in lib_names],
+                         device_ms_over_library=dev_ms / (2 * one_dev_ms))
+        record(name, 0.0, ms, dev_ms, plain_ms, library_ms, nbytes, per="layer (K and V)",
+               launches_per_token=n_layers, single_x2_ms=single_ms,
+               single_x2_device_ms=single_dev_ms, replaced_device_ms=designs[0],
+               design_device_ms=designs, device_over_replaced=dev_ms / designs[0], **extra)
+        results[name].update(per="layer (K and V)", replaced_device_ms=designs[0])
 
-    # kv_block_update_quant
-    qa, sa = kc.kv_block_update_quant(qarena.clone(), scales.clone(), new, cur_d,
-                                      tables_d, max_seq=T)
-    qb, sb = kc.kv_block_update_quant_plain(qarena.clone(), scales.clone(), new,
-                                            cur_d, tables_d, max_seq=T)
-    torch.cuda.synchronize()
-    if not (torch.equal(qa, qb) and torch.equal(sa, sb)):
-        raise AssertionError("kv_block_update_quant differs from its plain version")
-    wq, ws = qarena.clone(), scales.clone()
-    report("kv_block_update_quant",
-           "kubeflow_tpu/ops/kv_cache.py:222 (_paged_quant_kernel, pallas_call :277)",
-           max(max_abs_err(qa, qb), max_abs_err(sa, sb)),
-           lambda: kc.kv_block_update_quant(wq, ws, new, cur_d, tables_d, max_seq=T),
-           cuda_ms(lambda: kc.kv_block_update_quant_plain(wq, ws, new, cur_d, tables_d,
-                                                          max_seq=T)),
-           None,  # no single PyTorch call quantizes and scatters
-           cursor_bytes + entry_bytes + n_valid * (row + H * D + H * 4))
-    emit(phase="kernels", kernels=sorted(results), card=card)
+    def index_put_x2(n=2):
+        arena.index_put_((blk_v, off_v), new_v)
+        if n == 2:
+            v_arena.index_put_((blk_v, off_v), v_new_v)
+
+    pair_case(
+        "kv_block_update_pair", [arena, v_arena],
+        lambda t: kc.kv_block_update_pair(*t, new, v_new, cur_d, tables_d, max_seq=T),
+        lambda t: kc.kv_block_update_pair_plain(*t, new, v_new, cur_d, tables_d, max_seq=T),
+        lambda t: (kc.kv_block_update(t[0], new, cur_d, tables_d, max_seq=T),
+                   kc.kv_block_update(t[1], v_new, cur_d, tables_d, max_seq=T)),
+        lambda d, t: kc.kv_block_update_cfg(d, *t, new, v_new, cur_d, tables_d, max_seq=T),
+        cursor_bytes + entry_bytes + 2 * 2 * n_valid * row, library=index_put_x2)
+    pair_case(
+        "kv_block_update_quant_pair", [qarena, scales, v_qarena, v_scales],
+        lambda t: kc.kv_block_update_quant_pair(*t, new, v_new, cur_d, tables_d, max_seq=T),
+        lambda t: kc.kv_block_update_quant_pair_plain(*t, new, v_new, cur_d, tables_d,
+                                                      max_seq=T),
+        lambda t: (kc.kv_block_update_quant(t[0], t[1], new, cur_d, tables_d, max_seq=T),
+                   kc.kv_block_update_quant(t[2], t[3], v_new, cur_d, tables_d, max_seq=T)),
+        lambda d, t: kc.kv_block_update_cfg(d, t[0], t[2], new, v_new, cur_d, tables_d,
+                                            max_seq=T, k_scales=t[1], v_scales=t[3]),
+        cursor_bytes + entry_bytes + 2 * n_valid * (row + H * D + H * 4))
+    n_refused = kv_refusals(kc, arena, qarena, scales, new, cur_d, tables_d, T)
+    emit(phase="kernels", kernels=sorted(results), card=card, refused=n_refused)
     return results
 
 
@@ -443,11 +564,14 @@ def post(port: int, prompt) -> list:
     return body["predictions"][0]
 
 
-def serve(prompts, card: str, label: str, **kw):
+def serve(prompts, card: str, label: str, long_prompt=None, **kw):
     """GPT-small behind ModelServer; one warm-up request, then every count
-    reset and the 8 prompts sent concurrently. Returns (generated tokens
-    per prompt, launch counts of the run)."""
-    from kubeflow_tpu_torch.models.gpt import GptConfig
+    reset and the 8 prompts sent concurrently. Then, after the counts are
+    read, ``long_prompt`` (over the largest prefill bucket) alone: it must
+    be served, equal to the port's ``generate()`` on the same weights.
+    Returns (generated tokens per prompt, launch counts of the run, decode
+    steps of the run)."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig, generate
     from kubeflow_tpu_torch.ops import kv_cache as kc
     from kubeflow_tpu_torch.runtime.metrics import METRICS
     from kubeflow_tpu_torch.runtime.tracing import TRACER
@@ -481,6 +605,7 @@ def serve(prompts, card: str, label: str, **kw):
             t.join(timeout=900)
         wall = time.perf_counter() - t0
         counts = dict(kc.LAUNCHES)
+        steps = int(METRICS.value("serving_decode_steps_total"))
         if errors or any(o is None for o in out):
             raise RuntimeError(f"{label}: requests failed: {errors}")
         gen = []
@@ -502,9 +627,24 @@ def serve(prompts, card: str, label: str, **kw):
              tokens_per_s=sum(len(t) for t in gen) / wall,
              ttft_ms_p50=float(np.median(ttft)) if ttft else None,
              decode_chunk_ms_mean=(chunk.sum / chunk.total * 1e3) if chunk.total else None,
-             decode_chunks=chunk.total, launches=counts,
+             decode_chunks=chunk.total, decode_steps=steps, launches=counts,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-        return gen, counts
+        if long_prompt is not None:
+            t0 = time.perf_counter()
+            o = post(httpd.port, long_prompt)
+            long_s = time.perf_counter() - t0
+            want = generate(model.cfg, model.params, long_prompt[None], MAX_NEW,
+                            device="cuda")[0].tolist()
+            if len(o) != len(long_prompt) + MAX_NEW or o[:len(long_prompt)] != \
+                    list(map(int, long_prompt)):
+                raise AssertionError(f"{label}: malformed over-bucket prediction")
+            if not all(0 <= t < vocab for t in o):
+                raise AssertionError(f"{label}: over-bucket token outside the vocabulary")
+            if o != want:
+                raise AssertionError(f"{label}: over-bucket tokens differ from generate()")
+            emit(phase=label, card=card, over_bucket_prompt=len(long_prompt),
+                 tokens=len(o), equal_to_generate=True, wall_s=long_s)
+        return gen, counts, steps
     finally:
         httpd.close()
         server.close()
@@ -550,6 +690,7 @@ def profile_phase(card: str) -> None:
     share of their wall time (after a warm-up cycle of 8), and the top
     kernels by device time."""
     from kubeflow_tpu_torch.models.gpt import GptConfig, GptLM, init_params
+    from kubeflow_tpu_torch.ops import kv_cache as kc
 
     cfg = GptConfig.small()
     S, bt = 8, 16
@@ -572,20 +713,60 @@ def profile_phase(card: str) -> None:
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
 
+    pair = kc.kv_block_update_pair
+    kv_host_ns = 0
+
+    def timed_pair(*args, **kw):
+        nonlocal kv_host_ns
+        t = time.perf_counter_ns()
+        out = pair(*args, **kw)
+        kv_host_ns += time.perf_counter_ns() - t
+        return out
+
     with torch.no_grad():
         steps(3)
+        kc.reset_launches()
         t0 = time.perf_counter()
         steps(32)
         step_ms = (time.perf_counter() - t0) / 32 * 1e3
+        kv_launches = {k: n / 32 for k, n in kc.LAUNCHES.items() if n}
         prof, window_ms = whole_profile(lambda: steps(8), ("cpu", "cuda"), 1)
+        kc.kv_block_update_pair = timed_pair  # the model looks it up at every call
+        try:
+            steps(32)
+        finally:
+            kc.kv_block_update_pair = pair
+    if kv_launches != {"kv_block_update_pair": cfg.n_layers}:
+        raise AssertionError(f"profile: KV launches a step {kv_launches}, expected "
+                             f"{cfg.n_layers} kv_block_update_pair")
     by_name = device_ms_by_kernel(prof)
     device_ms = sum(by_name.values())
+    kv_device_ms = sum(ms for n, ms in by_name.items() if "kv_block_update_pair" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit(phase="profile", card=card, step_ms=step_ms, tokens_per_s=S * 1e3 / step_ms,
          device_ms_per_step=device_ms / 8 if device_ms else None,
          device_busy_share=device_ms / window_ms if device_ms else None,
+         kv_launches_per_step=kv_launches, kv_device_ms_per_step=kv_device_ms / 8,
+         kv_host_ms_per_step=kv_host_ns / 32 / 1e6,
          top_kernels_ms_per_step=[[n[:90], ms / 8] for n, ms in top])
     del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kv_probe_phase(card: str) -> None:
+    """The KV-write probe (``e2e/kv_update_probe.py``): the writes alone,
+    the host split of a write's call, and the decode chunk per token with
+    the writes plain and through the kernels."""
+    from kubeflow_tpu_torch.e2e import kv_update_probe as probe
+
+    iso = probe.isolated()
+    emit(phase="kv_probe", card=card, isolated_ms=iso)
+    emit(phase="kv_probe", card=card, host_split_us=probe.host_split())
+    model = probe.in_model()
+    emit(phase="kv_probe", card=card, in_model=model)
+    if not all(np.isfinite(list(iso.values()) + list(model.values()))):
+        raise AssertionError("kv_probe: a time is not finite")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1461,28 +1642,33 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t
         return result
 
-    kernels = timed("kernels", kernel_phase)
-    launches = timed("serve+contig+int8", serve_phases)
-    timed("ref", ref_phase)
-    timed("profile", profile_phase)
-    kernels.update(timed("flash", flash_phase))
-    timed("train_ref", train_ref_phase)
-    launches.update(timed("train", train_phase))
-    timed("train_profile", train_profile_phase)
-    kernels.update(timed("resnet_kernels", resnet_kernels_phase))
-    timed("resnet_ref", resnet_ref_phase)
-    launches.update(timed("resnet_train", resnet_train_phase))
-    timed("resnet_profile", resnet_profile_phase)
-    kernels.update(timed("stream_kernels", stream_kernels_phase))
-    launches.update(timed("probe", probe_phase))
-    timed("ceiling", ceiling_phase)
-    timed("step_profiles", step_profiles_phase)
-    emit(phase="timing", card=card, seconds=seconds)
-    emit(phase="profiler_windows", card=card, windows=WINDOWS)
+    try:
+        kernels = timed("kernels", kernel_phase)
+        launches = timed("serve+contig+int8", serve_phases)
+        timed("ref", ref_phase)
+        timed("profile", profile_phase)
+        kernels.update(timed("flash", flash_phase))
+        timed("train_ref", train_ref_phase)
+        launches.update(timed("train", train_phase))
+        timed("train_profile", train_profile_phase)
+        kernels.update(timed("resnet_kernels", resnet_kernels_phase))
+        timed("resnet_ref", resnet_ref_phase)
+        launches.update(timed("resnet_train", resnet_train_phase))
+        timed("resnet_profile", resnet_profile_phase)
+        kernels.update(timed("stream_kernels", stream_kernels_phase))
+        launches.update(timed("probe", probe_phase))
+        timed("ceiling", ceiling_phase)
+        timed("step_profiles", step_profiles_phase)
+        # last: its ~10^6 launches (the decode chunks of in_model) come after
+        # every profiler window
+        timed("kv_probe", kv_probe_phase)
+        emit(phase="timing", card=card, seconds=seconds)
+    finally:  # the windows are printed whether a phase failed or not
+        emit(phase="profiler_windows", card=card, windows=WINDOWS)
     for name, n in launches.items():
         kernels[name]["launches"] = n
 
-    order = ("kv_row_update", "kv_block_update", "kv_block_update_quant",
+    order = ("kv_row_update", "kv_block_update_pair", "kv_block_update_quant_pair",
              "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
              "fused_bottleneck", "fused_transition", "stream_copy", "stream_copy_dma")
     emit(kernels=[kernels[k] for k in order])
@@ -1494,32 +1680,42 @@ def main() -> int:
 
 def serve_phases(card: str) -> dict:
     """Phases 3-5: GPT-small served in three KV layouts, each held against
-    its plain writes. Returns each KV kernel's launches in its layout's run."""
+    its plain writes. A paged run's pair kernel launches once per layer and
+    decode step, and its one-array wrapper never; the contiguous run's row
+    kernel twice. Returns each KV kernel's launches in its layout's run."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig
+
+    n_layers = GptConfig.small().n_layers
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 32000, n).astype(np.int32) for n in PROMPT_LENS]
+    long_prompt = rng.integers(0, 32000, LONG_PROMPT).astype(np.int32)
 
-    bf16_k, c = serve(prompts, card, "serve_paged_kernel")  # default: the kernels
-    if c["kv_block_update"] == 0:
-        raise AssertionError("paged bf16 serving never launched kv_block_update")
-    launches = {"kv_block_update": c["kv_block_update"]}
-    bf16_p, c = serve(prompts, card, "serve_paged_plain", kv_kernel=False)
+    def expect(label, counts, name, per_step, steps, never):
+        if steps == 0 or counts[name] != per_step * n_layers * steps or counts[never]:
+            raise AssertionError(f"{label}: {counts} over {steps} decode steps; expected "
+                                 f"{per_step * n_layers} {name} a step and no {never}")
+
+    # default: the kernels
+    bf16_k, c, steps = serve(prompts, card, "serve_paged_kernel", long_prompt=long_prompt)
+    expect("serve_paged_kernel", c, "kv_block_update_pair", 1, steps, "kv_block_update")
+    launches = {"kv_block_update_pair": c["kv_block_update_pair"]}
+    bf16_p, c, _ = serve(prompts, card, "serve_paged_plain", kv_kernel=False)
     if any(c.values()):
         raise AssertionError(f"kv_kernel=False launched kernels: {c}")
     if bf16_k != bf16_p:
         raise AssertionError("paged bf16: kernel-path tokens differ from plain-path tokens")
 
-    contig, c = serve(prompts, card, "serve_contiguous_kernel", paged=False)
-    if c["kv_row_update"] == 0:
-        raise AssertionError("contiguous serving never launched kv_row_update")
+    contig, c, steps = serve(prompts, card, "serve_contiguous_kernel", paged=False)
+    expect("serve_contiguous_kernel", c, "kv_row_update", 2, steps, "kv_block_update_pair")
     launches["kv_row_update"] = c["kv_row_update"]
     if contig != bf16_k:
         raise AssertionError("contiguous tokens differ from paged tokens")
 
-    int8_k, c = serve(prompts, card, "serve_int8_kernel", kv_dtype="int8")
-    if c["kv_block_update_quant"] == 0:
-        raise AssertionError("int8 serving never launched kv_block_update_quant")
-    launches["kv_block_update_quant"] = c["kv_block_update_quant"]
-    int8_p, _ = serve(prompts, card, "serve_int8_plain", kv_kernel=False, kv_dtype="int8")
+    int8_k, c, steps = serve(prompts, card, "serve_int8_kernel", kv_dtype="int8")
+    expect("serve_int8_kernel", c, "kv_block_update_quant_pair", 1, steps,
+           "kv_block_update_quant")
+    launches["kv_block_update_quant_pair"] = c["kv_block_update_quant_pair"]
+    int8_p, _, _ = serve(prompts, card, "serve_int8_plain", kv_kernel=False, kv_dtype="int8")
     if int8_k != int8_p:
         raise AssertionError("int8: kernel-path tokens differ from plain-path tokens")
     agree = np.mean([a == b for x, y in zip(int8_k, bf16_k) for a, b in zip(x, y)])

@@ -263,7 +263,7 @@ class GptAttention(nn.Module):
         contiguous cache's shape, so the attention that follows matches the
         contiguous path bit for bit. Rows whose entries point at the trash
         block read garbage there, only at positions the mask hides."""
-        from ..ops.kv_cache import (kv_block_update, kv_block_update_quant,
+        from ..ops.kv_cache import (kv_block_update_pair, kv_block_update_quant_pair,
                                     kv_block_update_ref, quantize_kv)
 
         if block_tables is None:
@@ -278,20 +278,18 @@ class GptAttention(nn.Module):
         single = L == 1 and self.use_kernel
         if self.quant:
             k_scale, v_scale = cache["k_scale"], cache["v_scale"]
-            if single:
-                kv_block_update_quant(k_arena, k_scale, k[:, 0], start,
-                                      block_tables, max_seq=max_seq)
-                kv_block_update_quant(v_arena, v_scale, v[:, 0], start,
-                                      block_tables, max_seq=max_seq)
+            if single:  # K and V in one launch
+                kv_block_update_quant_pair(k_arena, k_scale, v_arena, v_scale, k[:, 0],
+                                           v[:, 0], start, block_tables, max_seq=max_seq)
             else:
                 for arena, scales, seg in ((k_arena, k_scale, k),
                                            (v_arena, v_scale, v)):
                     sq, ss = quantize_kv(seg)
                     kv_block_update_ref(arena, sq, start, block_tables, max_seq=max_seq)
                     kv_block_update_ref(scales, ss, start, block_tables, max_seq=max_seq)
-        elif single:
-            kv_block_update(k_arena, k[:, 0], start, block_tables, max_seq=max_seq)
-            kv_block_update(v_arena, v[:, 0], start, block_tables, max_seq=max_seq)
+        elif single:  # K and V in one launch
+            kv_block_update_pair(k_arena, v_arena, k[:, 0], v[:, 0], start, block_tables,
+                                 max_seq=max_seq)
         else:
             kv_block_update_ref(k_arena, k, start, block_tables, max_seq=max_seq)
             kv_block_update_ref(v_arena, v, start, block_tables, max_seq=max_seq)

@@ -37,8 +37,19 @@ P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "kv_cache.cu": {
         "kv_row_update": (I, P, P, P, I, I, I, P),
-        "kv_block_update": (I, P, P, P, P, I, I, I, I, I, I, P),
-        "kv_block_update_quant": (I, P, P, P, I, P, P, I, I, I, I, I, I, I, P),
+        # device, k_arena, v_arena, k_new, v_new, n_arrays, cursors, tables,
+        # S, mb, block_t, max_seq, n_blocks, row_bytes, stream
+        "kv_block_update_pair": (I, P, P, P, P, I, P, P, I, I, I, I, I, I, P),
+        # device, k_arena, v_arena, k_scales, v_scales, k_new, v_new,
+        # new_is_bf16, n_arrays, cursors, tables, S, mb, block_t, max_seq,
+        # n_blocks, H, D, stream
+        "kv_block_update_quant_pair": (I, *(P,) * 6, I, I, P, P, *(I,) * 7, P),
+        # device, design, quant, k_arena, v_arena, k_scales, v_scales, k_new,
+        # v_new, new_is_bf16, n_arrays, cursors, tables, S, mb, block_t,
+        # max_seq, n_blocks, H, D, row_bytes, stream
+        "kv_block_update_cfg": (I, I, I, *(P,) * 6, I, I, P, P, *(I,) * 8, P),
+        # device, S, row_bytes, stream
+        "kv_launch_floor": (I, I, I, P),
     },
     "flash_attention.cu": {
         # device, q, k, v, out, lse, is_bf16, b, lq, lk, h, d, scale, causal,
@@ -142,5 +153,13 @@ def load_all() -> None:
             future.result()
 
 
+#: bound entry points by (source, name), filled at first use: a call of
+#: :func:`entry` after that takes no lock
+_entries: Dict[Tuple[str, str], Callable[..., int]] = {}
+
+
 def entry(source: str, name: str) -> Callable[..., int]:
-    return getattr(load(source), name)
+    fn = _entries.get((source, name))
+    if fn is None:
+        fn = _entries[(source, name)] = getattr(load(source), name)
+    return fn

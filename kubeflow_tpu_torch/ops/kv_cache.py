@@ -2,7 +2,7 @@
 quantization.
 
 The port of ``kubeflow_tpu/ops/kv_cache.py``. Each decode step writes ONE
-``[H, D]`` key row and one value row per slot at that slot's cursor. Three
+``[H, D]`` key row and one value row per slot at that slot's cursor. The
 wrappers, each over a hand-written CUDA kernel (``csrc/kv_cache.cu``) with a
 plain PyTorch version beside it:
 
@@ -12,7 +12,10 @@ plain PyTorch version beside it:
   trash block, so a write through an unallocated table entry lands there;
 - :func:`kv_block_update_quant` — the same write into an int8 arena,
   quantized per (row, head) with the f32 scale written into
-  ``[N, block_t, H, 1]`` beside it.
+  ``[N, block_t, H, 1]`` beside it;
+- :func:`kv_block_update_pair` and :func:`kv_block_update_quant_pair` — a
+  layer's K and V writes of the two above in ONE launch, the decode step's
+  path. The one-array wrappers launch the same kernels over one array.
 
 The writes are IN PLACE: the cache/arena passed in is modified and
 returned (JAX got the same effect from ``input_output_aliases`` plus
@@ -21,12 +24,14 @@ donation). A cursor at or beyond ``T``/``max_seq`` writes nothing.
 A wrapper takes its plain version only when the tensors lie on the CPU.
 For CUDA tensors it launches the kernel or raises; it never falls back.
 Each wrapper adds one to ``LAUNCHES[<name>]`` where it launches, so a run
-can show the main path went through the kernel.
+can show the main path went through the kernel. :func:`kv_block_update_cfg`
+(the pair kernel, or the one-array kernel it replaced) and
+:func:`kv_launch_floor` (an empty kernel) are for timing and count nothing.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,7 +41,13 @@ SOURCE = "kv_cache.cu"
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"kv_row_update": 0, "kv_block_update": 0,
-                            "kv_block_update_quant": 0}
+                            "kv_block_update_quant": 0, "kv_block_update_pair": 0,
+                            "kv_block_update_quant_pair": 0}
+
+#: the raw pointer of a device's current stream: the value of
+#: ``torch.cuda.current_stream(i).cuda_stream`` at a small part of its cost
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
 
 
 def reset_launches() -> None:
@@ -47,6 +58,16 @@ def reset_launches() -> None:
 def _rows(new: torch.Tensor) -> torch.Tensor:
     """[S, 1, H, D] -> [S, H, D] (both layouts are accepted, as in JAX)."""
     return new[:, 0] if new.dim() == 4 else new
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous int32, without a copy when it already is."""
+    return t if t.dtype == torch.int32 and t.is_contiguous() else t.to(torch.int32).contiguous()
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as contiguous ``dtype``, without a copy when it already is."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
 
 
 def _check_cuda(name: str, target: torch.Tensor, *others: torch.Tensor) -> None:
@@ -62,14 +83,71 @@ def _check_cuda(name: str, target: torch.Tensor, *others: torch.Tensor) -> None:
                          "contiguous")
 
 
-def _launch(name: str, target: torch.Tensor, *args) -> None:
-    """Launch ``name`` on ``target``'s device and current stream; the
-    library's own CUDA runtime is told the device with every call."""
-    stream = torch.cuda.current_stream(target.device).cuda_stream
-    rc = _build.entry(SOURCE, name)(target.device.index, *args, stream)
-    LAUNCHES[name] += 1
+def _check_paged(name: str, written: Sequence[torch.Tensor], news: Sequence[torch.Tensor],
+                 cursors: torch.Tensor, tables: torch.Tensor) -> None:
+    """The checks of a paged write, in one pass: ``written`` holds the
+    arenas (K first; each int8 arena followed by its scale arena), ``news``
+    the rows. Every tensor on the first arena's device, the written ones
+    contiguous and disjoint, K's and V's arenas and rows of one shape and
+    type, rows ``[S, H, D]`` and cursors ``[S]`` for tables ``[S, MB]``.
+    Raises ValueError; a CPU tensor among CUDA ones too. Each tensor
+    attribute is read once: on the decode path this runs 12 times a token."""
+    dev = written[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors must lie on the CPU (plain "
+                         f"version) or on a CUDA device, got {dev}")
+    spans, shapes = [], []
+    for t in written:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}, got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the arenas are written in place and must be "
+                             "contiguous")
+        lo = t.data_ptr()
+        hi = lo + t.nbytes
+        for a, b in spans:
+            if lo < b and a < hi:
+                raise ValueError(f"{name}: the arenas written must not overlap")
+        spans.append((lo, hi))
+        shapes.append((t.shape, t.dtype))
+    for t in (*news, cursors, tables):
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}, got one on {t.device}")
+    per = len(written) // len(news)
+    if shapes[per:] != shapes[:len(shapes) - per]:
+        raise ValueError(f"{name}: the K and V arenas differ in shape or dtype")
+    row = (news[0].shape, news[0].dtype)
+    if len(news) == 2 and (news[1].shape, news[1].dtype) != row:
+        raise ValueError(f"{name}: the K and V rows differ in shape or dtype")
+    (N, bt, H, D), arena_dtype = shapes[0]
+    tshape = tables.shape
+    S = tshape[0]
+    if len(tshape) != 2 or row[0] != (S, H, D) or cursors.shape != (S,):
+        raise ValueError(f"{name}: arena {(N, bt, H, D)} and tables {tuple(tshape)} need "
+                         f"new [{S}, {H}, {D}] and cursors [{S}], got {tuple(row[0])} "
+                         f"and {tuple(cursors.shape)}")
+    if per == 2 and (arena_dtype != torch.int8 or shapes[1] != ((N, bt, H, 1), torch.float32)):
+        raise ValueError(f"{name}: needs an int8 arena and a contiguous f32 scale "
+                         f"arena [{N}, {bt}, {H}, 1]")
+
+
+def _launch(counter: Optional[str], name: str, target: torch.Tensor, *args) -> None:
+    """Launch entry ``name`` on ``target``'s device and current stream;
+    ``counter`` names the ``LAUNCHES`` entry it adds one to (None: none)."""
+    device = target.get_device()
+    rc = _build.entry(SOURCE, name)(device, *args, _raw_stream(device))
+    if counter is not None:
+        LAUNCHES[counter] += 1
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def kv_launch_floor(arena: torch.Tensor, n_slots: int) -> None:
+    """An empty kernel at the one-array paged write's grid and block, through
+    :func:`_launch` alone: the least a launch of a KV write takes on the
+    device, and the least its call takes on the host. Counts nothing."""
+    _launch(None, "kv_launch_floor", arena, int(n_slots),
+            arena.shape[2] * arena.shape[3] * arena.element_size())
 
 
 # -- int8 quantization -------------------------------------------------------
@@ -132,9 +210,9 @@ def kv_row_update(cache: torch.Tensor, new: torch.Tensor,
         raise ValueError(f"kv_row_update: cache {tuple(cache.shape)} needs new "
                          f"[{S}, {H}, {D}] and cursors [{S}], got "
                          f"{tuple(new.shape)} and {tuple(cursors.shape)}")
-    new = new.to(cache.dtype).contiguous()
-    cursors = cursors.to(torch.int32).contiguous()
-    _launch("kv_row_update", cache, cache.data_ptr(), new.data_ptr(),
+    new = _as(new, cache.dtype)
+    cursors = _i32(cursors)
+    _launch("kv_row_update", "kv_row_update", cache, cache.data_ptr(), new.data_ptr(),
             cursors.data_ptr(), S, T, H * D * cache.element_size())
     return cache
 
@@ -176,26 +254,61 @@ def kv_block_update(arena: torch.Tensor, new: torch.Tensor,
     ``arena[tables[s, cursors[s] // block_t], cursors[s] % block_t]``.
     Cursors at or beyond ``max_seq`` write nothing; positions whose table
     entry is the trash block land in the trash row. Replaces the Pallas
-    ``_paged_kernel`` of ``kubeflow_tpu/ops/kv_cache.py``.
+    ``_paged_kernel`` of ``kubeflow_tpu/ops/kv_cache.py``; launches the
+    pair kernel over one array.
     """
     new = _rows(new)
     if arena.device.type == "cpu":
         return kv_block_update_plain(arena, new, cursors, tables, max_seq=max_seq)
-    _check_cuda("kv_block_update", arena, new, cursors, tables)
-    N, bt, H, D = arena.shape
-    S, mb = tables.shape
-    if new.shape != (S, H, D) or cursors.shape != (S,):
-        raise ValueError(f"kv_block_update: arena {tuple(arena.shape)} and "
-                         f"tables {tuple(tables.shape)} need new [{S}, {H}, {D}] "
-                         f"and cursors [{S}], got {tuple(new.shape)} and "
-                         f"{tuple(cursors.shape)}")
-    new = new.to(arena.dtype).contiguous()
-    cursors = cursors.to(torch.int32).contiguous()
-    tables = tables.to(torch.int32).contiguous()
-    _launch("kv_block_update", arena, arena.data_ptr(), new.data_ptr(),
-            cursors.data_ptr(), tables.data_ptr(), S, mb, bt, int(max_seq), N,
-            H * D * arena.element_size())
+    _check_paged("kv_block_update", (arena,), (new,), cursors, tables)
+    _launch_pair("kv_block_update", (arena,), (_as(new, arena.dtype),), cursors, tables,
+                 max_seq)
     return arena
+
+
+def kv_block_update_pair_plain(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                               k_new: torch.Tensor, v_new: torch.Tensor,
+                               cursors: torch.Tensor, tables: torch.Tensor, *,
+                               max_seq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`kv_block_update_pair`: the one-array plain
+    version for K, then for V."""
+    kv_block_update_plain(k_arena, k_new, cursors, tables, max_seq=max_seq)
+    kv_block_update_plain(v_arena, v_new, cursors, tables, max_seq=max_seq)
+    return k_arena, v_arena
+
+
+def kv_block_update_pair(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor,
+                         cursors: torch.Tensor, tables: torch.Tensor, *,
+                         max_seq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's K and V rows into their two arenas in one launch, in place:
+    :func:`kv_block_update` on ``(k_arena, k_new)`` and on ``(v_arena,
+    v_new)``, with the same contracts; returns ``(k_arena, v_arena)``.
+    Refuses (ValueError) arenas that overlap, the same tensor twice
+    included, K and V arenas or rows of different shapes or dtypes, and
+    arenas that are not contiguous."""
+    k_new, v_new = _rows(k_new), _rows(v_new)
+    _check_paged("kv_block_update_pair", (k_arena, v_arena), (k_new, v_new), cursors,
+                 tables)
+    if k_arena.device.type == "cpu":
+        return kv_block_update_pair_plain(k_arena, v_arena, k_new, v_new, cursors,
+                                          tables, max_seq=max_seq)
+    dt = k_arena.dtype
+    _launch_pair("kv_block_update_pair", (k_arena, v_arena),
+                 (_as(k_new, dt), _as(v_new, dt)), cursors, tables, max_seq)
+    return k_arena, v_arena
+
+
+def _launch_pair(counter: str, arenas, news, cursors, tables, max_seq: int) -> None:
+    k_arena = arenas[0]
+    N, bt, H, D = k_arena.shape
+    S, mb = tables.shape
+    v_arena, v_new = (arenas[1], news[1]) if len(arenas) == 2 else (k_arena, news[0])
+    cursors, tables = _i32(cursors), _i32(tables)  # alive until the launch is queued
+    _launch(counter, "kv_block_update_pair", k_arena, k_arena.data_ptr(),
+            v_arena.data_ptr(), news[0].data_ptr(), v_new.data_ptr(), len(arenas),
+            cursors.data_ptr(), tables.data_ptr(), S, mb, bt, int(max_seq), N,
+            H * D * k_arena.element_size())
 
 
 def kv_block_update_quant_plain(arena: torch.Tensor, scales: torch.Tensor,
@@ -211,6 +324,13 @@ def kv_block_update_quant_plain(arena: torch.Tensor, scales: torch.Tensor,
     return arena, scales
 
 
+def _quant_rows(new: torch.Tensor) -> torch.Tensor:
+    """The rows as the int8 kernels read them: bf16 or f32, contiguous."""
+    if new.dtype not in (torch.bfloat16, torch.float32):
+        new = new.float()
+    return new.contiguous()
+
+
 def kv_block_update_quant(arena: torch.Tensor, scales: torch.Tensor,
                           new: torch.Tensor, cursors: torch.Tensor,
                           tables: torch.Tensor, *, max_seq: int
@@ -222,32 +342,99 @@ def kv_block_update_quant(arena: torch.Tensor, scales: torch.Tensor,
     kernel (the math of :func:`quantize_kv`, bit for bit) and writes value
     and scale through the block table; returns ``(arena, scales)``. Same
     out-of-range no-op contract as the bf16 kernel. Replaces the Pallas
-    ``_paged_quant_kernel`` of ``kubeflow_tpu/ops/kv_cache.py``.
+    ``_paged_quant_kernel`` of ``kubeflow_tpu/ops/kv_cache.py``; launches
+    the pair kernel over one array.
     """
     new = _rows(new)
     if arena.device.type == "cpu":
         return kv_block_update_quant_plain(arena, scales, new, cursors, tables,
                                            max_seq=max_seq)
-    _check_cuda("kv_block_update_quant", arena, scales, new, cursors, tables)
-    N, bt, H, D = arena.shape
-    S, mb = tables.shape
-    if (arena.dtype != torch.int8 or scales.dtype != torch.float32
-            or scales.shape != (N, bt, H, 1) or not scales.is_contiguous()):
-        raise ValueError("kv_block_update_quant: needs an int8 arena and a "
-                         f"contiguous f32 scale arena [{N}, {bt}, {H}, 1]")
-    if new.shape != (S, H, D) or cursors.shape != (S,):
-        raise ValueError(f"kv_block_update_quant: needs new [{S}, {H}, {D}] "
-                         f"and cursors [{S}], got {tuple(new.shape)} and "
-                         f"{tuple(cursors.shape)}")
-    if new.dtype not in (torch.bfloat16, torch.float32):
-        new = new.float()
-    new = new.contiguous()
-    cursors = cursors.to(torch.int32).contiguous()
-    tables = tables.to(torch.int32).contiguous()
-    _launch("kv_block_update_quant", arena, arena.data_ptr(), scales.data_ptr(),
-            new.data_ptr(), int(new.dtype == torch.bfloat16), cursors.data_ptr(),
-            tables.data_ptr(), S, mb, bt, int(max_seq), N, H, D)
+    _check_paged("kv_block_update_quant", (arena, scales), (new,), cursors, tables)
+    _launch_quant_pair("kv_block_update_quant", (arena, scales), (_quant_rows(new),),
+                       cursors, tables, max_seq)
     return arena, scales
+
+
+def kv_block_update_quant_pair_plain(k_arena: torch.Tensor, k_scales: torch.Tensor,
+                                     v_arena: torch.Tensor, v_scales: torch.Tensor,
+                                     k_new: torch.Tensor, v_new: torch.Tensor,
+                                     cursors: torch.Tensor, tables: torch.Tensor, *,
+                                     max_seq: int):
+    """Plain version of :func:`kv_block_update_quant_pair`: the one-array
+    plain version for K, then for V."""
+    kv_block_update_quant_plain(k_arena, k_scales, k_new, cursors, tables,
+                                max_seq=max_seq)
+    kv_block_update_quant_plain(v_arena, v_scales, v_new, cursors, tables,
+                                max_seq=max_seq)
+    return k_arena, k_scales, v_arena, v_scales
+
+
+def kv_block_update_quant_pair(k_arena: torch.Tensor, k_scales: torch.Tensor,
+                               v_arena: torch.Tensor, v_scales: torch.Tensor,
+                               k_new: torch.Tensor, v_new: torch.Tensor,
+                               cursors: torch.Tensor, tables: torch.Tensor, *,
+                               max_seq: int):
+    """A layer's K and V rows, quantized, into their two int8 arenas and two
+    scale arenas in one launch, in place: :func:`kv_block_update_quant` on
+    each, with the same contracts; returns ``(k_arena, k_scales, v_arena,
+    v_scales)``. Refuses (ValueError) arenas that overlap (any two of the
+    four), K and V arenas or rows of different shapes or dtypes, and arenas
+    that are not contiguous."""
+    k_new, v_new = _rows(k_new), _rows(v_new)
+    _check_paged("kv_block_update_quant_pair", (k_arena, k_scales, v_arena, v_scales),
+                 (k_new, v_new), cursors, tables)
+    if k_arena.device.type == "cpu":
+        return kv_block_update_quant_pair_plain(k_arena, k_scales, v_arena, v_scales,
+                                                k_new, v_new, cursors, tables,
+                                                max_seq=max_seq)
+    _launch_quant_pair("kv_block_update_quant_pair", (k_arena, k_scales, v_arena, v_scales),
+                       (_quant_rows(k_new), _quant_rows(v_new)), cursors, tables, max_seq)
+    return k_arena, k_scales, v_arena, v_scales
+
+
+def _launch_quant_pair(counter: str, written, news, cursors, tables, max_seq: int) -> None:
+    k_arena, k_scales = written[0], written[1]
+    v_arena, v_scales = (written[2], written[3]) if len(written) == 4 else written[:2]
+    N, bt, H, D = k_arena.shape
+    S, mb = tables.shape
+    cursors, tables = _i32(cursors), _i32(tables)  # alive until the launch is queued
+    _launch(counter, "kv_block_update_quant_pair", k_arena, k_arena.data_ptr(),
+            v_arena.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
+            news[0].data_ptr(), news[-1].data_ptr(), int(news[0].dtype == torch.bfloat16),
+            len(news), cursors.data_ptr(), tables.data_ptr(), S, mb, bt, int(max_seq),
+            N, H, D)
+
+
+def kv_block_update_cfg(design: int, k_arena: torch.Tensor, v_arena: Optional[torch.Tensor],
+                        k_new: torch.Tensor, v_new: Optional[torch.Tensor],
+                        cursors: torch.Tensor, tables: torch.Tensor, *, max_seq: int,
+                        k_scales: Optional[torch.Tensor] = None,
+                        v_scales: Optional[torch.Tensor] = None) -> None:
+    """A design of the paged writes on CUDA tensors, for timing: 0 is the
+    replaced one-array kernel, launched once per array; 1 the pair kernel, a
+    block per (slot, array) (``csrc/kv_cache.cu``).
+    ``v_arena`` None writes K only; scale arenas select the int8 write.
+    Counts nothing in ``LAUNCHES``."""
+    quant = k_scales is not None
+    written = [k_arena] + ([k_scales] if quant else [])
+    news = [_rows(k_new)]
+    if v_arena is not None:
+        written += [v_arena] + ([v_scales] if quant else [])
+        news.append(_rows(v_new))
+    _check_cuda("kv_block_update_cfg", k_arena)
+    _check_paged("kv_block_update_cfg", written, news, cursors, tables)
+    news = [_quant_rows(n) if quant else _as(n, k_arena.dtype) for n in news]
+    N, bt, H, D = k_arena.shape
+    S, mb = tables.shape
+    last = len(written) - (2 if quant else 1)
+    cursors, tables = _i32(cursors), _i32(tables)
+    _launch(None, "kv_block_update_cfg", k_arena, int(design), int(quant),
+            k_arena.data_ptr(), written[last].data_ptr(),
+            k_scales.data_ptr() if quant else None,
+            written[-1].data_ptr() if quant else None,
+            news[0].data_ptr(), news[-1].data_ptr(), int(news[0].dtype == torch.bfloat16),
+            len(news), cursors.data_ptr(), tables.data_ptr(), S, mb, bt, int(max_seq),
+            N, H, D, H * D * k_arena.element_size())
 
 
 def kv_block_update_ref(arena: torch.Tensor, seg: torch.Tensor,

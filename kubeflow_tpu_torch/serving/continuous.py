@@ -348,6 +348,7 @@ class ContinuousBatcher:
             tok = self._sample(logits[:, -1], self.temps, sampled)
             out.append(tok)
         self.last_tok = tok
+        METRICS.counter("serving_decode_steps_total").inc(self.chunk)
         return torch.stack(out, dim=1)
 
     def _prefill_group(self, prompts: Sequence[np.ndarray],

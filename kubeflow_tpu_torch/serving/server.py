@@ -29,6 +29,10 @@ from ..runtime.tracing import TRACER, format_traceparent
 from ..web.http import App, HttpError, Request
 from .errors import DeadlineExceeded, FleetSaturated
 
+#: batch sizes the static ``generate()`` path pads a request to (the JAX
+#: server's ``BATCH_BUCKETS``); a larger batch is refused with 413
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
 #: per-request budget when the client sends neither the
 #: ``X-Request-Deadline-Ms`` header nor a ``timeout_ms`` body field
 DEFAULT_DEADLINE_MS = 600_000.0
@@ -160,8 +164,10 @@ class GenerativeModel(ServedModel):
     instances = equal-length token-id prompts, predictions = full generated
     sequences (prompt + ``max_new_tokens``). Requests go through one
     continuous-batching engine built on first use. Prompts longer than the
-    engine's largest prefill bucket are refused with 413 until chunked
-    prefill is ported (ROADMAP.md queue A, item 4)."""
+    engine's largest prefill bucket take the static ``generate()`` path
+    instead, as the JAX server does with chunked prefill off, so the
+    servable prompt range stays ``cfg.max_seq`` (chunked prefill is
+    ROADMAP.md queue A, item 4)."""
 
     cfg: Any = None
     max_new_tokens: int = 16
@@ -177,6 +183,7 @@ class GenerativeModel(ServedModel):
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self._engine_lock = threading.Lock()
+        self._static_draws = 0
 
     def engine(self):
         from .continuous import ContinuousBatcher
@@ -209,9 +216,7 @@ class GenerativeModel(ServedModel):
         if prompts.shape[1] + self.max_new_tokens > self.cfg.max_seq:
             raise HttpError(413, "prompt + generation budget exceeds max_seq")
         if prompts.shape[1] > PREFILL_BUCKETS[-1]:
-            raise HttpError(413, f"prompt of {prompts.shape[1]} tokens exceeds the "
-                                 f"largest prefill bucket {PREFILL_BUCKETS[-1]}; "
-                                 "chunked prefill is ROADMAP.md queue A, item 4")
+            return self._predict_static(prompts)
         eng = self.engine()
         # hand the engine our trace context: each serving.request span
         # parents to the HTTP dispatch span
@@ -244,6 +249,31 @@ class GenerativeModel(ServedModel):
             for f in futs:
                 if not f.done.is_set():
                     f.cancel()
+
+    def _predict_static(self, prompts: np.ndarray) -> List[Any]:
+        """Prompts over the largest prefill bucket: lockstep ``generate()``
+        over the batch padded to a ``BATCH_BUCKETS`` size with copies of
+        the first prompt, as the JAX server does."""
+        from ..models.gpt import generate
+
+        n = prompts.shape[0]
+        bucket = next((b for b in BATCH_BUCKETS if b >= n), None)
+        if bucket is None:
+            raise HttpError(413, f"batch of {n} exceeds max {BATCH_BUCKETS[-1]}")
+        if bucket != n:
+            prompts = np.concatenate([prompts, np.repeat(prompts[:1], bucket - n, axis=0)])
+        gen = None
+        if self.temperature > 0.0:
+            # a fresh draw per request: a fixed generator state would repeat
+            # the sample for identical prompts
+            with self._engine_lock:
+                self._static_draws += 1
+                draw = self._static_draws
+            gen = torch.Generator(device=self.device).manual_seed(
+                (self.seed or 0) * 1_000_003 + draw)
+        out = generate(self.cfg, self.params, prompts, self.max_new_tokens,
+                       generator=gen, temperature=self.temperature, device=self.device)
+        return out[:n].cpu().tolist()
 
 
 def gpt_served_model(name: str = "gpt", tiny: bool = True, max_new_tokens: int = 16,

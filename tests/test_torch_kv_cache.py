@@ -72,7 +72,8 @@ def test_row_update_writes_in_place_and_counts_no_launch_on_cpu():
     out = tkv.kv_row_update(cache, torch.ones(2, 1, 1, 2), torch.tensor([1, 2]))
     assert out is cache and cache[0, 1].sum() == 2 and cache[1, 2].sum() == 2
     assert tkv.LAUNCHES == {"kv_row_update": 0, "kv_block_update": 0,
-                            "kv_block_update_quant": 0}
+                            "kv_block_update_quant": 0, "kv_block_update_pair": 0,
+                            "kv_block_update_quant_pair": 0}
 
 
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
@@ -166,10 +167,160 @@ def test_block_update_quant_matches_jax():
     np.testing.assert_allclose(got_s.numpy(), np.asarray(ks), rtol=F32_ULP, atol=0)
 
 
+def _pair_inputs(seed, quant=False, dtype=np.float32):
+    """K and V arenas (int8 with f32 scales when ``quant``), rows, cursors
+    and tables over one arena geometry."""
+    arena, new, cursors, tables, max_seq = _paged_inputs(seed, dtype=dtype)
+    rng = np.random.default_rng(seed + 100)
+    v_new = rng.normal(size=new.shape).astype(np.float32)
+    if not quant:
+        v_arena = rng.normal(size=arena.shape).astype(dtype)
+        return (arena, v_arena), (new, v_new), cursors, tables, max_seq
+    shape = arena.shape
+    q = [rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2)]
+    sc = [rng.random(shape[:3] + (1,)).astype(np.float32) for _ in range(2)]
+    return (q[0], sc[0], q[1], sc[1]), (new, v_new), cursors, tables, max_seq
+
+
+@pytest.mark.parametrize("seed,tdtype,jdtype", [(11, torch.float32, jnp.float32),
+                                                (12, torch.bfloat16, jnp.bfloat16)])
+def test_pair_equals_two_jax_kernel_calls(seed, tdtype, jdtype):
+    """kv_block_update_pair on CPU tensors against the interpret-mode JAX
+    kernel run once for K and once for V: exact (row copies)."""
+    (ka, va), (kn, vn), cursors, tables, max_seq = _pair_inputs(seed)
+    want = [jkv.kv_block_update(jnp.asarray(a, jdtype), jnp.asarray(n, jdtype),
+                                jnp.asarray(cursors), jnp.asarray(tables),
+                                max_seq=max_seq, interpret=True)
+            for a, n in ((ka, kn), (va, vn))]
+    k_arena, v_arena = torch.tensor(ka).to(tdtype), torch.tensor(va).to(tdtype)
+    got = tkv.kv_block_update_pair(k_arena, v_arena, torch.tensor(kn).to(tdtype),
+                                   torch.tensor(vn).to(tdtype), torch.tensor(cursors),
+                                   torch.tensor(tables), max_seq=max_seq)
+    assert got[0] is k_arena and got[1] is v_arena  # in place
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w, np.float32))
+
+
+@pytest.mark.parametrize("seed", [13, 14])
+def test_quant_pair_equals_two_jax_kernel_calls(seed):
+    """kv_block_update_quant_pair on CPU tensors: exact against JAX's eager
+    quantize_kv scattered through the tables, and within the C.3 tolerance
+    (codes ±1, scales 1 ULP) of the interpret-mode kernel run for K and V."""
+    arenas, news, cursors, tables, max_seq = _pair_inputs(seed, quant=True)
+    bt = arenas[0].shape[1]
+    t = [torch.tensor(a) for a in arenas]
+    got = tkv.kv_block_update_quant_pair(*t, *(torch.tensor(n) for n in news),
+                                         torch.tensor(cursors), torch.tensor(tables),
+                                         max_seq=max_seq)
+    assert all(g is x for g, x in zip(got, t))
+    for i, new in enumerate(news):
+        q0, s0 = arenas[2 * i], arenas[2 * i + 1]
+        q, s = jkv.quantize_kv(jnp.asarray(new))
+        want_q, want_s = q0.copy(), s0.copy()
+        for row, cur in enumerate(cursors):
+            blk, off = tables[row, cur // bt], cur % bt
+            want_q[blk, off], want_s[blk, off] = np.asarray(q[row]), np.asarray(s[row])
+        np.testing.assert_array_equal(got[2 * i].numpy(), want_q)
+        np.testing.assert_array_equal(got[2 * i + 1].numpy(), want_s)
+        kq, ks = jkv.kv_block_update_quant(
+            jnp.asarray(q0), jnp.asarray(s0), jnp.asarray(new), jnp.asarray(cursors),
+            jnp.asarray(tables), max_seq=max_seq, interpret=True)
+        assert np.abs(got[2 * i].numpy().astype(int) - np.asarray(kq).astype(int)).max() <= 1
+        np.testing.assert_allclose(got[2 * i + 1].numpy(), np.asarray(ks), rtol=F32_ULP,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_pair_out_of_range_and_trash_contracts(quant):
+    """In both arenas: cursors outside [0, max_seq) and a table entry >= N
+    write nothing; a trash table row writes the trash row; every other slot
+    writes its own row (and scale)."""
+    arenas, news, cursors, tables, max_seq = _pair_inputs(21, quant=quant)
+    N, bt = arenas[0].shape[:2]
+    trash = N - 1
+    cursors = np.asarray([max_seq, -1, 9, 0, 5], np.int32)
+    tables[2, :] = trash
+    tables[3, 0] = N + 4
+    t = [torch.tensor(a) for a in arenas]
+    args = (torch.tensor(news[0]), torch.tensor(news[1]), torch.tensor(cursors),
+            torch.tensor(tables))
+    tkv.reset_launches()
+    if quant:
+        got = [g.numpy() for g in tkv.kv_block_update_quant_pair(*t, *args, max_seq=max_seq)]
+    else:
+        got = [g.numpy() for g in tkv.kv_block_update_pair(*t, *args, max_seq=max_seq)]
+    assert not any(tkv.LAUNCHES.values())  # CPU tensors: plain versions
+    per = 2 if quant else 1
+    for i, new in enumerate(news):
+        arena, out = arenas[per * i], got[per * i]
+        changed = set(np.nonzero((out != arena).any(axis=(1, 2, 3)))[0])
+        assert changed == {trash, tables[4, 0]}
+        rows = {(trash, 9 % bt): 2, (tables[4, 0], 5): 4}
+        for (blk, off), slot in rows.items():
+            if quant:
+                q, s = tkv.quantize_kv(torch.tensor(new[slot]))
+                np.testing.assert_array_equal(out[blk, off], q.numpy())
+                np.testing.assert_array_equal(got[per * i + 1][blk, off], s.numpy())
+            else:
+                np.testing.assert_array_equal(out[blk, off], new[slot])
+
+
+def _refusals():
+    """(label, reason, quant, arenas) the pair wrappers must refuse."""
+    a = torch.zeros(9, 4, 2, 8)
+    big = torch.zeros(17, 4, 2, 8)
+    q = torch.zeros(9, 4, 2, 8, dtype=torch.int8)
+    s = torch.zeros(9, 4, 2, 1)
+    qbuf = torch.zeros(2 * 576, dtype=torch.int8)
+    return [
+        ("the same tensor twice", "overlap", False, (a, a)),
+        ("overlapping views", "overlap", False, (big[:9], big[8:])),
+        ("shapes differ", "differ", False, (a, torch.zeros(10, 4, 2, 8))),
+        ("dtypes differ", "differ", False, (a, a.clone().bfloat16())),
+        ("not contiguous", "contiguous", False, (a, torch.zeros(9, 4, 2, 9)[..., :8])),
+        ("a transposed arena", "contiguous", False, (a, torch.zeros(9, 4, 8, 2).transpose(2, 3))),
+        ("K and V scales the same", "overlap", True, (q, s, q.clone(), s)),
+        ("overlapping int8 arenas", "overlap", True,
+         (qbuf[:576].view(9, 4, 2, 8), s, qbuf[288:864].view(9, 4, 2, 8), s.clone())),
+        ("int8 arenas of different shapes", "differ", True,
+         (q, s, torch.zeros(9, 4, 2, 4, dtype=torch.int8), torch.zeros(9, 4, 2, 1))),
+    ]
+
+
+@pytest.mark.parametrize("label,reason,quant,arenas", _refusals(),
+                         ids=[r[0] for r in _refusals()])
+def test_pair_wrappers_refuse_unsafe_arenas(label, reason, quant, arenas):
+    """Arenas the pair kernel cannot write safely are refused (the same
+    checks run on CUDA tensors before the launch), and nothing is written."""
+    S, H, D = 2, 2, 8
+    rows = (torch.ones(S, H, D), torch.ones(S, H, D))
+    cursors, tables = torch.tensor([0, 5], dtype=torch.int32), torch.tensor([[0, 1], [2, 3]])
+    before = [a.clone() for a in arenas]
+    fn = tkv.kv_block_update_quant_pair if quant else tkv.kv_block_update_pair
+    with pytest.raises(ValueError, match=reason):
+        fn(*arenas, *rows, cursors, tables, max_seq=8)
+    assert all(torch.equal(a, b) for a, b in zip(arenas, before))
+
+
+def test_pair_refuses_mismatched_rows_and_cfg_needs_cuda():
+    a, b = torch.zeros(9, 4, 2, 8), torch.zeros(9, 4, 2, 8)
+    cursors, tables = torch.tensor([0, 5], dtype=torch.int32), torch.tensor([[0, 1], [2, 3]])
+    with pytest.raises(ValueError, match="rows differ"):
+        tkv.kv_block_update_pair(a, b, torch.ones(2, 2, 8), torch.ones(2, 2, 8).double(),
+                                 cursors, tables, max_seq=8)
+    with pytest.raises(ValueError, match="need new"):
+        tkv.kv_block_update_pair(a, b, torch.ones(3, 2, 8), torch.ones(3, 2, 8),
+                                 cursors, tables, max_seq=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkv.kv_block_update_cfg(0, a, b, torch.ones(2, 2, 8), torch.ones(2, 2, 8),
+                                cursors, tables, max_seq=8)
+
+
 @pytest.mark.cuda
 def test_kernels_bit_equal_to_plain_on_the_card():
     """Each CUDA kernel against its plain version, at small shapes with
-    out-of-range cursors and one trash-table slot."""
+    out-of-range cursors and one trash-table slot: the one-array wrappers,
+    both pair wrappers, and both designs of the paged writes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
     arena, new, cursors, tables, max_seq = _paged_inputs(2)
@@ -188,5 +339,33 @@ def test_kernels_bit_equal_to_plain_on_the_card():
     got = tkv.kv_block_update_quant(q.clone(), s.clone(), n, c, t, max_seq=max_seq)
     want = tkv.kv_block_update_quant_plain(q.clone(), s.clone(), n, c, t, max_seq=max_seq)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    v, b = torch.randn_like(n), torch.randn_like(a)
+    got = tkv.kv_block_update_pair(a.clone(), b.clone(), n, v, c, t, max_seq=max_seq)
+    want = tkv.kv_block_update_pair_plain(a.clone(), b.clone(), n.bfloat16(), v.bfloat16(),
+                                          c, t, max_seq=max_seq)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for nn in (n, n.bfloat16()):
+        vv = v.to(nn.dtype)
+        got = tkv.kv_block_update_quant_pair(q.clone(), s.clone(), q.clone(), s.clone(),
+                                             nn, vv, c, t, max_seq=max_seq)
+        want = tkv.kv_block_update_quant_pair_plain(q.clone(), s.clone(), q.clone(),
+                                                    s.clone(), nn, vv, c, t,
+                                                    max_seq=max_seq)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert tkv.LAUNCHES == {"kv_row_update": 1, "kv_block_update": 1,
-                            "kv_block_update_quant": 1}
+                            "kv_block_update_quant": 1, "kv_block_update_pair": 1,
+                            "kv_block_update_quant_pair": 2}
+    want = tkv.kv_block_update_pair_plain(a.clone(), b.clone(), n.bfloat16(), v.bfloat16(),
+                                          c, t, max_seq=max_seq)
+    wantq = tkv.kv_block_update_quant_pair_plain(q.clone(), s.clone(), q.clone(), s.clone(),
+                                                 n, v, c, t, max_seq=max_seq)
+    for design in (0, 1):
+        got = (a.clone(), b.clone())
+        tkv.kv_block_update_cfg(design, *got, n, v, c, t, max_seq=max_seq)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), design
+        got = (q.clone(), s.clone(), q.clone(), s.clone())
+        tkv.kv_block_update_cfg(design, got[0], got[2], n, v, c, t, max_seq=max_seq,
+                                k_scales=got[1], v_scales=got[3])
+        assert all(torch.equal(x, y) for x, y in zip(got, wantq)), design
+    torch.cuda.synchronize()
+    assert tkv.LAUNCHES["kv_block_update_pair"] == 1  # cfg launches count nothing

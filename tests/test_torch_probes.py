@@ -159,3 +159,37 @@ def test_gpt_profile_rows_and_jax_formulas():
     assert gpt_profile.head_flops(big, batch, seq) == 3.0 * (
         2.0 * batch * seq * big.d_model * big.vocab_size)
     assert gpt_profile.adamw_gb(334_858_240) == round(334_858_240 * 4 * 7 / 1e9, 2)
+
+
+def test_kv_update_probe_imports_without_jax():
+    """The KV-write probe is the port's own: importing it loads no JAX and
+    nothing of the JAX package or its e2e probes."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import sys\n"
+            "import kubeflow_tpu_torch.e2e.kv_update_probe\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax',"
+            " 'kubeflow_tpu', 'e2e')]\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=Path(__file__).resolve().parents[1], timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_kv_update_probe_rows_at_toy_shapes():
+    from kubeflow_tpu_torch.e2e import kv_update_probe as kvp
+
+    iso = kvp.isolated(contig=(2, 16, 2, 8), paged=(2, 64, 2, 8, 16), iters=2, device="cpu")
+    assert list(iso) == ["where_select_ms", "index_put_ms", "kv_row_update_ms",
+                         "kv_block_update_x2_ms", "kv_block_update_pair_ms", "replaced_x2_ms"]
+    assert iso.pop("replaced_x2_ms") is None  # the replaced kernel runs only on the card
+    assert all(ms > 0 for ms in iso.values())
+    rows = kvp.in_model(cfg=GptConfig.tiny(), slots=2, chunks=1, start=4, device="cpu")
+    names = ("shared_cursor", "per_slot_plain", "per_slot_kernel", "paged_plain",
+             "paged_kernel")
+    assert set(rows) == {f"{n}_ms_per_{u}" for n in names for u in ("chunk", "token")}
+    assert all(rows[f"{n}_ms_per_token"] * kvp.CHUNK == pytest.approx(
+        rows[f"{n}_ms_per_chunk"]) for n in names)
+    assert kvp.medium_config().n_layers == 24 and kvp.medium_config().max_seq == 352

@@ -169,23 +169,38 @@ def test_model_server_predict_over_http():
     assert tkv.LAUNCHES["kv_block_update"] == 0  # CPU tensors: plain versions
 
 
-def test_prompts_over_the_largest_bucket_take_the_static_path():
-    """There is no static path beside the engine: until chunked prefill is
-    ported, a prompt over the largest prefill bucket is refused (413 from
-    the predict surface, ValueError from submit), naming the ROADMAP item."""
-    from kubeflow_tpu_torch.serving.server import GenerativeModel
+def test_prompts_over_the_largest_bucket_take_the_static_path(weights):
+    """A prompt over the largest prefill bucket (256) takes the static
+    generate() path, as the JAX GenerativeModel does with prefill_chunk=0:
+    the port's predict returns the port's generate() tokens, which equal the
+    JAX server's on the converted weights (f32 on both sides, tokens exact).
+    A batch over the largest batch bucket still answers 413; the engine's
+    submit still refuses such a prompt (chunked prefill is not ported)."""
+    from kubeflow_tpu.serving.server import GenerativeModel as JModel
+    from kubeflow_tpu_torch.serving.server import BATCH_BUCKETS, GenerativeModel
     from kubeflow_tpu_torch.web.http import HttpError
 
-    cfg = GptConfig(**dict(SHAPE, max_seq=512))
-    params = init_params(cfg, seed=2, device="cpu")
-    model = GenerativeModel(name="g", apply_fn=None, params=params, cfg=cfg,
+    _, jparams, _, tparams = weights
+    jcfg = JCfg(**dict(SHAPE, max_seq=512), dtype=jnp.float32)
+    cfg = GptConfig(**dict(SHAPE, max_seq=512), dtype=torch.float32)
+    model = GenerativeModel(name="g", apply_fn=None, params=tparams, cfg=cfg,
                             max_new_tokens=3, device="cpu")
-    prompt = np.arange(300, dtype=np.int32)[None] % 101
-    with pytest.raises(HttpError, match="ROADMAP") as err:
-        model.predict(prompt.tolist())
+    prompt = (np.random.default_rng(6).integers(0, 101, (1, 300))).astype(np.int32)
+    got = model.predict(prompt.tolist())
+    assert model._engine is None  # served without the engine
+    assert got == generate(cfg, tparams, prompt, 3, device="cpu").tolist()
+    assert len(got[0]) == 303 and got[0][:300] == prompt[0].tolist()
+    jmodel = JModel(name="g", apply_fn=None, params=jparams, cfg=jcfg,
+                    max_new_tokens=3, prefill_chunk=0)
+    try:
+        assert got == jmodel.predict(prompt.tolist())
+    finally:
+        jmodel.close()
+    too_many = np.repeat(prompt, BATCH_BUCKETS[-1] + 1, axis=0)
+    with pytest.raises(HttpError) as err:
+        model.predict(too_many.tolist())
     assert err.value.status == 413
-    assert model._engine is None  # refused before an engine was built
-    eng = ContinuousBatcher(cfg, params, slots=1, device="cpu")
+    eng = ContinuousBatcher(cfg, tparams, slots=1, device="cpu")
     try:
         with pytest.raises(ValueError, match="largest prefill bucket"):
             eng.submit(prompt[0], 3)  # chunked prefill is not in this slice
