@@ -13,20 +13,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              12 heads x 64, 2048 positions, 16-row blocks), with
              out-of-range cursors and a trash-table entry, held bit for bit
              (``torch.equal``) against their plain PyTorch versions on the
-             card: ``kv_row_update``, and the paged pairs
+             card: the pairs ``kv_row_update_pair`` (contiguous cache),
              ``kv_block_update_pair`` and ``kv_block_update_quant_pair``
-             (a layer's K and V in one launch; each run twice, as are two
-             calls of the one-array wrappers over the same kernel, and
-             both designs of the paged writes through
-             ``kv_block_update_cfg``, the replaced one-array kernel as
-             design 0); every refusal of the pair
-             wrappers raises; the launch floor (an empty kernel at the
-             paged write's grid: device ms, and call ms through the
-             wrappers' launch path); per write (per layer for the pairs)
-             the call ms (back-to-back calls), device ms, the plain
-             version, two calls of the one-array wrapper, each design on
-             the device, ``index_put_`` (by call and its kernels alone on
-             the device) and the bytes bound;
+             (paged arenas): a layer's K and V in one launch; each run
+             twice, as are two calls of the one-array wrappers over the
+             same kernel, and every design through ``kv_row_update_cfg``
+             and ``kv_block_update_cfg``, the replaced one-array kernel as
+             design 0; every refusal of the pair wrappers raises; the
+             launch floor (an empty kernel at the one-array write's grid:
+             device ms, and call ms through the wrappers' launch path);
+             per layer the call ms (back-to-back calls), device ms, the
+             plain version, two calls of the one-array wrapper, each
+             design on the device, ``index_put_`` ×2 (in-range rows at
+             indices computed on the host: less work than the kernels; by
+             call and its kernels alone on the device) and the bytes
+             bound;
 3. serve   — GPT-small (seeded random weights) behind ``ModelServer`` on
              port 0, paged bf16 arena, 8 slots: 8 concurrent greedy HTTP
              requests, prompts of 16-256 tokens, 32 new tokens each, once
@@ -37,18 +38,18 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              largest prefill bucket: served by the static ``generate()``
              path, equal to ``generate()`` on the same weights;
 4. contig  — the same requests with the contiguous cache through
-             ``kv_row_update`` (twice per layer and step): tokens identical
-             to phase 3's;
+             ``kv_row_update_pair`` (once per layer and step, and
+             ``kv_row_update`` never): tokens identical to phase 3's;
 5. int8    — the same requests with the int8 arena through
              ``kv_block_update_quant_pair`` (once per layer and step, and
              ``kv_block_update_quant`` never): tokens identical to the int8
              plain run; agreement with the bf16 tokens is printed;
 6. ref     — a tiny f32 model's prefill logits and greedy tokens on the
              card against the same model on the CPU;
-7. profile — GPT-small's decode step alone: host ms per step and the
-             device-busy share with the top kernels (torch.profiler); the
-             KV writes' launches per step (12), their device ms and their
-             host ms per step;
+7. profile — GPT-small's decode step alone, paged and contiguous: host ms
+             per step and the device-busy share with the top kernels
+             (torch.profiler); the KV writes' launches per step (12),
+             their device ms and their host ms per step;
 8. flash   — the three flash-attention kernels at the training path's
              shapes (b 8, h 16, L 1024, d 64, causal, bf16) against their
              plain versions (atol 2e-2 on out/dq/dk/dv, 1e-3 on lse), at f32
@@ -353,23 +354,37 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 KV_SOURCE = "kubeflow_tpu_torch/ops/csrc/kv_cache.cu"
 KV_REPLACES = {
-    "kv_row_update": "kubeflow_tpu/ops/kv_cache.py:45 (_kernel, pallas_call :93)",
+    "kv_row_update_pair": "kubeflow_tpu/ops/kv_cache.py:45 (_kernel, pallas_call :93)",
     "kv_block_update_pair": "kubeflow_tpu/ops/kv_cache.py:117 (_paged_kernel, pallas_call :168)",
     "kv_block_update_quant_pair":
         "kubeflow_tpu/ops/kv_cache.py:222 (_paged_quant_kernel, pallas_call :277)",
 }
-#: profiler names of the paged writes' designs (csrc/kv_cache.cu): 0 is the
+#: profiler names of the KV writes' designs (csrc/kv_cache.cu): 0 is the
 #: replaced one-array kernel, 1 the pair
 KV_DESIGN_MATCH = {
+    "kv_row_update_pair": {0: "kv_row_update_kernel", 1: "kv_row_update_pair_kernel"},
     "kv_block_update_pair": {0: "kv_block_update_kernel", 1: "kv_block_update_pair_kernel"},
     "kv_block_update_quant_pair": {0: "kv_block_update_quant_kernel",
                                    1: "kv_block_update_quant_pair_kernel"},
 }
 
 
-def kv_refusals(kc, arena, qarena, scales, new, cur, tables, T) -> int:
+def kv_refusals(kc, cache, arena, qarena, scales, new, cur, tables, T) -> int:
     """Every refusal of the pair wrappers, on CUDA tensors; returns how many
     were checked."""
+    S = cache.shape[0]
+    wide = torch.zeros((2 * S,) + cache.shape[1:], dtype=cache.dtype, device=cache.device)
+    rows = [
+        ("the same cache twice", (cache, cache), (new, new)),
+        ("overlapping caches", (wide[:S], wide[S - 1:2 * S - 1]), (new, new)),
+        ("caches of different shapes", (cache, wide[:S - 1]), (new, new)),
+        ("caches of different dtypes", (cache, cache.float()), (new, new)),
+        ("a non-contiguous cache", (cache, wide[::2]), (new, new)),
+        ("contiguous rows of two dtypes", (cache, cache.clone()), (new, new.float())),
+        ("a cache on the CPU", (cache, cache.cpu()), (new, new)),
+    ]
+    for label, caches, news in rows:
+        refused(lambda: kc.kv_row_update_pair(*caches, *news, cur), f"kernels: {label}")
     N = arena.shape[0]
     big = torch.zeros((2 * N,) + arena.shape[1:], dtype=arena.dtype, device=arena.device)
     cases = [
@@ -391,15 +406,14 @@ def kv_refusals(kc, arena, qarena, scales, new, cur, tables, T) -> int:
         refused(lambda: fn(*arenas, new, new, cur, tables, max_seq=T), f"kernels: {label}")
     refused(lambda: kc.kv_block_update_pair(arena, arena.clone(), new, new.float(), cur,
                                             tables, max_seq=T), "kernels: rows of two dtypes")
-    return len(cases) + 1
+    return len(rows) + len(cases) + 1
 
 
 def kernel_phase(card: str):
     """The KV-cache writes at GPT-small serving shapes, each held bit for bit
-    against its plain version; per write (for the paged pair: per layer, K
-    and V) the call ms, device ms, plain ms, a library yardstick, the bytes
-    bound; the launch floor; the pair's refusals; both designs of the paged
-    writes on this call."""
+    against its plain version; per layer (K and V) the call ms, device ms,
+    plain ms, a library yardstick, the bytes bound; the launch floor; the
+    pairs' refusals; every design of each write on this call."""
     from kubeflow_tpu_torch.ops import kv_cache as kc
 
     dev = "cuda"
@@ -419,11 +433,12 @@ def kernel_phase(card: str):
     arena = torch.randn(N, bt, H, D, generator=g).to(dev, torch.bfloat16)
     qarena = torch.randint(-127, 128, (N, bt, H, D), generator=g, dtype=torch.int8).to(dev)
     scales = torch.rand(N, bt, H, 1, generator=g).to(dev)
-    # V's rows and arenas
+    # V's rows, arenas and cache
     v_new = torch.randn(S, H, D, generator=g).to(dev, torch.bfloat16)
     v_arena = torch.randn(N, bt, H, D, generator=g).to(dev, torch.bfloat16)
     v_qarena = torch.randint(-127, 128, (N, bt, H, D), generator=g, dtype=torch.int8).to(dev)
     v_scales = torch.rand(N, bt, H, 1, generator=g).to(dev)
+    v_cache = torch.randn(S, T, H, D, generator=g).to(dev, torch.bfloat16)
     cur_d, tables_d = cur.to(dev), tables.to(dev)
     rows_v = torch.arange(S)[valid].to(dev)
     pos_v = cur[valid].long()
@@ -433,8 +448,8 @@ def kernel_phase(card: str):
     new_v, v_new_v = new[valid.to(dev)], v_new[valid.to(dev)]
     row = H * D * 2
     # bytes each write needs: the S cursors are read; only the n_valid slots
-    # whose cursor is in range read their table entry and their row of
-    # `new`, and write one arena row (and scale)
+    # whose cursor is in range read their table entry (paged) and their row
+    # of `new`, and write one cache or arena row (and scale)
     cursor_bytes, entry_bytes = S * 4, n_valid * 4
 
     floor_call = lambda: kc.kv_launch_floor(arena, S)
@@ -456,30 +471,10 @@ def kernel_phase(card: str):
              library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes,
              device_over_floor=dev_ms / floor["floor_device_ms"], **floor, **extra)
 
-    # kv_row_update (not redesigned: K and V are two launches a layer)
-    a = kc.kv_row_update(cache.clone(), new, cur_d)
-    b = kc.kv_row_update_plain(cache.clone(), new, cur_d)
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        raise AssertionError("kv_row_update differs from its plain version")
-    work = cache.clone()
-    call = lambda: kc.kv_row_update(work, new, cur_d)
-    library = lambda: work.index_put_((rows_v, pos_v), new_v)
-    dev_ms = kernel_device_ms(call, "kv_row_update_kernel")
-    lib_dev_ms, lib_names = library_device_ms(library)
-    record("kv_row_update", max_abs_err(a, b), cuda_ms(call), dev_ms,
-           cuda_ms(lambda: kc.kv_row_update_plain(work, new, cur_d)), cuda_ms(library),
-           cursor_bytes + 2 * n_valid * row, library_device_ms=lib_dev_ms,
-           library_kernels=[n[:90] for n in lib_names],
-           device_ms_over_library=dev_ms / lib_dev_ms, launches_per_token=2 * n_layers,
-           layer_device_ms=2 * dev_ms)
-    results["kv_row_update"]["layer_device_ms"] = 2 * dev_ms  # K and V: two launches
-    del a, b, work, cache
-
     def pair_case(name, start, pair, plain, single, cfg, nbytes, library=None):
-        """One paged pair: bit-equal to its plain version twice, and so are
+        """One pair: bit-equal to its plain version twice, and so are
         two calls of the one-array wrapper (the same kernel over one array);
-        both designs through ``cfg(design, arenas)`` bit-equal too; the
+        every design through ``cfg(design, arenas)`` bit-equal too; the
         times per layer of the pair, of two one-array calls, of each design
         on the device, of the plain version and of ``library`` (two calls)."""
         want = plain([t.clone() for t in start])
@@ -515,7 +510,8 @@ def kernel_phase(card: str):
         if library is not None:
             library_ms = cuda_ms(library)
             one_dev_ms, lib_names = library_device_ms(lambda: library(1))
-            extra = dict(library="index_put_ x2", library_device_ms=2 * one_dev_ms,
+            extra = dict(library="index_put_ x2 (in-range rows, host-computed indices)",
+                         library_device_ms=2 * one_dev_ms,
                          library_kernels=[n[:90] for n in lib_names],
                          device_ms_over_library=dev_ms / (2 * one_dev_ms))
         record(name, 0.0, ms, dev_ms, plain_ms, library_ms, nbytes, per="layer (K and V)",
@@ -523,6 +519,19 @@ def kernel_phase(card: str):
                single_x2_device_ms=single_dev_ms, replaced_device_ms=designs[0],
                design_device_ms=designs, device_over_replaced=dev_ms / designs[0], **extra)
         results[name].update(per="layer (K and V)", replaced_device_ms=designs[0])
+
+    def row_index_put_x2(n=2):
+        cache.index_put_((rows_v, pos_v), new_v)
+        if n == 2:
+            v_cache.index_put_((rows_v, pos_v), v_new_v)
+
+    pair_case(
+        "kv_row_update_pair", [cache, v_cache],
+        lambda t: kc.kv_row_update_pair(*t, new, v_new, cur_d),
+        lambda t: kc.kv_row_update_pair_plain(*t, new, v_new, cur_d),
+        lambda t: (kc.kv_row_update(t[0], new, cur_d), kc.kv_row_update(t[1], v_new, cur_d)),
+        lambda d, t: kc.kv_row_update_cfg(d, *t, new, v_new, cur_d),
+        cursor_bytes + 2 * 2 * n_valid * row, library=row_index_put_x2)
 
     def index_put_x2(n=2):
         arena.index_put_((blk_v, off_v), new_v)
@@ -547,7 +556,7 @@ def kernel_phase(card: str):
         lambda d, t: kc.kv_block_update_cfg(d, t[0], t[2], new, v_new, cur_d, tables_d,
                                             max_seq=T, k_scales=t[1], v_scales=t[3]),
         cursor_bytes + entry_bytes + 2 * n_valid * (row + H * D + H * 4))
-    n_refused = kv_refusals(kc, arena, qarena, scales, new, cur_d, tables_d, T)
+    n_refused = kv_refusals(kc, cache, arena, qarena, scales, new, cur_d, tables_d, T)
     emit(phase="kernels", kernels=sorted(results), card=card, refused=n_refused)
     return results
 
@@ -684,26 +693,40 @@ def ref_phase(card: str) -> None:
 
 def profile_phase(card: str) -> None:
     """Where a decode step's time goes: GPT-small, 8 slots at position 300,
-    paged bf16 arena, KV writes through the kernels, greedy argmax — the
-    engine's per-token step without the engine. Host ms per step over 32
-    steps; device kernel time (torch.profiler, CUPTI) over 8 more, as a
-    share of their wall time (after a warm-up cycle of 8), and the top
-    kernels by device time."""
-    from kubeflow_tpu_torch.models.gpt import GptConfig, GptLM, init_params
-    from kubeflow_tpu_torch.ops import kv_cache as kc
+    KV writes through the kernels, greedy argmax — the engine's per-token
+    step without the engine — in the paged bf16 arena, then in the
+    contiguous cache. Per layout: host ms per step over 32 steps; device
+    kernel time (torch.profiler, CUPTI) over 8 more, as a share of their
+    wall time (after a warm-up cycle of 8), and the top kernels by device
+    time; the KV writes' launches, device ms and host ms (timed around the
+    pair calls over 32 more steps) per step."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
 
     cfg = GptConfig.small()
+    params = init_params(cfg, seed=0, device="cuda")
+    for paged, pair in ((True, "kv_block_update_pair"), (False, "kv_row_update_pair")):
+        profile_layout(card, cfg, params, paged, pair)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_layout(card: str, cfg, params, paged: bool, pair_name: str) -> None:
+    from kubeflow_tpu_torch.models.gpt import GptLM
+    from kubeflow_tpu_torch.ops import kv_cache as kc
+
     S, bt = 8, 16
     mb = cfg.max_seq // bt
-    model = GptLM.bind(cfg, init_params(cfg, seed=0, device="cuda"), decode=True,
-                       per_slot=True, kv_kernel=True, paged=True)
-    arena = (S * mb + 1, bt, cfg.n_heads, cfg.head_dim)
+    model = GptLM.bind(cfg, params, decode=True, per_slot=True, kv_kernel=True, paged=paged)
+    kv = (S * mb + 1, bt) if paged else (S, cfg.max_seq)
+    names = ("k_arena", "v_arena") if paged else ("k", "v")
     cache = {f"block_{i}": {"attention": {
-        "k_arena": torch.zeros(arena, dtype=cfg.dtype, device="cuda"),
-        "v_arena": torch.zeros(arena, dtype=cfg.dtype, device="cuda"),
+        **{n: torch.zeros(kv + (cfg.n_heads, cfg.head_dim), dtype=cfg.dtype, device="cuda")
+           for n in names},
         "cursors": torch.full((S,), 300, dtype=torch.int32, device="cuda")}}
         for i in range(cfg.n_layers)}
-    tables = torch.arange(S * mb, dtype=torch.int32, device="cuda").view(S, mb)
+    tables = torch.arange(S * mb, dtype=torch.int32, device="cuda").view(S, mb) if paged \
+        else None
     tok = torch.zeros((S,), dtype=torch.int32, device="cuda")
 
     def steps(n):
@@ -713,7 +736,7 @@ def profile_phase(card: str) -> None:
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
 
-    pair = kc.kv_block_update_pair
+    pair = getattr(kc, pair_name)
     kv_host_ns = 0
 
     def timed_pair(*args, **kw):
@@ -731,27 +754,27 @@ def profile_phase(card: str) -> None:
         step_ms = (time.perf_counter() - t0) / 32 * 1e3
         kv_launches = {k: n / 32 for k, n in kc.LAUNCHES.items() if n}
         prof, window_ms = whole_profile(lambda: steps(8), ("cpu", "cuda"), 1)
-        kc.kv_block_update_pair = timed_pair  # the model looks it up at every call
+        setattr(kc, pair_name, timed_pair)  # the model looks it up at every call
         try:
             steps(32)
         finally:
-            kc.kv_block_update_pair = pair
-    if kv_launches != {"kv_block_update_pair": cfg.n_layers}:
-        raise AssertionError(f"profile: KV launches a step {kv_launches}, expected "
-                             f"{cfg.n_layers} kv_block_update_pair")
+            setattr(kc, pair_name, pair)
+    layout = "paged" if paged else "contiguous"
+    if kv_launches != {pair_name: cfg.n_layers}:
+        raise AssertionError(f"profile ({layout}): KV launches a step {kv_launches}, "
+                             f"expected {cfg.n_layers} {pair_name}")
     by_name = device_ms_by_kernel(prof)
     device_ms = sum(by_name.values())
-    kv_device_ms = sum(ms for n, ms in by_name.items() if "kv_block_update_pair" in n)
+    kv_device_ms = sum(ms for n, ms in by_name.items() if pair_name in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit(phase="profile", card=card, step_ms=step_ms, tokens_per_s=S * 1e3 / step_ms,
+    emit(phase="profile", card=card, layout=layout, step_ms=step_ms,
+         tokens_per_s=S * 1e3 / step_ms,
          device_ms_per_step=device_ms / 8 if device_ms else None,
          device_busy_share=device_ms / window_ms if device_ms else None,
          kv_launches_per_step=kv_launches, kv_device_ms_per_step=kv_device_ms / 8,
          kv_host_ms_per_step=kv_host_ns / 32 / 1e6,
          top_kernels_ms_per_step=[[n[:90], ms / 8] for n, ms in top])
     del model, cache
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def kv_probe_phase(card: str) -> None:
@@ -1668,7 +1691,7 @@ def main() -> int:
     for name, n in launches.items():
         kernels[name]["launches"] = n
 
-    order = ("kv_row_update", "kv_block_update_pair", "kv_block_update_quant_pair",
+    order = ("kv_row_update_pair", "kv_block_update_pair", "kv_block_update_quant_pair",
              "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
              "fused_bottleneck", "fused_transition", "stream_copy", "stream_copy_dma")
     emit(kernels=[kernels[k] for k in order])
@@ -1680,9 +1703,9 @@ def main() -> int:
 
 def serve_phases(card: str) -> dict:
     """Phases 3-5: GPT-small served in three KV layouts, each held against
-    its plain writes. A paged run's pair kernel launches once per layer and
-    decode step, and its one-array wrapper never; the contiguous run's row
-    kernel twice. Returns each KV kernel's launches in its layout's run."""
+    its plain writes. Each run's pair kernel launches once per layer and
+    decode step, and its one-array wrapper never. Returns each KV kernel's
+    launches in its layout's run."""
     from kubeflow_tpu_torch.models.gpt import GptConfig
 
     n_layers = GptConfig.small().n_layers
@@ -1690,14 +1713,14 @@ def serve_phases(card: str) -> dict:
     prompts = [rng.integers(0, 32000, n).astype(np.int32) for n in PROMPT_LENS]
     long_prompt = rng.integers(0, 32000, LONG_PROMPT).astype(np.int32)
 
-    def expect(label, counts, name, per_step, steps, never):
-        if steps == 0 or counts[name] != per_step * n_layers * steps or counts[never]:
+    def expect(label, counts, name, steps, *never):
+        if steps == 0 or counts[name] != n_layers * steps or any(counts[n] for n in never):
             raise AssertionError(f"{label}: {counts} over {steps} decode steps; expected "
-                                 f"{per_step * n_layers} {name} a step and no {never}")
+                                 f"{n_layers} {name} a step and no {never}")
 
     # default: the kernels
     bf16_k, c, steps = serve(prompts, card, "serve_paged_kernel", long_prompt=long_prompt)
-    expect("serve_paged_kernel", c, "kv_block_update_pair", 1, steps, "kv_block_update")
+    expect("serve_paged_kernel", c, "kv_block_update_pair", steps, "kv_block_update")
     launches = {"kv_block_update_pair": c["kv_block_update_pair"]}
     bf16_p, c, _ = serve(prompts, card, "serve_paged_plain", kv_kernel=False)
     if any(c.values()):
@@ -1706,13 +1729,14 @@ def serve_phases(card: str) -> dict:
         raise AssertionError("paged bf16: kernel-path tokens differ from plain-path tokens")
 
     contig, c, steps = serve(prompts, card, "serve_contiguous_kernel", paged=False)
-    expect("serve_contiguous_kernel", c, "kv_row_update", 2, steps, "kv_block_update_pair")
-    launches["kv_row_update"] = c["kv_row_update"]
+    expect("serve_contiguous_kernel", c, "kv_row_update_pair", steps, "kv_row_update",
+           "kv_block_update_pair")
+    launches["kv_row_update_pair"] = c["kv_row_update_pair"]
     if contig != bf16_k:
         raise AssertionError("contiguous tokens differ from paged tokens")
 
     int8_k, c, steps = serve(prompts, card, "serve_int8_kernel", kv_dtype="int8")
-    expect("serve_int8_kernel", c, "kv_block_update_quant_pair", 1, steps,
+    expect("serve_int8_kernel", c, "kv_block_update_quant_pair", steps,
            "kv_block_update_quant")
     launches["kv_block_update_quant_pair"] = c["kv_block_update_quant_pair"]
     int8_p, _, _ = serve(prompts, card, "serve_int8_plain", kv_kernel=False, kv_dtype="int8")

@@ -4,11 +4,13 @@ The port of ``e2e/kv_update_probe.py``. Three measurements:
 
 - :func:`isolated`: one decode step's KV write, alone. At the JAX probe's
   contiguous cache ``[8, 352, 16, 64]`` bf16: a where-select over the whole
-  cache, one ``index_put_`` and the ``kv_row_update`` kernel. At GPT-small's
-  paged serving shapes (8 slots, arena ``[8 * 128 + 1, 16, 12, 64]`` bf16,
-  ``max_seq`` 2048): one layer's K and V as two ``kv_block_update`` calls,
-  one ``kv_block_update_pair`` call, and two launches of the design the pair
-  replaced (the one-array kernel, through ``kv_block_update_cfg``).
+  cache, one ``index_put_`` and one ``kv_row_update`` call; then one
+  layer's K and V as two ``kv_row_update`` calls, one ``kv_row_update_pair``
+  call, and two launches of the design the pair replaced (the one-array
+  kernel, through ``kv_row_update_cfg``). At GPT-small's paged serving
+  shapes (8 slots, arena ``[8 * 128 + 1, 16, 12, 64]`` bf16, ``max_seq``
+  2048): the same three for the paged write (``kv_block_update``,
+  ``kv_block_update_pair``, ``kv_block_update_cfg``).
 - :func:`in_model`: the GPT decode chunk (16 single-token steps, the JAX
   probe's GPT-medium-class config at ``max_seq`` 352, 8 slots) in ms per
   token: shared cursor, per-slot with the KV writes plain and through the
@@ -55,8 +57,8 @@ def _ms(fn: Callable[[], Any], iters: int, device: torch.device) -> float:
 def isolated(contig=CONTIG, paged=PAGED, iters: int = 200,
              device: DeviceLike = "cuda") -> Dict[str, Optional[float]]:
     """ms per call of each write (see the module docstring). Every cursor
-    is in range, as in the JAX probe. ``replaced_x2_ms`` is None on the
-    CPU: the replaced kernel has no plain version of its own."""
+    is in range, as in the JAX probe. The ``*_replaced_x2_ms`` rows are None
+    on the CPU: the replaced kernels have no plain version of their own."""
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(0)
     S, T, H, D = contig
@@ -70,6 +72,20 @@ def isolated(contig=CONTIG, paged=PAGED, iters: int = 200,
         "index_put_ms": _ms(lambda: cache.index_put_((rows, cur_l), new), iters, dev),
         "kv_row_update_ms": _ms(lambda: kc.kv_row_update(cache, new, cur), iters, dev),
     }
+    v_cache = torch.randn(S, T, H, D, generator=g).to(dev, torch.bfloat16)
+    v_new = torch.randn(S, H, D, generator=g).to(dev, torch.bfloat16)
+
+    def two_rows():
+        kc.kv_row_update(cache, new, cur)
+        kc.kv_row_update(v_cache, v_new, cur)
+
+    out["kv_row_update_x2_ms"] = _ms(two_rows, iters, dev)
+    out["kv_row_update_pair_ms"] = _ms(
+        lambda: kc.kv_row_update_pair(cache, v_cache, new, v_new, cur), iters, dev)
+    out["row_replaced_x2_ms"] = None
+    if dev.type == "cuda":
+        out["row_replaced_x2_ms"] = _ms(
+            lambda: kc.kv_row_update_cfg(0, cache, v_cache, new, v_new, cur), iters, dev)
 
     S, max_seq, H, D, bt = paged
     mb = max_seq // bt
@@ -87,9 +103,9 @@ def isolated(contig=CONTIG, paged=PAGED, iters: int = 200,
     out["kv_block_update_pair_ms"] = _ms(
         lambda: kc.kv_block_update_pair(*arenas, k, v, cur, tables, max_seq=max_seq),
         iters, dev)
-    out["replaced_x2_ms"] = None
+    out["block_replaced_x2_ms"] = None
     if dev.type == "cuda":
-        out["replaced_x2_ms"] = _ms(
+        out["block_replaced_x2_ms"] = _ms(
             lambda: kc.kv_block_update_cfg(0, *arenas, k, v, cur, tables, max_seq=max_seq),
             iters, dev)
     return out
@@ -188,8 +204,9 @@ def time_parts(parts: Dict[str, Callable[[], Any]], n: int = 10_000) -> Dict[str
 
 
 def host_split(paged=PAGED, n: int = 10_000, device: DeviceLike = "cuda") -> Dict[str, float]:
-    """Host µs per call of a paged KV write and of each part of its path:
-    the whole wrappers; the checks; the int32 casts the wrappers skip when
+    """Host µs per call of a KV write and of each part of its path, paged
+    and contiguous (GPT-small's caches ``[8, 2048, 12, 64]``): the whole
+    wrappers; the checks; the int32 casts the wrappers skip when
     the tensors already are int32 and contiguous; the stream lookup (the
     public ``current_stream`` and the raw one); ``_build.entry``, and a bare
     lock round trip beside it; the ctypes calls themselves (the C entry's
@@ -207,6 +224,8 @@ def host_split(paged=PAGED, n: int = 10_000, device: DeviceLike = "cuda") -> Dic
     k, v = (torch.randn(S, H, D, generator=g).to(dev, torch.bfloat16) for _ in range(2))
     cur = torch.randint(0, max_seq, (S,), generator=g, dtype=torch.int32).to(dev)
     tables = torch.randperm(S * mb, generator=g).view(S, mb).int().to(dev)
+    caches = [torch.zeros(S, max_seq, H, D, dtype=torch.bfloat16, device=dev)
+              for _ in range(2)]
     idx = arenas[0].get_device()
     row_bytes = H * D * 2
     lock = threading.Lock()
@@ -221,14 +240,20 @@ def host_split(paged=PAGED, n: int = 10_000, device: DeviceLike = "cuda") -> Dic
     args = (idx, *(a.data_ptr() for a in arenas), k.data_ptr(), v.data_ptr(), 2,
             cur.data_ptr(), tables.data_ptr(), S, mb, bt, max_seq, S * mb + 1, row_bytes,
             stream)
+    row_pair = _build.entry(kc.SOURCE, "kv_row_update_pair")
+    row_args = (idx, *(c.data_ptr() for c in caches), k.data_ptr(), v.data_ptr(), 2,
+                cur.data_ptr(), S, max_seq, row_bytes, stream)
     parts: Dict[str, Callable[[], Any]] = {
         "kv_block_update": lambda: kc.kv_block_update(arenas[0], k, cur, tables,
                                                       max_seq=max_seq),
         "kv_block_update_pair": lambda: kc.kv_block_update_pair(
             *arenas, k, v, cur, tables, max_seq=max_seq),
-        "checks (pair)": lambda: kc._check_paged("kv_block_update_pair", arenas, (k, v),
-                                                 cur, tables),
-        "_check_cuda": lambda: kc._check_cuda("kv_block_update", arenas[0], k, cur, tables),
+        "kv_row_update": lambda: kc.kv_row_update(caches[0], k, cur),
+        "kv_row_update_pair": lambda: kc.kv_row_update_pair(*caches, k, v, cur),
+        "checks (paged pair)": lambda: kc._check_write("kv_block_update_pair", arenas,
+                                                       (k, v), cur, tables),
+        "checks (contiguous pair)": lambda: kc._check_write("kv_row_update_pair", caches,
+                                                            (k, v), cur),
         "int32 casts x2 (.to().contiguous())": lambda: (
             cur.to(torch.int32).contiguous(), tables.to(torch.int32).contiguous()),
         "int32 casts x2 (skipped)": lambda: (kc._i32(cur), kc._i32(tables)),
@@ -239,6 +264,7 @@ def host_split(paged=PAGED, n: int = 10_000, device: DeviceLike = "cuda") -> Dic
         "lock round trip": locked,
         "ctypes kv_launch_floor (4 args)": lambda: floor(idx, S, row_bytes, stream),
         f"ctypes kv_block_update_pair ({len(args)} args)": lambda: pair(*args),
+        f"ctypes kv_row_update_pair ({len(row_args)} args)": lambda: row_pair(*row_args),
     }
     out = {}
     for name, fn in parts.items():

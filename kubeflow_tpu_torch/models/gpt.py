@@ -215,7 +215,7 @@ class GptAttention(nn.Module):
     def _contiguous_write(self, x: torch.Tensor, cache: Dict[str, torch.Tensor]):
         """Write this segment's K/V into the [b, max_seq] cache at the
         cursor(s) and advance them; returns (keys, values, mask, q)."""
-        from ..ops.kv_cache import kv_row_update, kv_row_update_plain
+        from ..ops.kv_cache import kv_row_update_pair, kv_row_update_plain
 
         cfg = self.cfg
         b, L = x.shape[:2]
@@ -227,12 +227,15 @@ class GptAttention(nn.Module):
             seg_positions = start.long()[:, None] + steps            # [b, L]
             q, k, v = self._qkv(x, seg_positions)
             if L == 1:
-                # kernel: touches one [H, D] row per slot; plain: the same
-                # write as one gather/where/scatter (cursors past the end
-                # write back what they read — the where-select's no-op)
-                write = kv_row_update if self.use_kernel else kv_row_update_plain
-                write(keys, k[:, 0], start)
-                write(values, v[:, 0], start)
+                # kernel: one launch touches one [H, D] K row and one V row
+                # per slot; plain: the same write as one gather/where/scatter
+                # per array (cursors past the end write back what they read —
+                # the where-select's no-op)
+                if self.use_kernel:
+                    kv_row_update_pair(keys, values, k[:, 0], v[:, 0], start)
+                else:
+                    kv_row_update_plain(keys, k[:, 0], start)
+                    kv_row_update_plain(values, v[:, 0], start)
             else:
                 # dynamic_update_slice clamps the start so the slice fits
                 pos = start.long().clamp(0, T - L)[:, None] + steps

@@ -36,7 +36,11 @@ P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: ordinal first and returns an int (the cudaError_t of the launch).
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "kv_cache.cu": {
-        "kv_row_update": (I, P, P, P, I, I, I, P),
+        # device, k_cache, v_cache, k_new, v_new, n_arrays, cursors, S, T,
+        # row_bytes, stream
+        "kv_row_update_pair": (I, P, P, P, P, I, P, I, I, I, P),
+        # device, design, then as kv_row_update_pair
+        "kv_row_update_cfg": (I, I, P, P, P, P, I, P, I, I, I, P),
         # device, k_arena, v_arena, k_new, v_new, n_arrays, cursors, tables,
         # S, mb, block_t, max_seq, n_blocks, row_bytes, stream
         "kv_block_update_pair": (I, P, P, P, P, I, P, P, I, I, I, I, I, I, P),

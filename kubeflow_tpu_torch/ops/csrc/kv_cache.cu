@@ -3,10 +3,10 @@
 // Each decode step writes ONE [H, D] key row and ONE value row per slot,
 // per layer. These kernels are that write, in place:
 //
-//   kv_row_update               replaces kubeflow_tpu/ops/kv_cache.py
-//                               `_kernel` (wrapper kv_row_update):
-//                               contiguous per-slot cache [S, T, H, D], row
-//                               cache[s, cursors[s]].
+//   kv_row_update_pair_*        replaces kubeflow_tpu/ops/kv_cache.py
+//                               `_kernel` (wrappers kv_row_update_pair,
+//                               kv_row_update): contiguous per-slot caches
+//                               [S, T, H, D], row cache[s, cursors[s]].
 //   kv_block_update_pair_*      replaces `_paged_kernel` (wrappers
 //                               kv_block_update_pair, kv_block_update):
 //                               shared block arena [N, block_t, H, D]
@@ -34,13 +34,18 @@
 // trash row writes there. A table entry outside [0, N) writes nothing.
 //
 // Bound. Per array and call: S rows read from `new` and S rows written,
-// plus the S cursors and S table entries. GPT-small serving (S=8, H=12,
+// plus the S cursors (and S table entries). GPT-small serving (S=8, H=12,
 // D=64, bf16): 8 * 2 * 1536 B + 64 B = 24.6 KB, 7.3 ns at 3.35 TB/s — far
 // below the ~2 us a launch costs, so these writes are bound by the launch
-// and the host's call, not by bytes. The paged writes therefore take a
-// layer's K and V in ONE launch (`n_arrays` 2; the one-array wrappers pass
-// 1): 12 launches per decode token for GPT-small's 12 layers, not 24. Both
-// designs are reachable through kv_block_update_cfg:
+// and the host's call, not by bytes. Every write therefore takes a layer's
+// K and V in ONE launch (`n_arrays` 2; the one-array wrappers pass 1): 12
+// launches per decode token for GPT-small's 12 layers, not 24, a block per
+// (slot, array). On the device a block's time beyond an empty kernel's is
+// its chain of dependent loads, so the contiguous pair issues its row's
+// loads beside the cursor's and tests the cursor only before the stores
+// (the row does not depend on it): one load round trip before the store.
+// The designs are reachable through kv_row_update_cfg and
+// kv_block_update_cfg:
 //   design 1 (the pair): a block per (slot, array), grid S x n_arrays;
 //   design 0: the one-array kernel the pair replaced, launched once per
 //             array, kept for the timing beside it.
@@ -74,17 +79,6 @@ __device__ __forceinline__ void copy_row(char* __restrict__ dst,
   }
 }
 
-__global__ void kv_row_update_kernel(char* __restrict__ cache,
-                                     const char* __restrict__ new_rows,
-                                     const int* __restrict__ cursors,
-                                     int T, int row_bytes) {
-  const int s = blockIdx.x;
-  const int cur = cursors[s];
-  if (cur < 0 || cur >= T) return;  // retired/idle row: no-op
-  copy_row(cache + ((int64_t)s * T + cur) * row_bytes,
-           new_rows + (int64_t)s * row_bytes, row_bytes);
-}
-
 // Arena row that slot `s` writes at its cursor, or -1 for no write.
 __device__ __forceinline__ int64_t arena_row(const int* __restrict__ cursors,
                                              const int* __restrict__ tables,
@@ -98,7 +92,8 @@ __device__ __forceinline__ int64_t arena_row(const int* __restrict__ cursors,
   return (int64_t)blk * block_t + cur % block_t;
 }
 
-// The one or two (arena, rows) pairs of a call: K first, then V.
+// The one or two (arena or contiguous cache, rows) pairs of a call: K
+// first, then V.
 struct Arrays {
   char* arena[2];
   const char* rows[2];
@@ -111,6 +106,17 @@ template <typename T>
 __device__ __forceinline__ T pick(const T (&p)[2], int k) { return k ? p[1] : p[0]; }
 
 // -- design 0: the replaced kernels, one array a launch ----------------------
+
+__global__ void kv_row_update_kernel(char* __restrict__ cache,
+                                     const char* __restrict__ new_rows,
+                                     const int* __restrict__ cursors,
+                                     int T, int row_bytes) {
+  const int s = blockIdx.x;
+  const int cur = cursors[s];
+  if (cur < 0 || cur >= T) return;  // retired/idle row: no-op
+  copy_row(cache + ((int64_t)s * T + cur) * row_bytes,
+           new_rows + (int64_t)s * row_bytes, row_bytes);
+}
 
 __global__ void kv_block_update_kernel(char* __restrict__ arena,
                                        const char* __restrict__ new_rows,
@@ -166,6 +172,59 @@ __global__ void kv_block_update_quant_kernel(int8_t* __restrict__ arena,
 
 // -- design 1: every array of a layer in one launch, a block per (slot, array)
 // (on the card it beat a block per slot copying both rows: PERF.md) ----------
+
+// 16-byte vectors of a row that a thread holds in registers between its
+// loads and its stores: rows up to ROW_VECTORS * blockDim.x vectors (16 KB
+// at 256 threads) are loaded whole before the cursor is tested.
+constexpr int ROW_VECTORS = 4;
+
+__device__ __forceinline__ void load_vectors(int4 (&r)[ROW_VECTORS],
+                                             const int4* __restrict__ src,
+                                             int first, int n) {
+#pragma unroll
+  for (int j = 0; j < ROW_VECTORS; ++j) {
+    const int i = first + threadIdx.x + j * blockDim.x;
+    if (i < n) r[j] = __ldg(src + i);
+  }
+}
+
+__device__ __forceinline__ void store_vectors(int4* __restrict__ dst,
+                                              const int4 (&r)[ROW_VECTORS],
+                                              int first, int n) {
+#pragma unroll
+  for (int j = 0; j < ROW_VECTORS; ++j) {
+    const int i = first + threadIdx.x + j * blockDim.x;
+    if (i < n) dst[i] = r[j];
+  }
+}
+
+// The row's loads are issued (read-only path) beside the cursor's, before
+// the cursor is tested: a slot out of range has read its row and stores
+// nothing. Rows not 16-byte sized or aligned take the byte-wise copy.
+__global__ void kv_row_update_pair_kernel(Arrays a, const int* __restrict__ cursors,
+                                          int T, int row_bytes) {
+  const int s = blockIdx.x, k = blockIdx.y;
+  const char* src = pick(a.rows, k) + (int64_t)s * row_bytes;
+  char* cache = pick(a.arena, k) + (int64_t)s * T * row_bytes;
+  const int cur = __ldg(cursors + s);
+  if (row_bytes % 16 != 0 || !aligned16(src) || !aligned16(cache)) {
+    if (cur < 0 || cur >= T) return;
+    copy_row(cache + (int64_t)cur * row_bytes, src, row_bytes);
+    return;
+  }
+  const int n = row_bytes / 16, step = ROW_VECTORS * blockDim.x;
+  const int4* s4 = reinterpret_cast<const int4*>(src);
+  int4 r[ROW_VECTORS];
+  load_vectors(r, s4, 0, n);
+  if (cur < 0 || cur >= T) return;  // retired/idle row: no-op
+  int4* d4 = reinterpret_cast<int4*>(cache + (int64_t)cur * row_bytes);
+  for (int first = 0;;) {
+    store_vectors(d4, r, first, n);
+    first += step;
+    if (first >= n) break;
+    load_vectors(r, s4, first, n);
+  }
+}
 
 __global__ void kv_block_update_pair_kernel(Arrays a,
                                                   const int* __restrict__ cursors,
@@ -249,16 +308,34 @@ void launch_quant(int design, const Arrays& a, int n_arrays, const int* cursors,
 
 extern "C" {
 
-int kv_row_update(int device, void* cache, const void* new_rows, const int* cursors,
-                  int S, int T, int row_bytes, void* stream) {
+// Every contiguous write, by design (0 or 1; see the header). `n_arrays` 1
+// writes K only (V pointers unused), 2 writes K and V.
+int kv_row_update_cfg(int device, int design, void* k_cache, void* v_cache,
+                      const void* k_new, const void* v_new, int n_arrays,
+                      const int* cursors, int S, int T, int row_bytes, void* stream) {
   const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return (int)set;
-  if (S > 0) {
-    kv_row_update_kernel<<<S, copy_threads(row_bytes), 0, (cudaStream_t)stream>>>(
-        static_cast<char*>(cache), static_cast<const char*>(new_rows), cursors,
-        T, row_bytes);
+  if (design < 0 || design > 1 || n_arrays < 1 || n_arrays > 2) return (int)cudaErrorInvalidValue;
+  if (S <= 0) return (int)cudaGetLastError();
+  const Arrays a = arrays(k_cache, v_cache, k_new, v_new, nullptr, nullptr);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int threads = copy_threads(row_bytes);
+  if (design == 0) {
+    for (int k = 0; k < n_arrays; ++k)
+      kv_row_update_kernel<<<S, threads, 0, st>>>(a.arena[k], a.rows[k], cursors, T,
+                                                  row_bytes);
+  } else {
+    kv_row_update_pair_kernel<<<dim3(S, n_arrays), threads, 0, st>>>(a, cursors, T,
+                                                                     row_bytes);
   }
   return (int)cudaGetLastError();
+}
+
+int kv_row_update_pair(int device, void* k_cache, void* v_cache, const void* k_new,
+                       const void* v_new, int n_arrays, const int* cursors, int S, int T,
+                       int row_bytes, void* stream) {
+  return kv_row_update_cfg(device, 1, k_cache, v_cache, k_new, v_new, n_arrays, cursors,
+                           S, T, row_bytes, stream);
 }
 
 // Every paged write, by design (0 or 1; see the header). `quant` 0: copy

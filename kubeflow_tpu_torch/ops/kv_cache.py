@@ -13,9 +13,10 @@ plain PyTorch version beside it:
 - :func:`kv_block_update_quant` — the same write into an int8 arena,
   quantized per (row, head) with the f32 scale written into
   ``[N, block_t, H, 1]`` beside it;
-- :func:`kv_block_update_pair` and :func:`kv_block_update_quant_pair` — a
-  layer's K and V writes of the two above in ONE launch, the decode step's
-  path. The one-array wrappers launch the same kernels over one array.
+- :func:`kv_row_update_pair`, :func:`kv_block_update_pair` and
+  :func:`kv_block_update_quant_pair` — a layer's K and V writes of the
+  three above in ONE launch, the decode step's path. The one-array
+  wrappers launch the same kernels over one array.
 
 The writes are IN PLACE: the cache/arena passed in is modified and
 returned (JAX got the same effect from ``input_output_aliases`` plus
@@ -24,9 +25,10 @@ donation). A cursor at or beyond ``T``/``max_seq`` writes nothing.
 A wrapper takes its plain version only when the tensors lie on the CPU.
 For CUDA tensors it launches the kernel or raises; it never falls back.
 Each wrapper adds one to ``LAUNCHES[<name>]`` where it launches, so a run
-can show the main path went through the kernel. :func:`kv_block_update_cfg`
-(the pair kernel, or the one-array kernel it replaced) and
-:func:`kv_launch_floor` (an empty kernel) are for timing and count nothing.
+can show the main path went through the kernel. :func:`kv_row_update_cfg`
+and :func:`kv_block_update_cfg` (the pair kernel, or the one-array kernel
+it replaced) and :func:`kv_launch_floor` (an empty kernel) are for timing
+and count nothing.
 """
 
 from __future__ import annotations
@@ -40,9 +42,9 @@ from . import _build
 SOURCE = "kv_cache.cu"
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"kv_row_update": 0, "kv_block_update": 0,
-                            "kv_block_update_quant": 0, "kv_block_update_pair": 0,
-                            "kv_block_update_quant_pair": 0}
+LAUNCHES: Dict[str, int] = {"kv_row_update": 0, "kv_row_update_pair": 0,
+                            "kv_block_update": 0, "kv_block_update_quant": 0,
+                            "kv_block_update_pair": 0, "kv_block_update_quant_pair": 0}
 
 #: the raw pointer of a device's current stream: the value of
 #: ``torch.cuda.current_stream(i).cuda_stream`` at a small part of its cost
@@ -70,29 +72,25 @@ def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
 
 
-def _check_cuda(name: str, target: torch.Tensor, *others: torch.Tensor) -> None:
+def _check_cuda(name: str, target: torch.Tensor) -> None:
+    """The timing entries have no plain version: CUDA tensors only."""
     if target.device.type != "cuda":
-        raise ValueError(f"{name}: tensors must lie on the CPU (plain "
-                         f"version) or on a CUDA device, got {target.device}")
-    for t in others:
-        if t.device != target.device:
-            raise ValueError(f"{name}: all tensors must be on {target.device}, "
-                             f"got one on {t.device}")
-    if not target.is_contiguous():
-        raise ValueError(f"{name}: the cache is written in place and must be "
-                         "contiguous")
+        raise ValueError(f"{name}: takes CUDA tensors only, got {target.device}")
 
 
-def _check_paged(name: str, written: Sequence[torch.Tensor], news: Sequence[torch.Tensor],
-                 cursors: torch.Tensor, tables: torch.Tensor) -> None:
-    """The checks of a paged write, in one pass: ``written`` holds the
-    arenas (K first; each int8 arena followed by its scale arena), ``news``
-    the rows. Every tensor on the first arena's device, the written ones
-    contiguous and disjoint, K's and V's arenas and rows of one shape and
-    type, rows ``[S, H, D]`` and cursors ``[S]`` for tables ``[S, MB]``.
-    Raises ValueError; a CPU tensor among CUDA ones too. Each tensor
-    attribute is read once: on the decode path this runs 12 times a token."""
+def _check_write(name: str, written: Sequence[torch.Tensor], news: Sequence[torch.Tensor],
+                 cursors: torch.Tensor, tables: Optional[torch.Tensor] = None) -> None:
+    """The checks of a KV write, in one pass: ``written`` holds the caches
+    or arenas (K first; each int8 arena followed by its scale arena),
+    ``news`` the rows. Every tensor on the first written tensor's device,
+    the written ones contiguous and disjoint, K's and V's caches and rows of
+    one shape and type, rows ``[S, H, D]`` and cursors ``[S]`` for a
+    contiguous cache ``[S, T, H, D]`` (``tables`` None) or for tables
+    ``[S, MB]`` over an arena. Raises ValueError; a CPU tensor among CUDA
+    ones too. Each tensor attribute is read once: on the decode path this
+    runs 12 times a token."""
     dev = written[0].device
+    kind = "caches" if tables is None else "arenas"
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors must lie on the CPU (plain "
                          f"version) or on a CUDA device, got {dev}")
@@ -101,24 +99,32 @@ def _check_paged(name: str, written: Sequence[torch.Tensor], news: Sequence[torc
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got one on {t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{name}: the arenas are written in place and must be "
+            raise ValueError(f"{name}: the {kind} are written in place and must be "
                              "contiguous")
         lo = t.data_ptr()
         hi = lo + t.nbytes
         for a, b in spans:
             if lo < b and a < hi:
-                raise ValueError(f"{name}: the arenas written must not overlap")
+                raise ValueError(f"{name}: the {kind} written must not overlap")
         spans.append((lo, hi))
         shapes.append((t.shape, t.dtype))
-    for t in (*news, cursors, tables):
+    for t in (*news, cursors) if tables is None else (*news, cursors, tables):
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got one on {t.device}")
     per = len(written) // len(news)
     if shapes[per:] != shapes[:len(shapes) - per]:
-        raise ValueError(f"{name}: the K and V arenas differ in shape or dtype")
+        raise ValueError(f"{name}: the K and V {kind} differ in shape or dtype")
     row = (news[0].shape, news[0].dtype)
     if len(news) == 2 and (news[1].shape, news[1].dtype) != row:
         raise ValueError(f"{name}: the K and V rows differ in shape or dtype")
+    if tables is None:
+        shape = shapes[0][0]
+        if len(shape) != 4 or row[0] != (shape[0], *shape[2:]) or \
+                cursors.shape != shape[:1]:
+            raise ValueError(f"{name}: cache {tuple(shape)} needs new [S, H, D] and "
+                             f"cursors [S] of its [S, T, H, D], got {tuple(row[0])} and "
+                             f"{tuple(cursors.shape)}")
+        return
     (N, bt, H, D), arena_dtype = shapes[0]
     tshape = tables.shape
     S = tshape[0]
@@ -199,22 +205,76 @@ def kv_row_update(cache: torch.Tensor, new: torch.Tensor,
     cache: [S, T, H, D]; new: [S, H, D] (or [S, 1, H, D]); cursors: [S].
     Cursors outside ``[0, T)`` are a no-op for that row (retired and idle
     rows keep stepping past their end). Replaces the Pallas ``_kernel`` of
-    ``kubeflow_tpu/ops/kv_cache.py``.
+    ``kubeflow_tpu/ops/kv_cache.py``; launches the pair kernel over one
+    array.
     """
     new = _rows(new)
     if cache.device.type == "cpu":
         return kv_row_update_plain(cache, new, cursors)
-    _check_cuda("kv_row_update", cache, new, cursors)
-    S, T, H, D = cache.shape
-    if new.shape != (S, H, D) or cursors.shape != (S,):
-        raise ValueError(f"kv_row_update: cache {tuple(cache.shape)} needs new "
-                         f"[{S}, {H}, {D}] and cursors [{S}], got "
-                         f"{tuple(new.shape)} and {tuple(cursors.shape)}")
-    new = _as(new, cache.dtype)
-    cursors = _i32(cursors)
-    _launch("kv_row_update", "kv_row_update", cache, cache.data_ptr(), new.data_ptr(),
-            cursors.data_ptr(), S, T, H * D * cache.element_size())
+    _check_write("kv_row_update", (cache,), (new,), cursors)
+    _launch_rows("kv_row_update", (cache,), (_as(new, cache.dtype),), cursors)
     return cache
+
+
+def kv_row_update_pair_plain(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             k_new: torch.Tensor, v_new: torch.Tensor,
+                             cursors: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`kv_row_update_pair`: the one-array plain
+    version for K, then for V."""
+    kv_row_update_plain(k_cache, k_new, cursors)
+    kv_row_update_plain(v_cache, v_new, cursors)
+    return k_cache, v_cache
+
+
+def kv_row_update_pair(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       cursors: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's K and V rows into their two contiguous caches in one
+    launch, in place: :func:`kv_row_update` on ``(k_cache, k_new)`` and on
+    ``(v_cache, v_new)``, with the same contracts; returns ``(k_cache,
+    v_cache)``. Refuses (ValueError) caches that overlap, the same tensor
+    twice included, K and V caches or rows of different shapes or dtypes,
+    and caches that are not contiguous."""
+    k_new, v_new = _rows(k_new), _rows(v_new)
+    _check_write("kv_row_update_pair", (k_cache, v_cache), (k_new, v_new), cursors)
+    if k_cache.device.type == "cpu":
+        return kv_row_update_pair_plain(k_cache, v_cache, k_new, v_new, cursors)
+    dt = k_cache.dtype
+    _launch_rows("kv_row_update_pair", (k_cache, v_cache), (_as(k_new, dt), _as(v_new, dt)),
+                 cursors)
+    return k_cache, v_cache
+
+
+def _launch_rows(counter: Optional[str], caches, news, cursors,
+                 design: Optional[int] = None) -> None:
+    """Launch the contiguous write over one or two (cache, rows) pairs: the
+    pair entry, or ``design`` through the timing entry."""
+    k_cache = caches[0]
+    S, T, H, D = k_cache.shape
+    v_cache, v_new = (caches[1], news[1]) if len(caches) == 2 else (k_cache, news[0])
+    cursors = _i32(cursors)  # alive until the launch is queued
+    args = (k_cache.data_ptr(), v_cache.data_ptr(), news[0].data_ptr(), v_new.data_ptr(),
+            len(caches), cursors.data_ptr(), S, T, H * D * k_cache.element_size())
+    if design is None:
+        _launch(counter, "kv_row_update_pair", k_cache, *args)
+    else:
+        _launch(counter, "kv_row_update_cfg", k_cache, int(design), *args)
+
+
+def kv_row_update_cfg(design: int, k_cache: torch.Tensor, v_cache: Optional[torch.Tensor],
+                      k_new: torch.Tensor, v_new: Optional[torch.Tensor],
+                      cursors: torch.Tensor) -> None:
+    """A design of the contiguous write on CUDA tensors, for timing: 0 is
+    the replaced one-array kernel, launched once per array; 1 the pair
+    kernel, a block per (slot, array), the row loaded before the cursor is
+    tested (``csrc/kv_cache.cu``). ``v_cache`` None writes K only. Counts
+    nothing in ``LAUNCHES``."""
+    caches = (k_cache,) if v_cache is None else (k_cache, v_cache)
+    news = (_rows(k_new),) if v_cache is None else (_rows(k_new), _rows(v_new))
+    _check_cuda("kv_row_update_cfg", k_cache)
+    _check_write("kv_row_update_cfg", caches, news, cursors)
+    _launch_rows(None, caches, tuple(_as(n, k_cache.dtype) for n in news), cursors,
+                 design=design)
 
 
 # -- paged block arena --------------------------------------------------------
@@ -260,7 +320,7 @@ def kv_block_update(arena: torch.Tensor, new: torch.Tensor,
     new = _rows(new)
     if arena.device.type == "cpu":
         return kv_block_update_plain(arena, new, cursors, tables, max_seq=max_seq)
-    _check_paged("kv_block_update", (arena,), (new,), cursors, tables)
+    _check_write("kv_block_update", (arena,), (new,), cursors, tables)
     _launch_pair("kv_block_update", (arena,), (_as(new, arena.dtype),), cursors, tables,
                  max_seq)
     return arena
@@ -288,7 +348,7 @@ def kv_block_update_pair(k_arena: torch.Tensor, v_arena: torch.Tensor,
     included, K and V arenas or rows of different shapes or dtypes, and
     arenas that are not contiguous."""
     k_new, v_new = _rows(k_new), _rows(v_new)
-    _check_paged("kv_block_update_pair", (k_arena, v_arena), (k_new, v_new), cursors,
+    _check_write("kv_block_update_pair", (k_arena, v_arena), (k_new, v_new), cursors,
                  tables)
     if k_arena.device.type == "cpu":
         return kv_block_update_pair_plain(k_arena, v_arena, k_new, v_new, cursors,
@@ -349,7 +409,7 @@ def kv_block_update_quant(arena: torch.Tensor, scales: torch.Tensor,
     if arena.device.type == "cpu":
         return kv_block_update_quant_plain(arena, scales, new, cursors, tables,
                                            max_seq=max_seq)
-    _check_paged("kv_block_update_quant", (arena, scales), (new,), cursors, tables)
+    _check_write("kv_block_update_quant", (arena, scales), (new,), cursors, tables)
     _launch_quant_pair("kv_block_update_quant", (arena, scales), (_quant_rows(new),),
                        cursors, tables, max_seq)
     return arena, scales
@@ -381,7 +441,7 @@ def kv_block_update_quant_pair(k_arena: torch.Tensor, k_scales: torch.Tensor,
     four), K and V arenas or rows of different shapes or dtypes, and arenas
     that are not contiguous."""
     k_new, v_new = _rows(k_new), _rows(v_new)
-    _check_paged("kv_block_update_quant_pair", (k_arena, k_scales, v_arena, v_scales),
+    _check_write("kv_block_update_quant_pair", (k_arena, k_scales, v_arena, v_scales),
                  (k_new, v_new), cursors, tables)
     if k_arena.device.type == "cpu":
         return kv_block_update_quant_pair_plain(k_arena, k_scales, v_arena, v_scales,
@@ -422,7 +482,7 @@ def kv_block_update_cfg(design: int, k_arena: torch.Tensor, v_arena: Optional[to
         written += [v_arena] + ([v_scales] if quant else [])
         news.append(_rows(v_new))
     _check_cuda("kv_block_update_cfg", k_arena)
-    _check_paged("kv_block_update_cfg", written, news, cursors, tables)
+    _check_write("kv_block_update_cfg", written, news, cursors, tables)
     news = [_quant_rows(n) if quant else _as(n, k_arena.dtype) for n in news]
     N, bt, H, D = k_arena.shape
     S, mb = tables.shape

@@ -71,15 +71,139 @@ def test_row_update_writes_in_place_and_counts_no_launch_on_cpu():
     cache = torch.zeros(2, 4, 1, 2)
     out = tkv.kv_row_update(cache, torch.ones(2, 1, 1, 2), torch.tensor([1, 2]))
     assert out is cache and cache[0, 1].sum() == 2 and cache[1, 2].sum() == 2
-    assert tkv.LAUNCHES == {"kv_row_update": 0, "kv_block_update": 0,
-                            "kv_block_update_quant": 0, "kv_block_update_pair": 0,
-                            "kv_block_update_quant_pair": 0}
+    assert tkv.LAUNCHES == {"kv_row_update": 0, "kv_row_update_pair": 0,
+                            "kv_block_update": 0, "kv_block_update_quant": 0,
+                            "kv_block_update_pair": 0, "kv_block_update_quant_pair": 0}
 
 
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
     meta = torch.empty(2, 4, 1, 2, device="meta")
     with pytest.raises(ValueError, match="CPU"):
         tkv.kv_row_update(meta, meta[:, 0], torch.empty(2, device="meta"))
+
+
+def _row_pair_inputs(seed, S=6, T=24, H=2, D=8):
+    """K and V caches, rows and cursors: cursors T and T + 5 (no-ops) among
+    in-range ones, 0 and T - 1 included."""
+    rng = np.random.default_rng(seed)
+    caches = [rng.normal(size=(S, T, H, D)).astype(np.float32) for _ in range(2)]
+    news = [rng.normal(size=(S, H, D)).astype(np.float32) for _ in range(2)]
+    cursors = rng.integers(0, T, S).astype(np.int32)
+    cursors[:4] = [T, 0, T + 5, T - 1]
+    return caches, news, rng.permutation(cursors).astype(np.int32)
+
+
+@pytest.mark.parametrize("tdtype,jdtype", [(torch.float32, jnp.float32),
+                                           (torch.bfloat16, jnp.bfloat16)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("seed", [31, 32, 33])
+def test_row_pair_equals_two_jax_kernel_calls(seed, tdtype, jdtype):
+    """kv_row_update_pair on CPU tensors against the interpret-mode JAX
+    kernel run once for K and once for V: exact (row copies); the slots at
+    T and T + 5 keep their rows."""
+    caches, news, cursors = _row_pair_inputs(seed)
+    want = [jkv.kv_row_update(jnp.asarray(c, jdtype), jnp.asarray(n, jdtype),
+                              jnp.asarray(cursors), interpret=True)
+            for c, n in zip(caches, news)]
+    k_cache, v_cache = (torch.tensor(c).to(tdtype) for c in caches)
+    before = [k_cache.clone(), v_cache.clone()]
+    tkv.reset_launches()
+    got = tkv.kv_row_update_pair(k_cache, v_cache, *(torch.tensor(n).to(tdtype) for n in news),
+                                 torch.tensor(cursors))
+    assert got[0] is k_cache and got[1] is v_cache  # in place
+    assert not any(tkv.LAUNCHES.values())  # CPU tensors: plain versions
+    T = caches[0].shape[1]
+    for g, w, b in zip(got, want, before):
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w, np.float32))
+        assert torch.equal(g[cursors >= T], b[cursors >= T])
+
+
+def _row_refusals():
+    """(label, reason, caches, rows) the contiguous pair must refuse."""
+    c = torch.zeros(2, 8, 2, 4)
+    big = torch.zeros(3, 8, 2, 4)
+    rows = (torch.ones(2, 2, 4), torch.ones(2, 2, 4))
+    return [
+        ("the same tensor twice", "overlap", (c, c), rows),
+        ("overlapping views", "overlap", (big[:2], big[1:]), rows),
+        ("shapes differ", "differ", (c, torch.zeros(2, 9, 2, 4)), rows),
+        ("dtypes differ", "differ", (c, c.clone().bfloat16()), rows),
+        ("not contiguous", "contiguous", (c, torch.zeros(2, 8, 2, 5)[..., :4]), rows),
+        ("a transposed cache", "contiguous", (c, torch.zeros(2, 8, 4, 2).transpose(2, 3)),
+         rows),
+        ("rows of two dtypes", "rows differ", (c, c.clone()),
+         (rows[0], rows[1].double())),
+        ("rows of the wrong shape", "needs new", (c, c.clone()),
+         (torch.ones(3, 2, 4), torch.ones(3, 2, 4))),
+        ("a cache on another device", "all tensors", (c, torch.zeros(2, 8, 2, 4, device="meta")),
+         rows),
+        ("rows on another device", "all tensors", (c, c.clone()),
+         (rows[0], torch.ones(2, 2, 4, device="meta"))),
+    ]
+
+
+@pytest.mark.parametrize("label,reason,caches,rows", _row_refusals(),
+                         ids=[r[0] for r in _row_refusals()])
+def test_row_pair_refuses_unsafe_caches(label, reason, caches, rows):
+    """Caches the contiguous pair kernel cannot write safely are refused on
+    the CPU too (the same checks run on CUDA tensors before the launch),
+    and nothing is written."""
+    before = [c.clone() for c in caches if c.device.type == "cpu"]
+    with pytest.raises(ValueError, match=reason):
+        tkv.kv_row_update_pair(*caches, *rows, torch.tensor([0, 3], dtype=torch.int32))
+    after = [c for c in caches if c.device.type == "cpu"]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+
+
+def test_row_cfg_needs_cuda():
+    c = torch.zeros(2, 8, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkv.kv_row_update_cfg(1, c, c.clone(), torch.ones(2, 2, 4), torch.ones(2, 2, 4),
+                              torch.tensor([0, 3]))
+
+
+@pytest.mark.parametrize("kv_kernel", [True, False])
+def test_contiguous_decode_writes_each_layer_with_one_pair_call(monkeypatch, kv_kernel):
+    """A single-token per-slot decode step on the contiguous cache calls
+    kv_row_update_pair once a layer (K and V together) when kv_kernel is
+    on, and never when it is off; both give the same cache bit for bit."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig, GptLM, init_params
+
+    cfg = GptConfig(d_model=32, n_layers=3, n_heads=2, d_ff=64, max_seq=16,
+                    vocab_size=61, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cpu")
+    calls = []
+    pair = tkv.kv_row_update_pair
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return pair(*args)
+
+    monkeypatch.setattr(tkv, "kv_row_update_pair", spy)
+
+    def step(kernel):
+        cache = {f"block_{i}": {"attention": {
+            "k": torch.zeros(3, 16, 2, 16), "v": torch.zeros(3, 16, 2, 16),
+            "cursors": torch.tensor([0, 7, 16], dtype=torch.int32)}}
+            for i in range(cfg.n_layers)}
+        model = GptLM.bind(cfg, params, decode=True, per_slot=True, paged=False,
+                           kv_kernel=kernel)
+        with torch.no_grad():
+            logits = model(torch.tensor([[5], [9], [2]]), cache)
+        return logits, cache
+
+    logits, cache = step(kv_kernel)
+    assert len(calls) == (cfg.n_layers if kv_kernel else 0)
+    calls.clear()
+    want_logits, want = step(not kv_kernel)
+    assert torch.equal(logits, want_logits)
+    for i in range(cfg.n_layers):
+        for key in ("k", "v", "cursors"):
+            got_t, want_t = cache[f"block_{i}"]["attention"][key], \
+                want[f"block_{i}"]["attention"][key]
+            assert torch.equal(got_t, want_t)
+    assert cache["block_0"]["attention"]["k"][1, 7].abs().sum() > 0  # written
+    assert cache["block_0"]["attention"]["k"][2].abs().sum() == 0  # cursor 16: no-op
 
 
 @pytest.mark.parametrize("seed", [7, 8])
@@ -320,7 +444,8 @@ def test_pair_refuses_mismatched_rows_and_cfg_needs_cuda():
 def test_kernels_bit_equal_to_plain_on_the_card():
     """Each CUDA kernel against its plain version, at small shapes with
     out-of-range cursors and one trash-table slot: the one-array wrappers,
-    both pair wrappers, and both designs of the paged writes."""
+    the three pair wrappers (the contiguous one on 16-byte and on odd rows),
+    and every design of the contiguous and the paged writes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
     arena, new, cursors, tables, max_seq = _paged_inputs(2)
@@ -334,6 +459,19 @@ def test_kernels_bit_equal_to_plain_on_the_card():
     cache = torch.randn(5, max_seq, 2, 4, device=dev)
     assert torch.equal(tkv.kv_row_update(cache.clone(), n, c),
                        tkv.kv_row_update_plain(cache.clone(), n, c))
+    v_cache, vn = torch.randn_like(cache), torch.randn_like(n)
+    row_want = tkv.kv_row_update_pair_plain(cache.clone(), v_cache.clone(), n, vn, c)
+    got = tkv.kv_row_update_pair(cache.clone(), v_cache.clone(), n, vn, c)
+    assert all(torch.equal(x, y) for x, y in zip(got, row_want))
+    odd = torch.randn(5, max_seq, 3, 3, device=dev)  # 36-byte rows: the byte-wise path
+    on = torch.randn(5, 3, 3, device=dev)
+    got = tkv.kv_row_update_pair(odd.clone(), odd.clone() + 1, on, on * 2, c)
+    want = tkv.kv_row_update_pair_plain(odd.clone(), odd.clone() + 1, on, on * 2, c)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for design in (0, 1):
+        got = (cache.clone(), v_cache.clone())
+        tkv.kv_row_update_cfg(design, *got, n, vn, c)
+        assert all(torch.equal(x, y) for x, y in zip(got, row_want)), design
     q = torch.zeros(arena.shape, dtype=torch.int8, device=dev)
     s = torch.zeros(arena.shape[:3] + (1,), device=dev)
     got = tkv.kv_block_update_quant(q.clone(), s.clone(), n, c, t, max_seq=max_seq)
@@ -352,9 +490,9 @@ def test_kernels_bit_equal_to_plain_on_the_card():
                                                     s.clone(), nn, vv, c, t,
                                                     max_seq=max_seq)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert tkv.LAUNCHES == {"kv_row_update": 1, "kv_block_update": 1,
-                            "kv_block_update_quant": 1, "kv_block_update_pair": 1,
-                            "kv_block_update_quant_pair": 2}
+    assert tkv.LAUNCHES == {"kv_row_update": 1, "kv_row_update_pair": 2,
+                            "kv_block_update": 1, "kv_block_update_quant": 1,
+                            "kv_block_update_pair": 1, "kv_block_update_quant_pair": 2}
     want = tkv.kv_block_update_pair_plain(a.clone(), b.clone(), n.bfloat16(), v.bfloat16(),
                                           c, t, max_seq=max_seq)
     wantq = tkv.kv_block_update_quant_pair_plain(q.clone(), s.clone(), q.clone(), s.clone(),
@@ -368,4 +506,5 @@ def test_kernels_bit_equal_to_plain_on_the_card():
                                 k_scales=got[1], v_scales=got[3])
         assert all(torch.equal(x, y) for x, y in zip(got, wantq)), design
     torch.cuda.synchronize()
-    assert tkv.LAUNCHES["kv_block_update_pair"] == 1  # cfg launches count nothing
+    # cfg launches count nothing
+    assert tkv.LAUNCHES["kv_block_update_pair"] == 1 and tkv.LAUNCHES["kv_row_update_pair"] == 2

@@ -183,8 +183,11 @@ def test_kv_update_probe_rows_at_toy_shapes():
 
     iso = kvp.isolated(contig=(2, 16, 2, 8), paged=(2, 64, 2, 8, 16), iters=2, device="cpu")
     assert list(iso) == ["where_select_ms", "index_put_ms", "kv_row_update_ms",
-                         "kv_block_update_x2_ms", "kv_block_update_pair_ms", "replaced_x2_ms"]
-    assert iso.pop("replaced_x2_ms") is None  # the replaced kernel runs only on the card
+                         "kv_row_update_x2_ms", "kv_row_update_pair_ms", "row_replaced_x2_ms",
+                         "kv_block_update_x2_ms", "kv_block_update_pair_ms",
+                         "block_replaced_x2_ms"]
+    for name in ("row_replaced_x2_ms", "block_replaced_x2_ms"):
+        assert iso.pop(name) is None  # the replaced kernels run only on the card
     assert all(ms > 0 for ms in iso.values())
     rows = kvp.in_model(cfg=GptConfig.tiny(), slots=2, chunks=1, start=4, device="cpu")
     names = ("shared_cursor", "per_slot_plain", "per_slot_kernel", "paged_plain",
