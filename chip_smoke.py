@@ -35,15 +35,50 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              tokens must be identical, ``kv_block_update_pair`` must launch
              once per layer and decode step (and ``kv_block_update``
              never); then one request of a 600-token prompt, over the
-             largest prefill bucket: served by the static ``generate()``
-             path, equal to ``generate()`` on the same weights;
+             largest prefill bucket: served through chunked prefill (3
+             chunks of 256), held to ``generate()`` on the same weights
+             (equal, or differing first where generate()'s own top-2 logit
+             gap is under 0.05: a bf16 near-tie, printed);
 4. contig  — the same requests with the contiguous cache through
              ``kv_row_update_pair`` (once per layer and step, and
-             ``kv_row_update`` never): tokens identical to phase 3's;
+             ``kv_row_update`` never): tokens identical to phase 3's; its
+             600-token prompt, with ``prefill_chunk=0``, takes the static
+             ``generate()`` path and must equal ``generate()`` exactly;
 5. int8    — the same requests with the int8 arena through
              ``kv_block_update_quant_pair`` (once per layer and step, and
              ``kv_block_update_quant`` never): tokens identical to the int8
              plain run; agreement with the bf16 tokens is printed;
+5a. serve_chunked — in each layout (paged bf16, contiguous, int8), kernels
+             on, the default chunk 256: ``prewarm(16)``, then the 8 prompts
+             and a 1,500-token one (6 chunks) at once, 32 new tokens each:
+             the pair kernel 12 launches a decode step and the one-array
+             wrapper none, 6 prefill chunks, the 8 outputs equal to that
+             layout's phase 3-5 run, the KV blocks back to 0, the long
+             prompt held to ``generate()`` as in phase 3; the short
+             requests' TTFT p50 with and without the long prompt in flight
+             and the long prompt's own; a second long prompt cancelled by
+             ``cancel_requests(1)`` after its first chunk fails with
+             RequestCancelled and frees its slot and blocks;
+5b. obs    — on the paged server of 5a: ``/metrics`` (OpenMetrics content
+             type, ``# EOF``, the TTFT buckets, the chunk counter), the long
+             request's ``serving.request`` span with its 6 ``prefill_chunk``
+             events from ``/debug/traces``, ``/debug/vars``,
+             ``/debug/stacks`` (the ``continuous-batcher`` thread);
+5c. bert_serve — BERT-base (seeded weights, L 128) behind ``ModelServer``:
+             16 concurrent single-instance requests unbatched, then batched
+             (``batching=True``), plus one over HTTP: each batched answer
+             within 0.1 of its unbatched one (>= 99% argmax agreement), a
+             mean batch above one row, ``flash_fwd`` 12 launches a forward
+             (``auto_attention``, non-causal); requests/s and latency p50 /
+             p99 both ways; then ``auto_attention`` against
+             ``full_attention`` at L 128 and 100, bf16 and f32: 12
+             ``flash_fwd`` launches a forward, within 0.1, every argmax
+             flip a near-tie under 0.05; f32 with >= 99% argmax agreement;
+             bf16 with each layer's attention off ``full_attention``'s in
+             <= 2% of elements on the same inputs, and as close to the f32
+             model's argmax as the bf16 ``full_attention`` model, less
+             1%. Phases 5a-5c run after phase 19, before kv_probe: they
+             start threads and servers, and read no profiler window;
 6. ref     — a tiny f32 model's prefill logits and greedy tokens on the
              card against the same model on the CPU;
 7. profile — GPT-small's decode step alone, paged and contiguous: host ms
@@ -57,7 +92,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              lq != lk, q_offset = lk, k_offset = 10 lk (every row masked:
              zeros, lse -1e30, dq 0), the same edges in bf16 (d 32 and 128,
              ragged 100/130 at d 128; atol 2e-2, lse 1e-3: the tensor-core
-             kernels) and bf16_dots; the split: at d 32, 64 and 128, out,
+             kernels), BERT-base's served attention (bf16, non-causal, h 12,
+             d 64, b 16 at L 128 and b 8 at L 100) and bf16_dots; the split: at d 32, 64 and 128, out,
              dq, dk and dv differ from the f32 answer rounded to bf16 in at
              most 2% of elements (p and ds as hi + lo), and in more under
              bf16_dots (hi alone); each kernel run twice and compared bit
@@ -133,9 +169,11 @@ raises on a card it does not list); ``mfu`` in phases 10 and 14 is the
 counted FLOPs of a step over its median time.
 
 The launch counts reported per kernel come from its main-path phase (the
-serving phases for the KV writes, ``train`` for flash attention,
+serving phases 3-5 for the KV writes, ``train`` for flash attention,
 ``resnet_train`` for the fused blocks, ``probe`` for the streaming
-copies): they are reset just before the run and read just after. The fused-block kernels' entries in the kernels line
+copies): they are reset just before the run and read just after. Phases
+5a and 5c reset and read them around their own runs too, and print them
+on their own lines. The fused-block kernels' entries in the kernels line
 sum their per-call times over the blocks of one training step (2, 3, 5
 and 2 identity blocks; one of each stage head); their ``max_abs_err`` is
 the largest over the shapes. Every device time read from torch.profiler
@@ -148,6 +186,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -167,6 +206,13 @@ MAX_NEW = 32
 PROMPT_LENS = (16, 23, 40, 64, 97, 128, 200, 256)
 #: the over-bucket request's prompt: above the largest prefill bucket (256)
 LONG_PROMPT = 600
+#: serve_chunked's long prompt: 6 chunks of 256, and 1500 + 32 <= 2048
+CHUNKED_PROMPT = 1500
+#: each serving layout's KV write: the pair kernel of its decode steps, and
+#: the one-array wrapper that must not launch
+SERVE_PAIRS = {"paged": ("kv_block_update_pair", "kv_block_update"),
+               "contiguous": ("kv_row_update_pair", "kv_row_update"),
+               "int8": ("kv_block_update_quant_pair", "kv_block_update_quant")}
 
 
 def smi() -> str:
@@ -573,14 +619,107 @@ def post(port: int, prompt) -> list:
     return body["predictions"][0]
 
 
+def post_all(port: int, prompts, label: str) -> list:
+    """Every prompt posted at once, one thread each; the predictions."""
+    out = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            out[i] = post(port, prompts[i])
+        except Exception as e:  # surfaced below, after every thread joined
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(o is None for o in out):
+        raise RuntimeError(f"{label}: requests failed: {errors}")
+    return out
+
+
+def generated(label: str, prompts, out, vocab: int) -> list:
+    """The generated tokens of each prediction, after checking its shape,
+    its echo of the prompt and its vocabulary."""
+    gen = []
+    for p, o in zip(prompts, out):
+        if o[:len(p)] != list(map(int, p)) or len(o) != len(p) + MAX_NEW:
+            raise AssertionError(f"{label}: malformed prediction")
+        toks = o[len(p):]
+        if not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{label}: token outside the vocabulary")
+        gen.append(toks)
+    return gen
+
+
+def ttft_ms() -> list:
+    """(prompt tokens, ms from submit to first token) of every finished
+    ``serving.request`` span that reached its first token."""
+    from kubeflow_tpu_torch.runtime.tracing import TRACER
+
+    out = []
+    for span in TRACER.finished_spans("serving.request"):
+        ev = {e["name"]: e["timeUnixNano"] for e in span.events}
+        if "first_token" in ev:
+            out.append((span.attributes["prompt_tokens"],
+                        (ev["first_token"] - span.start_ns) / 1e6))
+    return out
+
+
+#: the largest top-2 logit gap of generate() at which a bf16 route may pick
+#: the other token (a near-tie), in logits
+NEAR_TIE = 0.05
+#: how much less often bf16 BERT with the flash kernel may agree with the f32
+#: model's argmax than bf16 BERT with full_attention does (10 of 1024 positions)
+BF16_ARGMAX_SLACK = 0.01
+
+
+def hold_to_generate(label: str, cfg, params, prompt, toks, card: str,
+                     exact: bool = False) -> dict:
+    """``toks`` (a served request's generated tokens) against the port's
+    ``generate()`` on the same weights. Equal passes; with ``exact`` (the
+    static route, which is ``generate()`` itself) nothing else does. Where a
+    chunked prefill's tokens differ (bf16 sums in another order than
+    generate()'s one prefill), the first differing step is found and
+    generate()'s own logits there are read, step by step as it ran: the
+    request passes only if their top-2 gap is under ``NEAR_TIE``."""
+    from kubeflow_tpu_torch.models.gpt import GptLM, _fresh_cache, generate
+
+    want = generate(cfg, params, prompt[None], MAX_NEW, device="cuda")[0, len(prompt):].tolist()
+    if toks == want:
+        return {"equal_to_generate": True}
+    if exact:
+        raise AssertionError(f"{label}: the static route's tokens differ from generate()")
+    step = next(i for i, (a, b) in enumerate(zip(toks, want)) if a != b)
+    with torch.no_grad():
+        model = GptLM.bind(cfg, params, decode=True)
+        cache = _fresh_cache(cfg, 1, "cuda")
+        logits = model(torch.as_tensor(prompt[None]).cuda(), cache)[0, -1]
+        for t in want[:step]:
+            logits = model(torch.tensor([[t]], dtype=torch.int32, device="cuda"), cache)[0, -1]
+        top2 = torch.topk(logits.float(), 2).values
+    gap = float(top2[0] - top2[1])
+    emit(phase=label, card=card, differs_from_generate_at_step=step, generate_top2_gap=gap,
+         near_tie_limit=NEAR_TIE)
+    if gap >= NEAR_TIE:
+        raise AssertionError(f"{label}: tokens differ from generate() at step {step}, where "
+                             f"its top-2 logit gap is {gap} (not a near-tie)")
+    return {"equal_to_generate": False, "first_differing_step": step, "generate_top2_gap": gap}
+
+
 def serve(prompts, card: str, label: str, long_prompt=None, **kw):
     """GPT-small behind ModelServer; one warm-up request, then every count
     reset and the 8 prompts sent concurrently. Then, after the counts are
     read, ``long_prompt`` (over the largest prefill bucket) alone: it must
-    be served, equal to the port's ``generate()`` on the same weights.
-    Returns (generated tokens per prompt, launch counts of the run, decode
-    steps of the run)."""
-    from kubeflow_tpu_torch.models.gpt import GptConfig, generate
+    be served and held to the port's ``generate()`` on the same weights
+    (``hold_to_generate``): by chunked prefill with the default chunk, by
+    the static ``generate()`` path with ``prefill_chunk=0``, which must
+    equal it exactly. Returns
+    (generated tokens per prompt, launch counts of the run, decode steps of
+    the run)."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig
     from kubeflow_tpu_torch.ops import kv_cache as kc
     from kubeflow_tpu_torch.runtime.metrics import METRICS
     from kubeflow_tpu_torch.runtime.tracing import TRACER
@@ -597,39 +736,13 @@ def serve(prompts, card: str, label: str, long_prompt=None, **kw):
         kc.reset_launches()
         METRICS.reset()
         TRACER.reset()
-        out = [None] * len(prompts)
-        errors = []
-
-        def one(i):
-            try:
-                out[i] = post(httpd.port, prompts[i])
-            except Exception as e:  # surfaced below, after every thread joined
-                errors.append(e)
-
-        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
         t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
+        out = post_all(httpd.port, prompts, label)
         wall = time.perf_counter() - t0
         counts = dict(kc.LAUNCHES)
         steps = int(METRICS.value("serving_decode_steps_total"))
-        if errors or any(o is None for o in out):
-            raise RuntimeError(f"{label}: requests failed: {errors}")
-        gen = []
-        for p, o in zip(prompts, out):
-            if o[:len(p)] != list(map(int, p)) or len(o) != len(p) + MAX_NEW:
-                raise AssertionError(f"{label}: malformed prediction")
-            toks = o[len(p):]
-            if not all(0 <= t < vocab for t in toks):
-                raise AssertionError(f"{label}: token outside the vocabulary")
-            gen.append(toks)
-        ttft = []
-        for span in TRACER.finished_spans("serving.request"):
-            ev = {e["name"]: e["timeUnixNano"] for e in span.events}
-            if "first_token" in ev:
-                ttft.append((ev["first_token"] - span.start_ns) / 1e6)
+        gen = generated(label, prompts, out, vocab)
+        ttft = [ms for _, ms in ttft_ms()]
         chunk = METRICS.histogram("serving_decode_chunk_seconds")
         emit(phase=label, card=card, requests=len(prompts),
              generated_tokens=sum(len(t) for t in gen), wall_s=wall,
@@ -639,25 +752,403 @@ def serve(prompts, card: str, label: str, long_prompt=None, **kw):
              decode_chunks=chunk.total, decode_steps=steps, launches=counts,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         if long_prompt is not None:
+            chunks = METRICS.value("serving_prefill_chunks_total")
             t0 = time.perf_counter()
             o = post(httpd.port, long_prompt)
             long_s = time.perf_counter() - t0
-            want = generate(model.cfg, model.params, long_prompt[None], MAX_NEW,
-                            device="cuda")[0].tolist()
-            if len(o) != len(long_prompt) + MAX_NEW or o[:len(long_prompt)] != \
-                    list(map(int, long_prompt)):
-                raise AssertionError(f"{label}: malformed over-bucket prediction")
-            if not all(0 <= t < vocab for t in o):
-                raise AssertionError(f"{label}: over-bucket token outside the vocabulary")
-            if o != want:
-                raise AssertionError(f"{label}: over-bucket tokens differ from generate()")
+            chunks = int(METRICS.value("serving_prefill_chunks_total") - chunks)
+            c = model.engine().prefill_chunk
+            want_chunks = -(-len(long_prompt) // c) if c else 0
+            if chunks != want_chunks:
+                raise AssertionError(f"{label}: the over-bucket prompt ran {chunks} prefill "
+                                     f"chunks, expected {want_chunks}")
+            route = "chunked prefill" if chunks else "static generate()"
+            toks = generated(label, [long_prompt], [o], vocab)[0]
+            held = hold_to_generate(label, model.cfg, model.params, long_prompt, toks, card,
+                                    exact=not chunks)
             emit(phase=label, card=card, over_bucket_prompt=len(long_prompt),
-                 tokens=len(o), equal_to_generate=True, wall_s=long_s)
+                 route=route, tokens=len(o), wall_s=long_s, **held)
         return gen, counts, steps
     finally:
         httpd.close()
         server.close()
         del model, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# -- phases 5a-5b: chunked prefill, the observability routes ---------------------------
+
+class PrefillGate:
+    """Parks the engine's worker after its next prefill call until
+    ``release`` is set, so the caller acts between two chunks of a long
+    prompt. Installed on ``engine._prefill_model``; ``remove`` restores it."""
+
+    def __init__(self, engine):
+        self.engine, self.real = engine, engine._prefill_model
+        self.reached, self.release = threading.Event(), threading.Event()
+        engine._prefill_model = self
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def __call__(self, *args, **kw):
+        out = self.real(*args, **kw)
+        self.reached.set()
+        if not self.release.wait(timeout=300):
+            raise RuntimeError("prefill gate never released")
+        return out
+
+    def remove(self):
+        self.engine._prefill_model = self.real
+        self.release.set()
+
+
+def get_json(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def obs_phase(card: str, port: int, long_len: int, chunks: int) -> None:
+    """The observability routes of the serving port, read after the chunked
+    run: the OpenMetrics scrape, the long request's span and its
+    ``prefill_chunk`` events, ``/debug/vars`` and ``/debug/stacks``; the SLO
+    quantiles through ``METRICS.quantile``."""
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=120) as resp:
+        ctype = resp.headers["Content-Type"]
+        text = resp.read().decode()
+    if not ctype.startswith("application/openmetrics-text; version=1.0.0"):
+        raise AssertionError(f"obs: /metrics answered {ctype!r}")
+    if not text.endswith("# EOF\n"):
+        raise AssertionError("obs: the scrape does not end in # EOF")
+    for name in ("serving_ttft_seconds_bucket", "serving_prefill_chunks_total",
+                 "process_resident_memory_bytes"):
+        if name not in text:
+            raise AssertionError(f"obs: {name} is not in the scrape")
+    doc = get_json(port, "/debug/traces?name=serving.request&limit=4096")
+    spans = doc["resourceSpans"][0]["scopeSpans"][0]["spans"]
+    long = [sp for sp in spans if sp["attributes"]["prompt_tokens"] == long_len]
+    if len(long) != 1:
+        raise AssertionError(f"obs: {len(long)} serving.request spans of {long_len} tokens")
+    events = [e["name"] for e in long[0].get("events", [])]
+    if events.count("prefill_chunk") != chunks or "chunked_prefill_start" not in events:
+        raise AssertionError(f"obs: the long request's events {events}")
+    vars_ = get_json(port, "/debug/vars")
+    stacks = get_json(port, "/debug/stacks?history=0")
+    names = {t["threadName"] for t in stacks["live"]["threads"]}
+    if "continuous-batcher" not in names or vars_["pid"] != os.getpid():
+        raise AssertionError(f"obs: /debug/stacks threads {sorted(names)}")
+    emit(phase="obs", card=card, content_type=ctype, scrape_bytes=len(text),
+         request_spans=len(spans), long_request_events=events,
+         ttft_s_p50=METRICS.quantile("serving_ttft_seconds", 0.5),
+         ttft_s_p99=METRICS.quantile("serving_ttft_seconds", 0.99),
+         metric_families=vars_["metric_families"], threads=vars_["threads"],
+         rss_gib=vars_["resident_memory_bytes"] / 2**30, debug_sources=vars_["debug_sources"])
+
+
+def serve_chunked(card: str, layout: str, prompts, short_want, **kw) -> None:
+    """GPT-small behind ModelServer in one KV layout, kernels on, the default
+    chunk (256): ``prewarm(16)``, then the 8 prompts and one of
+    ``CHUNKED_PROMPT`` tokens (6 chunks) posted at once, 32 new tokens each,
+    with every count reset just before and read just after. The pair kernel
+    launches 12 times a decode step and the one-array wrapper never; 6
+    prefill chunks ran; the 8 outputs equal ``short_want`` (the layout's
+    serving run); the KV blocks return; the long prompt is held to
+    ``generate()``. Then (paged bf16) the observability routes, the 8
+    prompts alone (their TTFT without the long prompt), and a second long
+    prompt cancelled by ``cancel_requests(1)`` after its first chunk, which
+    fails with RequestCancelled and frees its slot and blocks."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig
+    from kubeflow_tpu_torch.ops import kv_cache as kc
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.runtime.tracing import TRACER
+    from kubeflow_tpu_torch.serving.errors import RequestCancelled
+    from kubeflow_tpu_torch.serving.server import ModelServer, gpt_served_model
+
+    label = f"serve_chunked_{layout}"
+    pair, single = SERVE_PAIRS[layout]
+    cfg = GptConfig.small()
+    rng = np.random.default_rng(7)
+    long_p, long2 = (rng.integers(0, cfg.vocab_size, CHUNKED_PROMPT).astype(np.int32)
+                     for _ in range(2))
+    model = gpt_served_model(name="gpt", tiny=False, max_new_tokens=MAX_NEW,
+                             device="cuda", seed=0, **kw)
+    server = ModelServer().add(model)
+    httpd = server.serve(0)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        eng = model.engine()
+        t0 = time.perf_counter()
+        eng.prewarm(16)
+        torch.cuda.synchronize()
+        prewarm_s = time.perf_counter() - t0
+        kc.reset_launches()
+        METRICS.reset()
+        TRACER.reset()
+        t0 = time.perf_counter()
+        out = post_all(httpd.port, list(prompts) + [long_p], label)
+        wall = time.perf_counter() - t0
+        counts = dict(kc.LAUNCHES)
+        steps = int(METRICS.value("serving_decode_steps_total"))
+        chunks = int(METRICS.value("serving_prefill_chunks_total"))
+        gen = generated(label, list(prompts) + [long_p], out, cfg.vocab_size)
+        ttft = ttft_ms()
+        want_chunks = -(-CHUNKED_PROMPT // eng.prefill_chunk)
+        if steps == 0 or counts[pair] != cfg.n_layers * steps or counts[single]:
+            raise AssertionError(f"{label}: {counts} over {steps} decode steps; expected "
+                                 f"{cfg.n_layers} {pair} a step and no {single}")
+        if chunks != want_chunks:
+            raise AssertionError(f"{label}: {chunks} prefill chunks, expected {want_chunks}")
+        if gen[:-1] != short_want:
+            raise AssertionError(f"{label}: the 8 short outputs differ from the serving run's")
+        if eng.paged and (eng._alloc.used() or METRICS.value(
+                "serving_kv_blocks_used", replica=eng.engine_id)):
+            raise AssertionError(f"{label}: KV blocks still used after the run")
+        held = hold_to_generate(label, cfg, model.params, long_p, gen[-1], card)
+        short_ttft = [ms for n, ms in ttft if n != CHUNKED_PROMPT]
+        long_ttft = [ms for n, ms in ttft if n == CHUNKED_PROMPT]
+        if layout == "paged":
+            obs_phase(card, httpd.port, CHUNKED_PROMPT, chunks)
+        # the same 8 prompts without the long one: their TTFT alone
+        TRACER.reset()
+        alone = generated(label, prompts, post_all(httpd.port, prompts, label), cfg.vocab_size)
+        if alone != short_want:
+            raise AssertionError(f"{label}: the 8 outputs alone differ from the serving run's")
+        alone_ttft = [ms for _, ms in ttft_ms()]
+        # a second long prompt, cancelled between its first and second chunk
+        gate = PrefillGate(eng)
+        try:
+            fut = eng.submit(long2, MAX_NEW)
+            if not gate.reached.wait(timeout=300):
+                raise AssertionError(f"{label}: the second long prompt never prefilled")
+            marked = eng.cancel_requests(1)
+        finally:
+            gate.remove()
+        try:
+            fut.result(timeout=300)
+            raise AssertionError(f"{label}: the cancelled long prompt completed")
+        except RequestCancelled:
+            pass
+        if marked != 1 or fut.finish_reason != "cancelled" or len(eng._free) != eng.slots:
+            raise AssertionError(f"{label}: cancel marked {marked}, finish "
+                                 f"{fut.finish_reason!r}, {len(eng._free)} slots free")
+        if eng.paged and eng._alloc.available() != eng._alloc.n_blocks:
+            raise AssertionError(f"{label}: the cancelled prompt's blocks were not freed")
+        emit(phase=label, card=card, prewarm_s=prewarm_s, requests=len(out), wall_s=wall,
+             prompt_tokens=CHUNKED_PROMPT, prefill_chunks=chunks, decode_steps=steps,
+             launches=counts, short_ttft_ms_p50_with_long=float(np.median(short_ttft)),
+             short_ttft_ms_p50_alone=float(np.median(alone_ttft)),
+             long_ttft_ms=long_ttft[0], **held,
+             cancelled_after_first_chunk=True, peak_mem_gib=torch.cuda.max_memory_allocated()
+             / 2**30)
+    finally:
+        httpd.close()
+        server.close()
+        del model, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_chunked_phase(card: str, prompts, short_tokens: dict) -> None:
+    """Chunked prefill in the three layouts (``serve_chunked``); the
+    observability routes are read on the paged bf16 server."""
+    for layout, kw in (("paged", {}), ("contiguous", dict(paged=False)),
+                       ("int8", dict(kv_dtype="int8"))):
+        serve_chunked(card, layout, prompts, short_tokens[layout], **kw)
+
+
+# -- phase 5c: BERT-base behind the DynamicBatcher ---------------------------------------
+
+BERT_SEQ = 128  # the JAX serving bench's SEQ
+BERT_REQUESTS = 16
+
+
+def bert_attention_phase(card: str, cfg, params, rows) -> None:
+    """BERT-base (the served weights, 8 rows) with ``auto_attention``
+    against the same model with ``full_attention``, in bf16 and in f32, at
+    L 128 and at a ragged L 100. Each forward launches ``flash_fwd`` once a
+    layer, the logits stay within 0.1, and every argmax flip is a near-tie
+    of ``full_attention``'s logits (``NEAR_TIE``); in f32 the argmax agrees
+    on >= 99% of positions. In bf16 it need not (PERF.md §6, PR 13): each
+    layer's attention is run on the ``full_attention`` model's own q, k, v,
+    and the kernel's output may differ from ``full_attention``'s in at most
+    ``SPLIT_LIMIT`` of its elements (in f32, by at most 1e-4); and the bf16
+    model's argmax must agree with the f32 model's at least as often as the
+    bf16 ``full_attention`` model's does, less ``BF16_ARGMAX_SLACK``. The
+    model whose attention is the kernel's plain version (the same f32
+    function, summed in another order) is printed as a control."""
+    from kubeflow_tpu_torch.models.bert import BertForMaskedLM
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel.ring_attention import full_attention
+
+    def plain_attention(q, k, v, **kw):
+        return fa.flash_attention_plain(q, k, v, **kw)
+
+    def agreement(x, y):
+        return float((x.argmax(-1) == y.argmax(-1)).float().mean())
+
+    ids = torch.as_tensor(rows, device="cuda")
+    logits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        seen = []
+
+        def recording(q, k, v, **kw):
+            seen.append((q, k, v, kw))
+            return full_attention(q, k, v, **kw)
+
+        flash = BertForMaskedLM.bind(c, params, attention_fn=fa.auto_attention)
+        full = BertForMaskedLM.bind(c, params, attention_fn=recording)
+        plain = BertForMaskedLM.bind(c, params, attention_fn=plain_attention)
+        bf16 = dtype == torch.bfloat16
+        for L in (BERT_SEQ, 100):
+            with torch.no_grad():
+                fa.reset_launches()
+                a = flash(ids[:, :L])
+                n = fa.LAUNCHES["flash_fwd"]
+                seen.clear()
+                b = full(ids[:, :L])
+                p = plain(ids[:, :L])
+                # each layer's attention on the full_attention model's inputs
+                share, layer_err = [], 0.0
+                for q, k, v, kw in seen:
+                    ref = full_attention(q, k, v, **kw)
+                    got = fa.flash_attention(q, k, v, **kw)
+                    share.append(float((got != ref).float().mean()))
+                    layer_err = max(layer_err, max_abs_err(got, ref))
+            key = f"{'bf16' if bf16 else 'f32'}_l{L}"
+            logits[key] = (a, b)
+            top2 = torch.topk(b, 2, dim=-1).values
+            flips = a.argmax(-1) != b.argmax(-1)
+            gaps = (top2[..., 0] - top2[..., 1])[flips]
+            err, agree = max_abs_err(a, b), agreement(a, b)
+            against_f32 = {}
+            if bf16:
+                truth = logits[f"f32_l{L}"][1]
+                against_f32 = dict(flash_argmax_agreement_with_f32=agreement(a, truth),
+                                   full_argmax_agreement_with_f32=agreement(b, truth))
+            emit(phase="bert_attention", card=card, case=key, flash_fwd_launches=n,
+                 max_abs_err=err, argmax_agreement=agree, argmax_flips=int(flips.sum()),
+                 largest_top2_gap_at_a_flip=float(gaps.max()) if len(gaps) else None,
+                 median_top2_gap=float((top2[..., 0] - top2[..., 1]).median()),
+                 plain_attention_argmax_agreement=agreement(p, b),
+                 plain_attention_max_abs_err=max_abs_err(p, b), layer_share_off=share,
+                 layer_max_abs_err=layer_err, near_tie_limit=NEAR_TIE,
+                 split_limit=SPLIT_LIMIT, **against_f32)
+            if n != cfg.num_layers or len(share) != cfg.num_layers or not err <= 0.1:
+                raise AssertionError(f"bert_attention {key}: {n} flash_fwd launches over "
+                                     f"{len(share)} layers, max err {err}")
+            if len(gaps) and float(gaps.max()) >= NEAR_TIE:
+                raise AssertionError(f"bert_attention {key}: an argmax flip at a top-2 gap "
+                                     f"of {float(gaps.max())} (not a near-tie)")
+            if not bf16 and (agree < 0.99 or layer_err > 1e-4):
+                raise AssertionError(f"bert_attention {key}: argmax agreement {agree}, "
+                                     f"per-layer max err {layer_err}")
+            if bf16 and (max(share) > SPLIT_LIMIT or against_f32[
+                    "flash_argmax_agreement_with_f32"] < against_f32[
+                    "full_argmax_agreement_with_f32"] - BF16_ARGMAX_SLACK):
+                raise AssertionError(f"bert_attention {key}: per-layer share off "
+                                     f"full_attention {share}; against f32 {against_f32}")
+
+
+def bert_phase(card: str) -> None:
+    """BERT-base (seeded weights, bf16, ``auto_attention``) behind
+    ``ModelServer``: 16 concurrent single-instance requests through
+    ``ModelServer._predict``, unbatched and then batched
+    (``batching=True``; every count reset just before and read just after),
+    plus one over HTTP. Each batched answer is within 0.1 of its unbatched
+    one with >= 99% argmax agreement; the mean batch is above one row;
+    ``flash_fwd`` launched 12 times a forward. Then the model itself
+    (``bert_attention_phase``)."""
+    from kubeflow_tpu_torch.models.bert import BertConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.serving.server import ModelServer, bert_served_model
+
+    cfg = BertConfig.base()
+    model = bert_served_model(name="bert", tiny=False, device="cuda", seed=0)
+    rows = np.random.default_rng(2).integers(0, cfg.vocab_size, (BERT_REQUESTS, BERT_SEQ)) \
+        .astype(np.int32).tolist()
+
+    def drive(server, label):
+        out, lat, errors = [None] * len(rows), [None] * len(rows), []
+
+        def one(i):
+            try:
+                t = time.perf_counter()
+                pred = server._predict(model, [rows[i]])
+                lat[i] = time.perf_counter() - t
+                out[i] = np.asarray(pred[0], np.float32)
+            except Exception as e:  # surfaced below, after every thread joined
+                errors.append(e)
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(rows))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors or any(o is None for o in out):
+            raise RuntimeError(f"bert_serve {label}: requests failed: {errors}")
+        return out, {"requests_per_s": len(rows) / wall, "wall_s": wall,
+                     "latency_ms_p50": float(np.percentile(lat, 50)) * 1e3,
+                     "latency_ms_p99": float(np.percentile(lat, 99)) * 1e3}
+
+    def close_to(a, b):
+        return max_abs_err(torch.as_tensor(a), torch.as_tensor(b)), \
+            float((a.argmax(-1) == b.argmax(-1)).mean())
+
+    unbatched = ModelServer().add(model)
+    batched = ModelServer(batching=True).add(model)
+    httpd = batched.serve(0)
+    try:
+        model.predict(rows[:1])  # warm-up: cuBLAS handles, allocator
+        ref, plain = drive(unbatched, "unbatched")
+        batched._predict(model, rows[:1])
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        METRICS.reset()
+        got, timing = drive(batched, "batched")
+        launches = fa.LAUNCHES["flash_fwd"]
+        forwards = int(METRICS.value("serving_batches_total", model="bert"))
+        hist = METRICS.histogram("serving_batch_rows", model="bert")
+        mean_rows = hist.sum / hist.total if hist.total else 0.0
+        if forwards == 0 or launches != cfg.num_layers * forwards:
+            raise AssertionError(f"bert_serve: {launches} flash_fwd launches over {forwards} "
+                                 f"batched forwards; expected {cfg.num_layers} a forward")
+        if mean_rows <= 1.0:
+            raise AssertionError(f"bert_serve: mean batch of {mean_rows} rows")
+        errs = [close_to(g, r) for g, r in zip(got, ref)]
+        err, agree = max(e for e, _ in errs), min(a for _, a in errs)
+        if not (err <= 0.1 and agree >= 0.99):
+            raise AssertionError(f"bert_serve: batched vs unbatched max err {err}, "
+                                 f"argmax agreement {agree}")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.port}/v1/models/bert:predict",
+            data=json.dumps({"instances": rows[:1]}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            http_pred = np.asarray(json.loads(resp.read())["predictions"][0], np.float32)
+        http_s = time.perf_counter() - t0
+        http_err, http_agree = close_to(http_pred, ref[0])
+        if http_pred.shape != (BERT_SEQ, cfg.vocab_size) or not (
+                http_err <= 0.1 and http_agree >= 0.99):
+            raise AssertionError(f"bert_serve: HTTP answer {http_pred.shape}, err {http_err}")
+        emit(phase="bert_serve", card=card, seq=BERT_SEQ, requests=len(rows),
+             batched=timing, unbatched=plain, batched_forwards=forwards,
+             mean_batch_rows=mean_rows, flash_fwd_launches=launches, max_abs_err=err,
+             argmax_agreement=agree, http_s=http_s, http_max_abs_err=http_err)
+
+        bert_attention_phase(card, cfg, model.params, rows[:8])
+    finally:
+        httpd.close()
+        batched.close()
+        unbatched.close()
+        del model
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -934,6 +1425,10 @@ def flash_phase(card: str):
     flash_case(fa, "bf16_ragged_d128", 1, 3, 100, 130, 128, **bf)
     flash_case(fa, "bf16_q_offset_lk", 2, 2, 256, 256, 64, q_offset=256, **bf)
     flash_case(fa, "bf16_k_offset_10lk", 2, 2, 256, 256, 64, k_offset=2560, **bf)
+    # BERT-base's served attention: non-causal, 12 heads of 64, a batch of
+    # 16 rows at L 128 and 8 rows at a ragged L 100
+    flash_case(fa, "bert_bf16", 16, 12, 128, 128, 64, causal=False, **bf)
+    flash_case(fa, "bert_bf16_l100", 8, 12, 100, 100, 64, causal=False, **bf)
     flash_case(fa, "bf16_dots", 2, 2, 256, 256, 64, torch.float32, 2e-2, 1e-3, bf16_dots=True)
     flash_case(fa, "bf16_dots_bf16", 2, 4, 512, 512, 64, torch.bfloat16, 2e-2, 1e-3,
                bf16_dots=True)
@@ -1667,7 +2162,7 @@ def main() -> int:
 
     try:
         kernels = timed("kernels", kernel_phase)
-        launches = timed("serve+contig+int8", serve_phases)
+        launches, prompts, short_tokens = timed("serve+contig+int8", serve_phases)
         timed("ref", ref_phase)
         timed("profile", profile_phase)
         kernels.update(timed("flash", flash_phase))
@@ -1682,6 +2177,10 @@ def main() -> int:
         launches.update(timed("probe", probe_phase))
         timed("ceiling", ceiling_phase)
         timed("step_profiles", step_profiles_phase)
+        # after every phase that reads the profiler: these start threads and
+        # servers, and read no profiler window
+        timed("serve_chunked+obs", lambda c: serve_chunked_phase(c, prompts, short_tokens))
+        timed("bert_serve", bert_phase)
         # last: its ~10^6 launches (the decode chunks of in_model) come after
         # every profiler window
         timed("kv_probe", kv_probe_phase)
@@ -1701,11 +2200,14 @@ def main() -> int:
     return 0
 
 
-def serve_phases(card: str) -> dict:
+def serve_phases(card: str):
     """Phases 3-5: GPT-small served in three KV layouts, each held against
     its plain writes. Each run's pair kernel launches once per layer and
-    decode step, and its one-array wrapper never. Returns each KV kernel's
-    launches in its layout's run."""
+    decode step, and its one-array wrapper never. The 600-token prompt goes
+    through chunked prefill in the paged run and through the static
+    ``generate()`` path (``prefill_chunk=0``) in the contiguous one. Returns
+    each KV kernel's launches in its layout's run, the 8 prompts and each
+    layout's kernel-path tokens."""
     from kubeflow_tpu_torch.models.gpt import GptConfig
 
     n_layers = GptConfig.small().n_layers
@@ -1728,7 +2230,8 @@ def serve_phases(card: str) -> dict:
     if bf16_k != bf16_p:
         raise AssertionError("paged bf16: kernel-path tokens differ from plain-path tokens")
 
-    contig, c, steps = serve(prompts, card, "serve_contiguous_kernel", paged=False)
+    contig, c, steps = serve(prompts, card, "serve_contiguous_kernel", long_prompt=long_prompt,
+                             paged=False, prefill_chunk=0)
     expect("serve_contiguous_kernel", c, "kv_row_update_pair", steps, "kv_row_update",
            "kv_block_update_pair")
     launches["kv_row_update_pair"] = c["kv_row_update_pair"]
@@ -1744,7 +2247,7 @@ def serve_phases(card: str) -> dict:
         raise AssertionError("int8: kernel-path tokens differ from plain-path tokens")
     agree = np.mean([a == b for x, y in zip(int8_k, bf16_k) for a, b in zip(x, y)])
     emit(phase="int8_vs_bf16", card=card, token_agreement=float(agree))
-    return launches
+    return launches, prompts, {"paged": bf16_k, "contiguous": contig, "int8": int8_k}
 
 
 if __name__ == "__main__":

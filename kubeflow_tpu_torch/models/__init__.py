@@ -1,2 +1,2 @@
-"""Models of the port: the GPT decoder (serving path) and the flax → torch
-weight converter."""
+"""Models of the port: the GPT decoder, ResNet, the BERT encoder (serving
+path) and the flax → torch weight converters."""

@@ -22,6 +22,14 @@ carries ``jax.grad``'s output into the port's names and layouts.
 ``resnet_params_from_flax`` does the same for a flax ResNet's variables
 (parameters and BatchNorm statistics) and a port ``ResNet``.
 
+``bert_params_from_flax`` carries a flax ``BertForMaskedLM`` tree into the
+port's ``models/bert.py``: the same names with ``/`` as ``.``; Embed
+``embedding`` -> ``weight``; Dense ``kernel [in, out]`` -> ``weight [out,
+in]``; the attention's DenseGeneral kernels ``query/key/value [hidden,
+heads, head_dim]`` and ``out_proj [heads, head_dim, hidden]`` flattened to
+``[hidden, hidden]`` and transposed, their ``[heads, head_dim]`` biases
+flattened.
+
 Any flax leaf left unused, or any port parameter left unfilled, raises.
 """
 
@@ -32,6 +40,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from .bert import BertConfig, BertForMaskedLM
 from .gpt import GptConfig, GptLM, Params
 
 
@@ -74,14 +83,16 @@ def _target(path: str, leaf: np.ndarray, cfg: GptConfig) -> Tuple[str, np.ndarra
     raise ValueError(f"flax leaf {path!r} {leaf.shape} has no counterpart in the port")
 
 
-def params_from_flax(tree: Dict[str, Any], cfg: GptConfig) -> Params:
-    expected = {k: v.shape for k, v in GptLM(cfg, device="meta").state_dict().items()}
+def _fill(model: torch.nn.Module, cfg: Any,
+          targets: Iterator[Tuple[str, str, np.ndarray]]) -> Params:
+    """``model``'s state dict (f32 CPU tensors) from (flax path, port name,
+    value) triples; a name ``model`` lacks, a shape that does not fit, a
+    name filled twice or one left unfilled raises."""
+    expected = {k: v.shape for k, v in model.state_dict().items()}
     out: Params = {}
-    for path, leaf in _unstacked(tree):
-        name, value = _target(path, leaf, cfg)
+    for path, name, value in targets:
         if name in out:
-            raise ValueError(f"flax leaf {path!r} fills {name!r} twice (both "
-                             "block_i/ and blocks/ layouts given?)")
+            raise ValueError(f"flax leaf {path!r} fills {name!r} twice")
         if name not in expected:
             raise ValueError(f"flax leaf {path!r} maps to {name!r}, which "
                              f"{cfg} does not have")
@@ -93,6 +104,11 @@ def params_from_flax(tree: Dict[str, Any], cfg: GptConfig) -> Params:
     if missing:
         raise ValueError(f"flax tree is missing parameters for {missing}")
     return out
+
+
+def params_from_flax(tree: Dict[str, Any], cfg: GptConfig) -> Params:
+    return _fill(GptLM(cfg, device="meta"), cfg,
+                 ((path, *_target(path, leaf, cfg)) for path, leaf in _unstacked(tree)))
 
 
 def resnet_params_from_flax(variables: Dict[str, Any], model: torch.nn.Module) -> Params:
@@ -127,3 +143,30 @@ def resnet_params_from_flax(variables: Dict[str, Any], model: torch.nn.Module) -
     if missing:
         raise ValueError(f"flax tree is missing tensors for {missing}")
     return out
+
+
+def _bert_target(path: str, leaf: np.ndarray, cfg: BertConfig) -> Tuple[str, np.ndarray]:
+    """(port parameter name, value in the port's layout) of one flax BERT
+    leaf; the shapes are checked by the caller."""
+    parts = path.split("/")
+    d = cfg.hidden_size
+    if parts[-1] == "embedding":
+        return ".".join(parts[:-1] + ["weight"]), leaf
+    if parts[-1] in ("scale", "bias") and parts[-2].endswith("_ln"):
+        return ".".join(parts), leaf
+    if parts[-1] in ("kernel", "bias") and len(parts) >= 2:
+        name = ".".join(parts[:-1] + ["weight" if parts[-1] == "kernel" else "bias"])
+        if parts[-1] == "bias":
+            return name, leaf.reshape(-1)
+        if len(parts) >= 3 and parts[-3] == "attention" and leaf.ndim == 3:
+            return name, leaf.reshape(d, d).T
+        return name, leaf.T
+    raise ValueError(f"flax leaf {path!r} {leaf.shape} has no counterpart in the port")
+
+
+def bert_params_from_flax(tree: Dict[str, Any], cfg: BertConfig) -> Params:
+    """A flax ``BertForMaskedLM`` parameter tree (nested dicts of numpy
+    arrays) as the port's state dict (f32 CPU tensors), refusing as
+    :func:`params_from_flax` does."""
+    return _fill(BertForMaskedLM(cfg, device="meta"), cfg,
+                 ((path, *_bert_target(path, leaf, cfg)) for path, leaf in _leaves(tree)))

@@ -316,3 +316,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the same ``autograd.Function``; launches nothing."""
     return _attention(q, k, v, causal, scale, q_offset, k_offset, None, None,
                       bf16_dots, plain=True)
+
+
+def auto_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = False, scale: Optional[float] = None) -> torch.Tensor:
+    """Drop-in ``attention_fn``: the flash kernels on a CUDA device, at any
+    sequence length (they tile by 64 and mask a ragged edge, so the
+    128-tiling that decides JAX's choice on the TPU does not bind them);
+    exact attention (``parallel.ring_attention.full_attention``) on the CPU,
+    the plain route."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    from ..parallel.ring_attention import full_attention
+
+    return full_attention(q, k, v, causal=causal, scale=scale)

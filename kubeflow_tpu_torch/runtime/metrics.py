@@ -1,17 +1,21 @@
 """Prometheus-style metrics registry with text exposition.
 
 A trimmed copy of ``kubeflow_tpu/runtime/metrics.py``: the subset the
-serving slice uses — counters, gauges, histograms with explicit bucket
-ladders and exemplars, namespaced views and ``render()``. Same names and
-exposition format, so a scrape of the port reads like a scrape of the JAX
-server.
+serving path uses — counters, gauges, histograms with explicit bucket
+ladders and exemplars, namespaced views, bucket-interpolated quantiles
+(``quantile``, ``quantile_from_counts``), scrape-time collectors with the
+stdlib process collector (``install_process_collector``) and ``render()``.
+Same names and exposition format, so a scrape of the port reads like a
+scrape of the JAX server.
 """
 
 from __future__ import annotations
 
+import gc
+import os
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 
 def _label_key(labels: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
@@ -111,6 +115,8 @@ class MetricsRegistry:
         #: first-registration bucket ladder per histogram name — every label
         #: series of a name shares one ladder or the exposition is corrupt
         self._hist_buckets: Dict[str, Tuple[float, ...]] = {}
+        #: scrape-time callbacks, keyed for idempotence; they survive reset()
+        self._collectors: Dict[str, Callable[[], None]] = {}
 
     def _get(self, name: str, kind: str, factory, labels: Dict[str, str]):
         with self._lock:
@@ -157,8 +163,49 @@ class MetricsRegistry:
             m = self._metrics.get(name, {}).get(_label_key(labels))
             return getattr(m, "value", 0.0) if m else 0.0
 
+    def histogram_counts(self, name: str) -> Optional[Tuple[Tuple[float, ...], List[int], int]]:
+        """Aggregated ``(buckets, counts, total)`` of histogram ``name``
+        across every label series; None when it has no series."""
+        with self._lock:
+            hists = [m for m in self._metrics.get(name, {}).values()
+                     if isinstance(m, _Histogram)]
+            if not hists:
+                return None
+            buckets = hists[0].buckets
+            counts = [0] * (len(buckets) + 1)
+            total = 0
+            for h in hists:
+                for i, c in enumerate(h.counts):
+                    counts[i] += c
+                total += h.total
+            return buckets, counts, total
+
+    def quantile(self, name: str, q: float) -> Optional[float]:
+        """The q-quantile (0..1) of histogram ``name`` across every label
+        series, interpolated inside the bucket that holds the rank (PromQL's
+        histogram_quantile). None for a missing or never-observed histogram:
+        no data is not zero latency."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile q={q} outside [0, 1]")
+        snap = self.histogram_counts(name)
+        if snap is None:
+            return None
+        buckets, counts, total = snap
+        return quantile_from_counts(buckets, counts, total, q)
+
+    def register_collector(self, key: str, fn: Callable[[], None]) -> None:
+        """Run ``fn`` at every render() before the exposition is built.
+        Re-registering a key replaces it; collectors survive reset()."""
+        with self._lock:
+            self._collectors[key] = fn
+
     def render(self) -> str:
         """OpenMetrics-flavored text exposition, terminated by ``# EOF``."""
+        for fn in list(self._collectors.values()):
+            try:
+                fn()  # outside self._lock: collectors call gauge()/counter()
+            except Exception:
+                pass  # a broken collector must not take /metrics down
         lines: List[str] = []
         with self._lock:
             for name in sorted(self._metrics):
@@ -199,4 +246,65 @@ def _exemplar_suffix(ex: Optional[Tuple[float, str, float]]) -> str:
     return f' # {{trace_id="{trace_id}"}} {value} {round(ts, 3)}'
 
 
+def quantile_from_counts(buckets: Sequence[float], counts: Sequence[int],
+                         total: int, q: float) -> Optional[float]:
+    """The histogram_quantile() interpolation over an explicit bucket-count
+    vector (``len(counts) == len(buckets) + 1``, the last slot +Inf). None
+    on an empty vector; a rank in the +Inf bucket clamps to the largest
+    finite bound."""
+    if total <= 0:
+        return None
+    rank = q * total
+    cum = 0
+    for i, bound in enumerate(buckets):
+        prev = cum
+        cum += counts[i]
+        if cum >= rank:
+            lo = buckets[i - 1] if i > 0 else 0.0
+            if counts[i] == 0:
+                return bound
+            return lo + (bound - lo) * ((rank - prev) / counts[i])
+    return buckets[-1]
+
+
 METRICS = MetricsRegistry()
+
+
+# -- stdlib process collector -------------------------------------------------
+
+_PROCESS_START = time.time()
+
+
+def _rss_bytes() -> Optional[float]:
+    try:  # Linux: the current RSS
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return float(pages * os.sysconf("SC_PAGE_SIZE"))
+    except (OSError, ValueError, IndexError):
+        pass
+    try:  # elsewhere: the peak RSS
+        import resource
+
+        return float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+    except Exception:
+        return None
+
+
+def install_process_collector(registry: Optional[MetricsRegistry] = None) -> None:
+    """Register the ``process_*`` series (RSS, threads, GC collections, CPU
+    seconds, uptime) on ``registry``, refreshed at every scrape."""
+    reg = registry if registry is not None else METRICS
+
+    def collect() -> None:
+        reg.gauge("process_uptime_seconds").set(time.time() - _PROCESS_START)
+        reg.gauge("process_threads").set(float(threading.active_count()))
+        t = os.times()
+        reg.counter("process_cpu_seconds_total").value = float(t.user + t.system)
+        rss = _rss_bytes()
+        if rss is not None:
+            reg.gauge("process_resident_memory_bytes").set(rss)
+        for gen, stats in enumerate(gc.get_stats()):
+            reg.counter("process_gc_collections_total",
+                        generation=str(gen)).value = float(stats.get("collections", 0))
+
+    reg.register_collector("process", collect)

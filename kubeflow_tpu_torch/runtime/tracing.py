@@ -5,14 +5,16 @@ vocabulary (traceId/spanId/parentSpanId, nanosecond epochs, status,
 attributes), an in-memory ring buffer, a thread-local current span, the
 manual ``start_span``/``end_span`` lifecycle a serving request needs (it
 starts on the HTTP thread and ends on the engine worker), ``emit_span``
-for an interval already elapsed (a training step) and the W3C
-``traceparent`` codec.
+for an interval already elapsed (a training step), the W3C
+``traceparent`` codec, and ``Span.to_dict`` in the OTLP field names that
+``/debug/traces`` serves (``runtime/obs.py``).
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import socket
 import threading
 import time
 from contextlib import contextmanager
@@ -55,12 +57,31 @@ class Span:
         self.status_message = f"{type(exc).__name__}: {exc}"
         return self
 
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "name": self.name,
+            "traceId": self.trace_id,
+            "spanId": self.span_id,
+            "startTimeUnixNano": self.start_ns,
+            "endTimeUnixNano": self.end_ns,
+            "status": {"code": self.status, "message": self.status_message},
+            "attributes": self.attributes,
+        }
+        if self.parent_span_id:
+            d["parentSpanId"] = self.parent_span_id
+        if self.events:
+            d["events"] = self.events
+        return d
+
 
 class Tracer:
     """Span factory + ring-buffer store."""
 
     def __init__(self, service: str = "kubeflow-tpu-torch", capacity: int = 4096):
         self.service = service
+        #: OTLP resource identity (``service.instance.id``): which process a
+        #: span came from
+        self.instance = f"{socket.gethostname()}:{os.getpid()}"
         self._spans: Deque[Span] = collections.deque(maxlen=capacity)
         self._lock = threading.Lock()
 

@@ -12,6 +12,11 @@ Slot-based admission over one per-slot KV cache:
 - new requests admit in WAVES: each same-prompt-bucket group (at most
   ``min(slots, MAX_GROUP)`` rows) runs ONE batched prefill and ONE adopt
   splice into the running cache;
+- a prompt longer than ``prefill_chunk`` (default: the largest prefill
+  bucket) prefills in chunks of that size into a private [1, max_seq]
+  cache, one chunk per engine iteration between decode dispatches, holding
+  its slot (and arena reservation) from the first chunk; one such prompt
+  is in flight at a time, and it adopts through the same splice as a wave;
 - finished slots (budget reached / EOS / deadline / cancel) free at event
   time and the next queued request takes the row;
 - chunk dispatches overlap: up to ``pipeline`` chunks are in flight, their
@@ -20,13 +25,14 @@ Slot-based admission over one per-slot KV cache:
 
 PyTorch runs eagerly, and unlike JAX it mutates: the step writes the cache
 in place (JAX donated it), so the prefill template is zeroed for every wave
-(JAX reused one zero template because prefill did not donate it), and every
-host array the device reads — block tables included — reaches it through a
-fresh pinned staging copy, never a view of an array the host mutates later.
+and the chunked prefill's private cache for every long prompt (both are
+allocated once per engine), and every host array the device reads — block
+tables included — reaches it through a fresh pinned staging copy, never a
+view of an array the host mutates later.
 
-Not in this slice (see ROADMAP.md): speculative decoding, chunked prefill
-of prompts above the largest prefill bucket, prefill/decode roles and the
-KV wire. Those raise at construction or submit.
+Not ported yet (ROADMAP.md queue A, A.4.5-A.4.6): speculative decoding,
+prefill/decode roles and the KV wire. Those raise at construction or
+submit.
 """
 
 from __future__ import annotations
@@ -77,7 +83,7 @@ MAX_GROUP = 8
 #: drain-queue sentinel (distinct from the ``None`` shutdown sentinel)
 _DRAIN = object()
 
-_LATER = "ROADMAP.md queue A, item 4 (serving beyond the first slice)"
+_LATER = "ROADMAP.md queue A, A.4.5-A.4.6"
 
 
 def _bucket_for(n: int) -> int:
@@ -85,7 +91,7 @@ def _bucket_for(n: int) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds the largest prefill bucket "
-                     f"{PREFILL_BUCKETS[-1]} (chunked prefill: {_LATER})")
+                     f"{PREFILL_BUCKETS[-1]}")
 
 
 def _block_tile(max_seq: int, requested: int = 16) -> int:
@@ -97,6 +103,25 @@ def _block_tile(max_seq: int, requested: int = 16) -> int:
     base = math.gcd(int(max_seq), PREFILL_BUCKETS[0])
     return next(b for b in range(min(int(requested), base), 0, -1)
                 if base % b == 0)
+
+
+def effective_prefill_chunk(requested: Optional[int], max_seq: int,
+                            block_t: int = 1) -> int:
+    """The chunked-prefill chunk an engine uses: the largest value not above
+    ``requested`` that divides ``max_seq`` (so no chunk start clamps in the
+    scalar-cursor cache) and is a whole number of KV blocks. None means the
+    largest prefill bucket; 0 or less turns chunking off (returns 0).
+    ``GenerativeModel`` routes by the same resolution."""
+    if requested is None:
+        requested = PREFILL_BUCKETS[-1]
+    requested = min(int(requested), int(max_seq))
+    if requested <= 0:
+        return 0
+    step = max(int(block_t), 1)
+    for c in range(requested, 0, -1):
+        if max_seq % c == 0 and c % step == 0:
+            return c
+    return 0
 
 
 @dataclass(eq=False)  # identity equality: field eq would compare ndarrays
@@ -150,6 +175,17 @@ def _trace_id(req: _Request) -> Optional[str]:
     return req.span.trace_id if req.span is not None else None
 
 
+@dataclass(eq=False)
+class _ChunkedPrefill:
+    """The one long prompt mid-chunked-prefill: it owns ``slot`` and (paged)
+    the reservation ``res`` from its first chunk, and is in neither
+    ``_active`` nor ``_pending`` until it adopts."""
+    req: _Request
+    slot: int
+    pos: int = 0                       # prompt tokens prefilled so far
+    res: Optional[KVReservation] = None
+
+
 def _fail(req: _Request, error: BaseException) -> None:
     """Single failure path: error the future AND close the span."""
     req.error = error
@@ -159,6 +195,12 @@ def _fail(req: _Request, error: BaseException) -> None:
         TRACER.end_span(req.span, error=error)
         req.span = None
     req.done.set()
+
+
+def _zero(cache: Dict[str, Any]) -> None:
+    for layer in cache.values():
+        for t in layer["attention"].values():
+            t.zero_()
 
 
 class _Fetch:
@@ -198,8 +240,12 @@ class ContinuousBatcher:
     ``kv_blocks`` sizes the arena (None = ``slots * max_seq / block_t``),
     ``kv_dtype`` is ``"bf16"`` or ``"int8"`` (paged only). ``kv_kernel``
     (default on) routes single-token KV writes through the CUDA kernels;
-    ``kv_kernel=False`` takes the plain PyTorch writes. ``seed`` seeds
-    the engine's one sampling generator (None = OS entropy).
+    ``kv_kernel=False`` takes the plain PyTorch writes. ``prefill_chunk``:
+    prompts longer than it prefill in chunks of that size between decode
+    dispatches (None = the largest prefill bucket, which also extends the
+    servable prompt range up to ``max_seq`` minus the budget; 0 turns it
+    off, and a prompt above the largest bucket then fails at admission).
+    ``seed`` seeds the engine's one sampling generator (None = OS entropy).
     """
 
     def __init__(self, cfg: GptConfig, params: Params, slots: int = 8,
@@ -211,6 +257,7 @@ class ContinuousBatcher:
                  paged: bool = True,
                  kv_blocks: Optional[int] = None,
                  kv_block_t: int = 16,
+                 prefill_chunk: Optional[int] = None,
                  spec_draft: Optional[Tuple[GptConfig, Any]] = None,
                  kv_dtype: str = "bf16",
                  role: str = "unified",
@@ -260,7 +307,12 @@ class ContinuousBatcher:
                                 kv_dtype=self.kv_dtype)
         self._prefill_model = GptLM.bind(cfg, self.params, decode=True)
         self.cache = self._fresh_cache()
-        self._prefill_cache = self._fresh_prefill_cache()
+        self._prefill_cache = self._fresh_prefill_cache(self._group_pad)
+        self.prefill_chunk = effective_prefill_chunk(prefill_chunk, cfg.max_seq,
+                                                     self.kv_block_t or 1)
+        self._chunked: Optional[_ChunkedPrefill] = None
+        # the long prompt's private [1, max_seq] cache, zeroed per prompt
+        self._chunk_cache = self._fresh_prefill_cache(1) if self.prefill_chunk else None
         self.last_tok = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         # per-slot temperature: on the device for the step, on the host to
         # decide whether a dispatch samples at all
@@ -308,11 +360,12 @@ class ContinuousBatcher:
             layers[f"block_{i}"] = {"attention": att}
         return layers
 
-    def _fresh_prefill_cache(self) -> Dict[str, Any]:
-        """The scalar-cursor [group_pad, max_seq] cache every group prefill
-        writes into; zeroed before each use."""
+    def _fresh_prefill_cache(self, rows: int) -> Dict[str, Any]:
+        """A scalar-cursor [rows, max_seq] cache: the group prefill's
+        (``group_pad`` rows) and the chunked prefill's (1 row); each is
+        zeroed before each use."""
         cfg = self.cfg
-        kv = (self._group_pad, cfg.max_seq, cfg.n_heads, cfg.head_dim)
+        kv = (rows, cfg.max_seq, cfg.n_heads, cfg.head_dim)
         return {f"block_{i}": {"attention": {
             "k": self._zeros(kv, cfg.dtype), "v": self._zeros(kv, cfg.dtype),
             "cursor": self._zeros((), torch.int32)}}
@@ -368,9 +421,7 @@ class ContinuousBatcher:
             ids[i, : len(p)] = p
             true_lens[i] = len(p)
             temps[i] = temperatures[i]
-        for layer in self._prefill_cache.values():
-            for t in layer["attention"].values():
-                t.zero_()
+        _zero(self._prefill_cache)
         model = self._prefill_model
         hidden = model(self._to_device(ids), self._prefill_cache, return_hidden=True)
         # each row's first token comes from ITS true last prompt position
@@ -379,15 +430,16 @@ class ContinuousBatcher:
         logits = last @ model.embedding.weight.float().T
         return self._sample(logits, self._to_device(temps), bool((temps > 0).any()))
 
-    def _adopt(self, n: int, slots: List[int], true_lens: List[int],
+    def _adopt(self, src: Dict[str, Any], n: int, slots: List[int], true_lens: List[int],
                first: torch.Tensor, temperatures: List[float],
                block_ids: Optional[np.ndarray]) -> None:
-        """Splice prefill rows ``0..n-1`` into the running cache at
-        ``slots`` and set their cursors to the true prompt lengths (bucket
-        padding above them stays masked until decode overwrites it). Paged:
-        rows go block by block into the arena rows named by ``block_ids``
-        ([n, nb]; trailing trash entries absorb bucket padding), quantized
-        first when the arena is int8."""
+        """Splice rows ``0..n-1`` of the prefill cache ``src`` (a wave's, or
+        the chunked prefill's) into the running cache at ``slots`` and set
+        their cursors to the true prompt lengths (padding above them stays
+        masked until decode overwrites it). Paged: rows go block by block
+        into the arena rows named by ``block_ids`` ([n, nb]; trailing trash
+        entries absorb the padding), quantized first (``quantize_kv``, for
+        either source) when the arena is int8."""
         slots_t = self._to_device(np.asarray(slots, np.int64))
         lens_t = self._to_device(np.asarray(true_lens, np.int32))
         if block_ids is not None:
@@ -396,7 +448,7 @@ class ContinuousBatcher:
             ids = self._to_device(block_ids.reshape(-1).astype(np.int64))
         for name, layer in self.cache.items():
             att = layer["attention"]
-            small = self._prefill_cache[name]["attention"]
+            small = src[name]["attention"]
             if block_ids is None:
                 att["k"][slots_t] = small["k"][:n]
                 att["v"][slots_t] = small["v"][:n]
@@ -427,14 +479,14 @@ class ContinuousBatcher:
         instant: a request whose deadline passes while queued fails fast
         with :class:`DeadlineExceeded`; one that expires mid-decode frees
         its slot within ~one decode chunk and completes with the partial
-        tokens. Prompts above the largest prefill bucket raise ValueError
-        (chunked prefill is not in this slice)."""
+        tokens. A prompt above the largest prefill bucket goes to chunked
+        prefill; with ``prefill_chunk=0`` it fails its own future at
+        admission (ValueError)."""
         if priority not in PRIORITIES:
             raise ValueError(f"priority {priority!r}; expected one of {PRIORITIES}")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if len(prompt) + max_new_tokens > self.cfg.max_seq:
             raise ValueError("prompt + budget exceeds max_seq")
-        _bucket_for(len(prompt))
         if self.paged:
             need = self._alloc.blocks_for(len(prompt) + max_new_tokens)
             if need > self._alloc.n_blocks:
@@ -470,6 +522,54 @@ class ContinuousBatcher:
     def submit_handoff(self, req: _Request, blob: bytes) -> _Request:
         raise NotImplementedError(f"KV-wire import: {_LATER}")
 
+    def cancel_requests(self, n: int = 1) -> int:
+        """Abandon up to ``n`` in-flight, then queued, requests (a client
+        disconnect, or evicting stuck work). Returns how many were marked;
+        the worker reaps each within ~one decode chunk. The chunked prefill
+        in flight counts as in flight."""
+        for _ in range(3):
+            try:
+                cp = self._chunked
+                reqs = list(self._active.values()) + ([cp.req] if cp else []) \
+                    + list(self._pending)
+                break
+            except RuntimeError:
+                continue  # the worker resized a container mid-copy; retry
+        else:
+            return 0
+        marked = 0
+        for req in reqs:
+            if marked >= n:
+                break
+            if req.cancel():
+                marked += 1
+        return marked
+
+    def prewarm(self, prompt_len: int, timeout: float = 600.0) -> None:
+        """Bring the engine's paths up outside any latency window: for each
+        admission-group size ``1.._group_pad`` a wave of
+        dummy requests of ``prompt_len`` tokens goes in as ONE queue item,
+        so the worker admits it as one group. Waves run in turn; the last
+        wave's budget is ``chunk + 1`` tokens, so it runs a decode chunk.
+        On the card nothing compiles: this is where cuBLAS's handles and
+        the caching allocator's pools come up. ``timeout`` is each dummy
+        request's deadline, so a wedged run raises
+        :class:`DeadlineExceeded`."""
+        deadline = time.monotonic() + timeout
+        sizes = range(1, self._group_pad + 1)
+        for idx, n in enumerate(sizes):
+            budget = self.chunk + 1 if idx == len(sizes) - 1 else 1
+            wave = [_Request(np.zeros((prompt_len,), np.int32), budget, deadline=deadline)
+                    for _ in range(n)]
+            with self._lock:
+                if self._closed:
+                    raise EngineClosed("batcher closed")
+                self._queue.put(wave)
+            for req in wave:
+                # bounded by the request's own deadline plus a grace for the
+                # worker to reap and fail it
+                req.result(timeout=max(0.0, deadline - time.monotonic()) + 5.0)
+
     def close(self) -> None:
         with self._lock:
             self._closed = True
@@ -495,9 +595,21 @@ class ContinuousBatcher:
         the device and are fetched through the returned ``first`` events."""
         events: List[Tuple[str, Any, Any, float]] = []
         by_bucket: Dict[int, List[_Request]] = {}
-        back: List[_Request] = []  # re-queued (arena full)
+        back: List[_Request] = []  # re-queued (chunked lane busy, arena full)
         for req in reqs:
-            by_bucket.setdefault(_bucket_for(len(req.prompt)), []).append(req)
+            if self.prefill_chunk and len(req.prompt) > self.prefill_chunk:
+                # long prompt: chunked prefill, one in flight at a time (it
+                # holds a slot from its first chunk)
+                if self._chunked is not None or not self._free \
+                        or not self._start_chunked(req):
+                    back.append(req)
+                continue
+            try:
+                bucket = _bucket_for(len(req.prompt))
+            except ValueError as e:  # fails alone and takes no slot
+                _fail(req, e)
+                continue
+            by_bucket.setdefault(bucket, []).append(req)
         groups = [chunk[i:i + self._group_pad]
                   for chunk in by_bucket.values()
                   for i in range(0, len(chunk), self._group_pad)]
@@ -545,7 +657,7 @@ class ContinuousBatcher:
                         self._tables[slot, :len(res.granted)] = res.granted
                         self._slot_res[slot] = res
                         self._ub_cursor[slot] = len(req.prompt)
-                self._adopt(n, slots, [len(r.prompt) for r in group], first,
+                self._adopt(self._prefill_cache, n, slots, [len(r.prompt) for r in group], first,
                             [r.temperature for r in group], block_ids)
             except Exception as e:  # the group fails alone
                 # restore the slots and blocks, fail the group, keep serving
@@ -574,11 +686,115 @@ class ContinuousBatcher:
             events.append(("first", fetch, list(zip(group, slots)), now))
         if back:
             # requeue at the FRONT in arrival order: they only wait for blocks
+            # or for the chunked-prefill lane
             for r in reversed(back):
                 self._pending.appendleft(r)
             self._set_queue_gauge()
         self._set_occupancy()
         return events
+
+    # -- chunked prefill ------------------------------------------------------
+    def _start_chunked(self, req: _Request) -> bool:
+        """Claim a slot (and, paged, the worst-case block reservation) for
+        one long prompt and install it as THE chunked prefill; its chunks
+        run one per engine iteration from :meth:`_advance_chunked`. False
+        when the arena cannot reserve yet (the caller requeues it); a
+        request that can never fit fails here and counts as handled."""
+        res = None
+        if self.paged:
+            try:
+                res = self._alloc.reserve(self._alloc.blocks_for(
+                    len(req.prompt) + req.max_new_tokens))
+            except FleetSaturated:
+                return False
+            except ValueError as e:
+                _fail(req, e)
+                return True
+        _zero(self._chunk_cache)
+        slot = self._free.pop()
+        self._chunked = _ChunkedPrefill(req=req, slot=slot, res=res)
+        _ev(req, "chunked_prefill_start", slot=slot,
+            chunks=-(-len(req.prompt) // self.prefill_chunk))
+        return True
+
+    def _abort_chunked(self, cp: _ChunkedPrefill) -> None:
+        """Release a mid-prefill request's slot and (paged) blocks; the
+        caller fails the request. Retire ordering: the table row goes to
+        trash before the blocks return."""
+        if self.paged:
+            self._tables[cp.slot, :] = self._alloc.trash
+            self._slot_res.pop(cp.slot, None)
+            self._ub_cursor[cp.slot] = 0
+            if cp.res is not None:
+                self._alloc.release(cp.res)
+        self._free.append(cp.slot)
+        self._chunked = None
+
+    def _advance_chunked(self) -> List[Tuple[str, Any, Any, float]]:
+        """Run ONE prefill chunk of the long prompt; after the last, adopt
+        it into the running cache and activate its slot. Cancel and
+        deadline are tested before each chunk. Returns the 'first' event
+        when the adoption happens."""
+        cp = self._chunked
+        req = cp.req
+        if req.done.is_set():  # failed elsewhere: just clean up
+            self._abort_chunked(cp)
+            return []
+        if req.cancel_requested:
+            req.finish_reason = "cancelled"
+            METRICS.counter("serving_cancelled_total").inc()
+            _ev(req, "cancelled", stage="prefill")
+            self._abort_chunked(cp)
+            _fail(req, RequestCancelled("cancelled during chunked prefill"))
+            return []
+        if req.expired():
+            req.finish_reason = "deadline"
+            METRICS.counter("serving_deadline_expired_total", stage="prefill").inc()
+            _ev(req, "deadline_expired", stage="prefill")
+            self._abort_chunked(cp)
+            _fail(req, DeadlineExceeded("deadline expired during chunked prefill"))
+            return []
+        n, c, start = len(req.prompt), self.prefill_chunk, cp.pos
+        ids = np.zeros((1, c), np.int32)
+        seg = req.prompt[start:start + c]
+        ids[0, :len(seg)] = seg
+        # the last chunk's padding writes KV at positions >= n; the adopted
+        # cursor n masks it until decode overwrites it
+        hidden = self._prefill_model(self._to_device(ids), self._chunk_cache,
+                                     return_hidden=True)
+        cp.pos = start + c
+        METRICS.counter("serving_prefill_chunks_total").inc()
+        _ev(req, "prefill_chunk", start=start)
+        if cp.pos < n:
+            return []
+        # last chunk: the first token from the prompt's true last position,
+        # through the f32 head as the group prefill takes it
+        last = hidden[0, (n - 1) - start][None]
+        logits = last @ self._prefill_model.embedding.weight.float().T
+        temps = np.asarray([req.temperature], np.float32)
+        first = self._sample(logits, self._to_device(temps), req.temperature > 0.0)
+        slot = cp.slot
+        block_ids = None
+        if self.paged:
+            nb = cp.pos // self.kv_block_t  # whole blocks: block_t divides the chunk
+            block_ids = np.full((1, nb), self._alloc.trash, np.int32)
+            self._alloc.grant(cp.res, self._alloc.blocks_for(n))
+            block_ids[0, :len(cp.res.granted)] = cp.res.granted
+            self._tables[slot, :len(cp.res.granted)] = cp.res.granted
+            self._slot_res[slot] = cp.res
+            self._ub_cursor[slot] = n
+        self._adopt(self._chunk_cache, 1, [slot], [n], first, [req.temperature], block_ids)
+        fetch = _Fetch(first)
+        now = time.perf_counter()
+        self._active[slot] = req
+        self._chunked = None
+        if req.submit_at is not None:
+            METRICS.histogram("serving_queue_wait_seconds", buckets=QUEUE_WAIT_BUCKETS,
+                              ).observe(now - req.submit_at, trace_id=_trace_id(req))
+        _ev(req, "admitted", slot=slot)
+        _ev(req, "prefill_done")
+        self._set_occupancy()
+        return [("first", fetch, [(req, slot)], now)]
 
     def _grant_active(self, tokens: int) -> None:
         """Advance every active slot's cursor frontier by the tokens the next
@@ -711,8 +927,14 @@ class ContinuousBatcher:
         return wave
 
     def _shutdown(self, cause: str) -> None:
-        """Fail everything in flight, pending, and still queued — all with
-        the SAME cause."""
+        """Fail everything in flight (the chunked prefill too), pending, and
+        still queued — all with the SAME cause."""
+        if self._chunked is not None:
+            # in neither _active nor _pending: forgetting it would hang its
+            # caller
+            cp = self._chunked
+            self._abort_chunked(cp)
+            _fail(cp.req, EngineClosed(cause))
         for req in self._active.values():
             _fail(req, EngineClosed(cause))
         self._active.clear()
@@ -809,7 +1031,8 @@ class ContinuousBatcher:
             # idle. Coalescing lets a burst of submits admit as ONE prefill.
             try:
                 timeout = (None if not (self._active or self._pending
-                                        or events or self._draining)
+                                        or events or self._draining
+                                        or self._chunked)
                            else 0.0)
                 while True:
                     item = self._queue.get(timeout=timeout) if timeout is None \
@@ -836,6 +1059,12 @@ class ContinuousBatcher:
                     self._set_queue_gauge()
                     events.extend(self._admit_wave(wave))
                     dispatched = True
+                if self._chunked is not None:
+                    # ONE prefill chunk per iteration, between decode
+                    # dispatches, draining included: the short requests'
+                    # tokens do not wait on the whole long prompt
+                    events.extend(self._advance_chunked())
+                    dispatched = True
                 if self._active:
                     # one CHUNK of decode steps for every slot (inactive rows
                     # compute too; their tokens are discarded against the
@@ -852,7 +1081,8 @@ class ContinuousBatcher:
                     self._process_event(events.popleft())
                 if not dispatched and events:
                     self._process_event(events.popleft())
-                if self._draining and not self._active and not events:
+                if (self._draining and not self._active and not events
+                        and self._chunked is None):
                     # drain complete: park the unserved pendings for the caller
                     self._handoff.extend(self._pending)
                     self._pending.clear()

@@ -5,11 +5,16 @@ API shape (the same as ``kubeflow_tpu/serving/server.py``):
     ->                               {"predictions": [...]}
     GET  /v1/models/<name>           status/metadata
     GET  /healthz
+    GET  /metrics, /debug/*          the observability routes (runtime/obs.py)
 
+``ServedModel`` pads a batch to the next ``BATCH_BUCKETS`` size and runs
+``apply_fn`` once; ``ModelServer(batching=True)`` coalesces concurrent
+requests per model into one such forward (``serving/batching.py``).
 ``GenerativeModel`` serves autoregressive generation through the
 continuous-batching engine; ``gpt_served_model`` builds GPT-small (or the
-tiny config) with seeded random weights. ``python -m
-kubeflow_tpu_torch.serving.server`` runs it on the card.
+tiny config) and ``bert_served_model`` BERT-base (or tiny) with seeded
+random weights. ``python -m kubeflow_tpu_torch.serving.server`` runs one
+of them on the card.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..runtime.metrics import METRICS
+from ..runtime.obs import mount_observability
 from ..runtime.tracing import TRACER, format_traceparent
 from ..web.http import App, HttpError, Request
+from .batching import BatcherClosed, DynamicBatcher
 from .errors import DeadlineExceeded, FleetSaturated
 
 #: batch sizes the static ``generate()`` path pads a request to (the JAX
@@ -67,39 +74,105 @@ def retry_after_headers(e: FleetSaturated) -> Dict[str, str]:
     return {"Retry-After": str(max(1, int(math.ceil(hint))))}
 
 
+#: JAX's default 32-bit mode: what ``jnp.asarray`` makes of a 64-bit
+#: ``preprocess`` output
+_X32 = {np.dtype(np.float64): np.dtype(np.float32), np.dtype(np.int64): np.dtype(np.int32)}
+
+
 @dataclass
 class ServedModel:
-    """One deployable model: ``apply(params, batch) -> out`` run eagerly."""
+    """One deployable model: ``apply(params, batch) -> out`` run eagerly on
+    ``device`` under ``torch.no_grad()``. ``predict`` casts the instances to
+    ``input_dtype`` (or runs ``preprocess`` on them), pads the batch to the
+    next ``BATCH_BUCKETS`` size with copies of row 0, and returns the first
+    n rows; above the largest bucket it answers 413."""
 
     name: str
     apply_fn: Optional[Callable[[Any, torch.Tensor], torch.Tensor]]
     params: Any
+    input_dtype: torch.dtype = torch.float32
     version: str = "1"
+    #: raw JSON instances -> np.ndarray batch
+    preprocess: Optional[Callable[[Sequence[Any]], np.ndarray]] = None
+    device: DeviceLike = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
     def predict(self, instances: Sequence[Any]) -> List[Any]:
         if not instances:
             return []
+        if self.preprocess is not None:
+            batch = np.asarray(self.preprocess(instances))
+            batch = torch.as_tensor(batch.astype(_X32.get(batch.dtype, batch.dtype)))
+        else:
+            batch = torch.as_tensor(np.asarray(instances)).to(self.input_dtype)
+        n = batch.shape[0]
+        bucket = next((b for b in BATCH_BUCKETS if b >= n), None)
+        if bucket is None:
+            raise HttpError(413, f"batch of {n} exceeds max {BATCH_BUCKETS[-1]}")
+        if bucket != n:
+            batch = torch.cat([batch, batch[:1].expand(bucket - n, *batch.shape[1:])])
         with torch.no_grad():
-            out = self.apply_fn(self.params, torch.as_tensor(np.asarray(instances)))
-        return out.cpu().tolist()
+            out = self.apply_fn(self.params, batch.to(self.device))
+        return out[:n].cpu().tolist()
 
     def close(self) -> None:
         pass
 
 
 class ModelServer:
-    """Hosts ServedModels over the predict API; servable with serve()."""
+    """Hosts ServedModels over the predict API; servable with serve().
+    ``/metrics`` and ``/debug/*`` are mounted on the same app.
 
-    def __init__(self):
+    ``batching=True`` coalesces concurrent requests per model into one
+    padded forward (``serving/batching.py``), at most ``max_batch`` rows
+    after waiting at most ``max_wait_ms``."""
+
+    def __init__(self, batching: bool = False, max_batch: int = BATCH_BUCKETS[-1],
+                 max_wait_ms: float = 5.0):
+        if max_batch > BATCH_BUCKETS[-1]:
+            # a combined batch above the largest bucket would 413 on every
+            # co-batched request
+            raise ValueError(f"max_batch {max_batch} exceeds largest bucket {BATCH_BUCKETS[-1]}")
         self.models: Dict[str, ServedModel] = {}
         self.app = App("model-server")
+        self._batching = batching
+        self._max_batch = max_batch
+        self._max_wait_ms = max_wait_ms
+        self._batchers: Dict[str, DynamicBatcher] = {}
         self._register_routes()
+        # the SLO histograms live in this process, so the scrape must too
+        mount_observability(self.app)
 
     def add(self, model: ServedModel) -> "ModelServer":
         self.models[model.name] = model
+        if self._batching:
+            old = self._batchers.pop(model.name, None)
+            if old is not None:
+                old.close()  # model reload: stop the old worker
+            self._batchers[model.name] = DynamicBatcher(
+                model.predict, max_batch=self._max_batch,
+                max_wait_ms=self._max_wait_ms, name=model.name)
         return self
 
+    def _predict(self, model: ServedModel, instances, deadline: Optional[float] = None,
+                 priority: str = "interactive") -> List[Any]:
+        batcher = self._batchers.get(model.name)
+        if batcher is not None:
+            try:
+                return batcher.predict(instances, deadline=deadline)
+            except BatcherClosed:
+                # a reload closed the batcher this request fetched: serve it
+                # unbatched
+                pass
+        if isinstance(model, GenerativeModel):
+            return model.predict(instances, deadline=deadline, priority=priority)
+        return model.predict(instances)
+
     def close(self) -> None:
+        for b in self._batchers.values():
+            b.close()
         for model in self.models.values():
             model.close()
 
@@ -133,11 +206,8 @@ class ModelServer:
             deadline, priority = request_deadline_opts(req, body)
             t0 = time.perf_counter()
             try:
-                if isinstance(model, GenerativeModel):
-                    predictions = model.predict(instances, deadline=deadline,
-                                                priority=priority)
-                else:
-                    predictions = model.predict(instances)
+                predictions = self._predict(model, instances, deadline=deadline,
+                                            priority=priority)
             except HttpError:
                 raise
             except DeadlineExceeded as e:
@@ -162,26 +232,38 @@ class ModelServer:
 class GenerativeModel(ServedModel):
     """Serves autoregressive generation through the predict surface:
     instances = equal-length token-id prompts, predictions = full generated
-    sequences (prompt + ``max_new_tokens``). Requests go through one
-    continuous-batching engine built on first use. Prompts longer than the
-    engine's largest prefill bucket take the static ``generate()`` path
-    instead, as the JAX server does with chunked prefill off, so the
-    servable prompt range stays ``cfg.max_seq`` (chunked prefill is
-    ROADMAP.md queue A, item 4)."""
+    sequences (prompt + ``max_new_tokens``).
+
+    ``continuous=True`` (the default) routes requests through one
+    continuous-batching engine built on first use; a prompt above the
+    largest prefill bucket goes there too when the engine's chunked prefill
+    is on (``prefill_chunk`` None = the largest bucket, 256), and takes the
+    static ``generate()`` path when it is off (``prefill_chunk=0``), so the
+    servable prompt range stays ``cfg.max_seq`` either way.
+    ``continuous=False`` serves every request through the static path, the
+    batch padded to a ``BATCH_BUCKETS`` size. The routing is the JAX
+    server's (``kubeflow_tpu/serving/server.py:381-392``)."""
 
     cfg: Any = None
     max_new_tokens: int = 16
     temperature: float = 0.0
+    continuous: bool = True
     slots: int = 8
     paged: bool = True
+    #: allocatable arena blocks (None = contiguous-capacity parity)
+    kv_blocks: Optional[int] = None
+    #: requested arena tile (shrunk to divide max_seq and the buckets)
+    kv_block_t: int = 16
+    #: chunked-prefill budget (None = the largest prefill bucket; 0 turns it
+    #: off, and over-bucket prompts take the static generate() path)
+    prefill_chunk: Optional[int] = None
     kv_dtype: str = "bf16"
     kv_kernel: bool = True
     seed: Optional[int] = None
-    device: DeviceLike = "cuda"
     _engine: Any = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        super().__post_init__()
         self._engine_lock = threading.Lock()
         self._static_draws = 0
 
@@ -192,8 +274,9 @@ class GenerativeModel(ServedModel):
             if self._engine is None:
                 self._engine = ContinuousBatcher(
                     self.cfg, self.params, slots=self.slots, paged=self.paged,
-                    kv_dtype=self.kv_dtype, kv_kernel=self.kv_kernel,
-                    seed=self.seed, device=self.device)
+                    kv_blocks=self.kv_blocks, kv_block_t=self.kv_block_t,
+                    prefill_chunk=self.prefill_chunk, kv_dtype=self.kv_dtype,
+                    kv_kernel=self.kv_kernel, seed=self.seed, device=self.device)
             return self._engine
 
     def close(self) -> None:
@@ -204,7 +287,7 @@ class GenerativeModel(ServedModel):
 
     def predict(self, instances: Sequence[Any], deadline: Optional[float] = None,
                 priority: str = "interactive") -> List[Any]:
-        from .continuous import PREFILL_BUCKETS
+        from .continuous import PREFILL_BUCKETS, _block_tile, effective_prefill_chunk
 
         if not instances:
             return []
@@ -215,7 +298,11 @@ class GenerativeModel(ServedModel):
             raise HttpError(400, "instances must be equal-length token-id lists")
         if prompts.shape[1] + self.max_new_tokens > self.cfg.max_seq:
             raise HttpError(413, "prompt + generation budget exceeds max_seq")
-        if prompts.shape[1] > PREFILL_BUCKETS[-1]:
+        # the engine's own chunk resolution, so routing and admission agree
+        chunk = effective_prefill_chunk(
+            self.prefill_chunk, self.cfg.max_seq,
+            _block_tile(self.cfg.max_seq, self.kv_block_t) if self.paged else 1)
+        if not self.continuous or (prompts.shape[1] > PREFILL_BUCKETS[-1] and chunk == 0):
             return self._predict_static(prompts)
         eng = self.engine()
         # hand the engine our trace context: each serving.request span
@@ -251,9 +338,9 @@ class GenerativeModel(ServedModel):
                     f.cancel()
 
     def _predict_static(self, prompts: np.ndarray) -> List[Any]:
-        """Prompts over the largest prefill bucket: lockstep ``generate()``
-        over the batch padded to a ``BATCH_BUCKETS`` size with copies of
-        the first prompt, as the JAX server does."""
+        """Lockstep ``generate()`` over the batch padded to a
+        ``BATCH_BUCKETS`` size with copies of the first prompt, as the JAX
+        server does."""
         from ..models.gpt import generate
 
         n = prompts.shape[0]
@@ -279,12 +366,13 @@ class GenerativeModel(ServedModel):
 def gpt_served_model(name: str = "gpt", tiny: bool = True, max_new_tokens: int = 16,
                      temperature: float = 0.0, device: DeviceLike = "cuda",
                      kv_kernel: bool = True, paged: bool = True,
-                     kv_dtype: str = "bf16", seed: int = 0) -> GenerativeModel:
+                     kv_dtype: str = "bf16", prefill_chunk: Optional[int] = None,
+                     seed: int = 0) -> GenerativeModel:
     """GPT text-generation servable with seeded random weights: ``tiny``
     for CPU tests, ``tiny=False`` for GPT-small (GPT-2 124M class: d768,
     12 layers, 12 heads, d_ff 3072, vocab 32000, max_seq 2048, bf16).
     ``kv_kernel`` defaults on: the served decode path writes its KV rows
-    through the CUDA kernels."""
+    through the CUDA kernels. ``prefill_chunk`` is ``GenerativeModel``'s."""
     from ..models.gpt import GptConfig, init_params
 
     cfg = GptConfig.tiny() if tiny else GptConfig.small()
@@ -292,12 +380,42 @@ def gpt_served_model(name: str = "gpt", tiny: bool = True, max_new_tokens: int =
         name=name, apply_fn=None, params=init_params(cfg, seed=seed, device=device),
         cfg=cfg, max_new_tokens=max_new_tokens, temperature=temperature,
         paged=paged, kv_dtype=kv_dtype, kv_kernel=kv_kernel,
-        seed=seed, device=device)
+        prefill_chunk=prefill_chunk, seed=seed, device=device)
+
+
+def bert_served_model(name: str = "bert", tiny: bool = True, device: DeviceLike = "cuda",
+                      seed: int = 0) -> ServedModel:
+    """BERT masked-LM logits servable with seeded random weights: ``tiny``
+    for CPU tests, ``tiny=False`` for BERT-base (12 layers, 768 wide, 12
+    heads, vocab 30522, bf16 compute). Instances are token-id lists of one
+    length (int32); predictions are [L, vocab] f32 logits each. ``apply_fn``
+    runs a module bound to the ``params`` it is given, bound again when a
+    reload hands it other ones; concurrent requests share it read-only.
+    Attention goes through ``auto_attention``: the flash kernels on the card
+    at any length; on the CPU, JAX's ``full_attention``."""
+    from ..models.bert import BertConfig, BertForMaskedLM, init_bert_params
+    from ..ops.flash_attention import auto_attention
+
+    cfg = BertConfig.tiny() if tiny else BertConfig.base()
+    lock = threading.Lock()
+    bound: Dict[str, Any] = {"params": None, "model": None}
+
+    def apply_fn(params, ids):
+        with lock:
+            if bound["params"] is not params:
+                bound["model"] = BertForMaskedLM.bind(cfg, params, attention_fn=auto_attention)
+                bound["params"] = params
+            model = bound["model"]
+        return model(ids)
+
+    return ServedModel(name=name, apply_fn=apply_fn,
+                       params=init_bert_params(cfg, seed=seed, device=device),
+                       input_dtype=torch.int32, device=device)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     """``python -m kubeflow_tpu_torch.serving.server`` — GPT-small on the
-    card by default."""
+    card by default; ``--model bert`` serves BERT-base."""
     import argparse
     import os
 
@@ -307,14 +425,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         default=int(os.environ.get("SERVING_PORT", "8500")))
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--tiny", action="store_true",
-                        help="serve the tiny config instead of GPT-small")
+                        help="serve the tiny config instead of GPT-small or BERT-base")
     parser.add_argument("--max-new-tokens", type=int, default=16)
     args = parser.parse_args(argv)
 
     server = ModelServer()
-    server.add(gpt_served_model(name=args.model, tiny=args.tiny,
-                                max_new_tokens=args.max_new_tokens,
-                                device=args.device))
+    if args.model == "bert":
+        server.add(bert_served_model(name=args.model, tiny=args.tiny, device=args.device))
+    else:
+        server.add(gpt_served_model(name=args.model, tiny=args.tiny,
+                                    max_new_tokens=args.max_new_tokens,
+                                    device=args.device))
     httpd = server.serve(args.port)
     print(f"model-server: {args.model!r} on :{httpd.port} ({args.device})", flush=True)
     try:

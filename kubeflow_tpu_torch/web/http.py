@@ -2,8 +2,11 @@
 
 A trimmed copy of ``kubeflow_tpu/web/http.py`` — ``App``, ``HttpError``,
 ``Request`` and the threaded server — enough for the model server's
-predict surface. Route patterns use ``<name>`` segments, inline ones too
-(``/v1/models/<name>:predict``). Servers bind port 0 in tests and expose
+predict surface and the observability routes (``runtime/obs.py``). Route
+patterns use ``<name>`` segments, inline ones too
+(``/v1/models/<name>:predict``). A ``JsonResponse`` body that is ``bytes``,
+or a ``str`` under a non-JSON ``Content-Type`` (the ``/metrics``
+exposition), goes out as it is. Servers bind port 0 in tests and expose
 ``server.port``.
 """
 
@@ -55,6 +58,10 @@ class Request:
     def header(self, name: str, default: str = "") -> str:
         return self.headers.get(name.lower(), default)
 
+    def query1(self, name: str, default: str = "") -> str:
+        vals = self.query.get(name)
+        return vals[0] if vals else default
+
 
 @dataclass
 class JsonResponse:
@@ -62,8 +69,21 @@ class JsonResponse:
     status: int = 200
     headers: Dict[str, str] = field(default_factory=dict)
 
+    @property
+    def content_type(self) -> str:
+        for k, v in self.headers.items():
+            if k.lower() == "content-type":
+                return v
+        return "application/json"
+
     def encode(self) -> bytes:
-        return b"" if self.body is None else json.dumps(self.body).encode()
+        if self.body is None:
+            return b""
+        if isinstance(self.body, bytes):
+            return self.body
+        if isinstance(self.body, str) and not self.content_type.startswith("application/json"):
+            return self.body.encode()
+        return json.dumps(self.body).encode()
 
 
 Handler = Callable[[Request], Any]
@@ -97,6 +117,11 @@ class App:
             return fn
 
         return deco
+
+    def iter_routes(self):
+        """(method, pattern, handler) triples in registration order."""
+        for method, pattern, _rx, fn in self._routes:
+            yield method, pattern, fn
 
     def dispatch(self, req: Request) -> JsonResponse:
         with TRACER.span(
@@ -165,7 +190,7 @@ class AppServer:
                 resp = outer.app.dispatch(req)
                 payload = resp.encode()
                 self.send_response(resp.status)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", resp.content_type)
                 self.send_header("Content-Length", str(len(payload)))
                 for k, v in resp.headers.items():
                     if k.lower() != "content-type":

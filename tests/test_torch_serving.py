@@ -170,12 +170,13 @@ def test_model_server_predict_over_http():
 
 
 def test_prompts_over_the_largest_bucket_take_the_static_path(weights):
-    """A prompt over the largest prefill bucket (256) takes the static
-    generate() path, as the JAX GenerativeModel does with prefill_chunk=0:
-    the port's predict returns the port's generate() tokens, which equal the
-    JAX server's on the converted weights (f32 on both sides, tokens exact).
-    A batch over the largest batch bucket still answers 413; the engine's
-    submit still refuses such a prompt (chunked prefill is not ported)."""
+    """With chunked prefill off (``prefill_chunk=0``), a prompt over the
+    largest prefill bucket (256) takes the static generate() path, as the
+    JAX GenerativeModel does: the port's predict returns the port's
+    generate() tokens, which equal the JAX server's on the converted weights
+    (f32 on both sides, tokens exact). A batch over the largest batch bucket
+    still answers 413. The engine's submit takes such a prompt, and with the
+    chunk 0 its future fails at admission, as JAX's does."""
     from kubeflow_tpu.serving.server import GenerativeModel as JModel
     from kubeflow_tpu_torch.serving.server import BATCH_BUCKETS, GenerativeModel
     from kubeflow_tpu_torch.web.http import HttpError
@@ -184,7 +185,7 @@ def test_prompts_over_the_largest_bucket_take_the_static_path(weights):
     jcfg = JCfg(**dict(SHAPE, max_seq=512), dtype=jnp.float32)
     cfg = GptConfig(**dict(SHAPE, max_seq=512), dtype=torch.float32)
     model = GenerativeModel(name="g", apply_fn=None, params=tparams, cfg=cfg,
-                            max_new_tokens=3, device="cpu")
+                            max_new_tokens=3, prefill_chunk=0, device="cpu")
     prompt = (np.random.default_rng(6).integers(0, 101, (1, 300))).astype(np.int32)
     got = model.predict(prompt.tolist())
     assert model._engine is None  # served without the engine
@@ -200,10 +201,11 @@ def test_prompts_over_the_largest_bucket_take_the_static_path(weights):
     with pytest.raises(HttpError) as err:
         model.predict(too_many.tolist())
     assert err.value.status == 413
-    eng = ContinuousBatcher(cfg, tparams, slots=1, device="cpu")
+    eng = ContinuousBatcher(cfg, tparams, slots=1, prefill_chunk=0, device="cpu")
     try:
+        fut = eng.submit(prompt[0], 3)
         with pytest.raises(ValueError, match="largest prefill bucket"):
-            eng.submit(prompt[0], 3)  # chunked prefill is not in this slice
+            fut.result(timeout=60)
     finally:
         eng.close()
 
@@ -226,7 +228,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 37
+    assert len(mods) >= 46
 
 
 def test_params_are_seeded():
