@@ -77,8 +77,36 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              bf16 with each layer's attention off ``full_attention``'s in
              <= 2% of elements on the same inputs, and as close to the f32
              model's argmax as the bf16 ``full_attention`` model, less
-             1%. Phases 5a-5c run after phase 19, before kv_probe: they
-             start threads and servers, and read no profiler window;
+             1%;
+5d. spec_serve — GPT-small served speculatively (``spec_k`` 4, the 3-layer
+             self-draft ``init_from_target(draft_config(cfg), params)``) in
+             the three layouts, then with the target as its own draft in
+             paged bf16 and contiguous, the 8 prompts of phases 3-5: each
+             request's tokens equal to the layout's phase 3-5 kernel-path
+             tokens or differing first at a near-tie (under 0.05) of that
+             route; ``kv_row_update_pair`` once per draft layer and draft
+             step (3 × 4 or 12 × 4 a round) and no paged write; the target
+             as draft accepting at least 0.8 of its drafts (rounds that
+             commit several tokens); the accept rate, rounds, tokens/s and
+             TTFT p50 beside the phase 3-5 run's;
+5e. distill — ``distill_draft`` at its defaults (300 steps, batch 8, 32
+             sequences of 16 + 48 tokens) on a GPT-small teacher: 15
+             ``flash_fwd``, 3 ``flash_bwd_dq`` and 3 ``flash_bwd_dkv``
+             launches a step, the last step's KL below the first's, the
+             distilled draft's ``measure_accept_rate`` at least the
+             self-draft's; steps/s;
+5f. disagg — a prefill-role engine handing off to a decode-role engine
+             (``submit_handoff`` as its sink), paged bf16 and int8, each
+             without and with the speculative self-draft: the 8 prompts and
+             a 1,500-token one (6 chunks on the prefill side) equal to a
+             unified engine's tokens exactly; without the draft, one
+             request alone first, after which the decode engine's arena
+             blocks equal the never-moved engine's (``torch.equal``); the
+             decode side's launches (the layout's pair 12 a decode step, or
+             ``kv_row_update_pair`` 36 a round); blob bytes and
+             ``serving_kv_handoff_seconds`` p50/p99. Phases 5a-5f run after
+             phase 19a, before kv_probe: they start threads and servers,
+             and read no profiler window;
 6. ref     — a tiny f32 model's prefill logits and greedy tokens on the
              card against the same model on the CPU;
 7. profile — GPT-small's decode step alone, paged and contiguous: host ms
@@ -157,6 +185,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              forward + backward at 8192 tokens);
 19. step_profiles — ``profile_step`` (ResNet-50, batch 256) and
              ``gpt_profile`` (b 8, L 1024), fewer steps;
+19a. spec_write — a speculative round's verify-forward KV write (4 rows a
+             slot, 8 slots, GPT-small's arenas and cache) through the
+             multi-row paths the verify runs (``kv_block_update_ref``, int8
+             after ``quantize_kv``, the contiguous indexed store), against
+             4 launches of the layout's pair kernel at cursors + j, which
+             leave the same bytes (``torch.equal``); call and device ms a
+             layer and a round;
 20. kv_probe — ``kubeflow_tpu_torch.e2e.kv_update_probe``: the KV writes
              alone (contiguous and paged), the host split of a write's
              call, the decode chunk per token with the writes plain and
@@ -173,8 +208,12 @@ serving phases 3-5 for the KV writes, ``train`` for flash attention,
 ``resnet_train`` for the fused blocks, ``probe`` for the streaming
 copies): they are reset just before the run and read just after. Phases
 5a and 5c reset and read them around their own runs too, and print them
-on their own lines. The fused-block kernels' entries in the kernels line
-sum their per-call times over the blocks of one training step (2, 3, 5
+on their own lines; phases 5d-5f reset and read them around each run,
+print them on each run's own line, and their counts are added to the
+kernels line's (the draft's and the decode side's KV writes,
+distillation's flash launches): that line's count is then a sum over
+several runs, and each path's own count is on its run's line. The fused-block
+kernels' entries in the kernels line sum their per-call times over the blocks of one training step (2, 3, 5
 and 2 identity blocks; one of each stage head); their ``max_abs_err`` is
 the largest over the shapes. Every device time read from torch.profiler
 comes from a window that kept the records it is read from: a window that
@@ -267,11 +306,20 @@ def profiled(run, activities=("cuda",)):
     return prof, wall_ms
 
 
-#: how many windows a measurement may take, and the seconds between two
-RETAKE_PAUSE_S, TAKES = 1.0, 8
+#: how many windows a measurement may take
+TAKES = 8
 #: one entry per profiler window of this run (``window_stats``)
 WINDOWS: list = []
 T_START = time.perf_counter()
+
+
+def retake_pause(take: int) -> None:
+    """The pause before a measurement's window ``take`` (none before the
+    first): 1 s, doubling up to 8 s, so TAKES windows span about 40 s. Lossy
+    windows come in runs: one run on an H100 lost a record in each of 8
+    windows over 7 s, another in 10 windows over 9 s."""
+    if take:
+        time.sleep(min(2.0 ** (take - 1), 8.0))
 
 
 def window_stats(prof) -> dict:
@@ -295,8 +343,7 @@ def whole_profile(run, activities, launches: int):
     device record or holds fewer than ``launches`` launch calls. Returns the
     first whole window, else the last, for the caller's exact checks."""
     for take in range(TAKES):
-        if take:
-            time.sleep(RETAKE_PAUSE_S)
+        retake_pause(take)
         prof, wall_ms = profiled(run, activities)
         if whole(WINDOWS[-1], launches):
             break
@@ -336,8 +383,7 @@ def kernel_device_ms(fn, match: str, iters: int = 50, per_call: int = 1) -> floa
     want = iters * per_call
     seen = []
     for take in range(TAKES):
-        if take:
-            time.sleep(RETAKE_PAUSE_S)
+        retake_pause(take)
         ms = cuda_kernel_ms(profiled(run)[0], match)
         if len(ms) == want:
             return sum(ms) / iters
@@ -359,17 +405,52 @@ def device_ms_by_kernel(prof) -> dict:
     return by_name
 
 
+#: runtime calls that put work on the device: kernel launches (the runtime's
+#: and the driver's), copies and memsets
+DEVICE_WORK = ("aunch", "emcpy", "emset")
+
+
+def whole_calls(prof, iters: int) -> list:
+    """(device ms, kernel names) of each call of a window of ``iters`` calls
+    that kept every device record of its own. The window's runtime calls
+    that put work on the device, in the order they were made, are split
+    into ``iters`` runs of the same calls, one run a call; a call whose
+    records were all kept is whole, even where another call of the window
+    lost one. A window holding a device record of no such runtime call, or
+    whose runtime calls do not split so, gives none."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    records = {}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            records.setdefault(e.correlation_id(), []).append((e.name(), e.duration_ns() / 1e6))
+    issued = sorted((e.start_ns(), e.correlation_id(), e.name()) for e in events
+                    if e.device_type() == DeviceType.CPU
+                    and any(w in e.name() for w in DEVICE_WORK))
+    per_call, rest = divmod(len(issued), iters)
+    if not per_call or rest or set(records) - {c for _, c, _ in issued}:
+        return []
+    runs = [issued[i * per_call:(i + 1) * per_call] for i in range(iters)]
+    if len({tuple(name for _, _, name in run) for run in runs}) != 1:
+        return []
+    calls = []
+    for run in runs:
+        if all(c in records for _, c, _ in run):
+            kept = [r for _, c, _ in run for r in records[c]]
+            calls.append((sum(ms for _, ms in kept), {name for name, _ in kept}))
+    return calls
+
+
 def library_device_ms(fn, iters: int = 20):
-    """Device ms per call of every CUDA kernel that ``fn`` launches (a
-    library call's yardstick, by the profiler method of
-    ``kernel_device_ms``), and the sorted names of those kernels. Each
-    kernel of a call runs a fixed number of times per call, and at least
-    one runs once, so the least count is the number of whole calls a window
-    saw. A window that lost a record (phase resnet_kernels' cuDNN composite
-    once lost 7 of 10 calls, three windows running), or whose counts are
-    not all whole multiples of its calls seen, is left out. Windows are
-    taken, up to TAKES, until those kept hold ``iters`` calls, and the time
-    is over the calls they hold."""
+    """Device ms per call of every CUDA kernel, copy and memset that ``fn``
+    launches (a library call's yardstick, by the profiler method of
+    ``kernel_device_ms``), and the sorted names of those kernels. Only
+    whole calls count (``whole_calls``): a window that lost a record (phase
+    resnet_kernels' cuDNN composite once lost 7 of 10 calls, three windows
+    running; a torch.mul lost 1 of 10 in 8 windows running) still gives the
+    calls it kept whole. Windows are taken, up to TAKES, until they hold
+    ``iters`` whole calls, and the time is over the whole calls they hold."""
     def run():
         for _ in range(iters):
             fn()
@@ -377,17 +458,13 @@ def library_device_ms(fn, iters: int = 20):
 
     total_ms, calls, names = 0.0, 0, set()
     for take in range(TAKES):
-        if take:
-            time.sleep(RETAKE_PAUSE_S)
-        events = device_events(profiled(run)[0])
-        counts = Counter(name for name, _ in events)
-        seen = min(counts.values(), default=0)
-        if seen and whole(WINDOWS[-1], seen) and all(n % seen == 0 for n in counts.values()):
-            total_ms += sum(ms for _, ms in events)
-            calls += seen
-            names |= set(counts)
-            if calls >= iters:
-                return total_ms / calls, sorted(names)
+        retake_pause(take)
+        for ms, kernels in whole_calls(profiled(run)[0], iters):
+            total_ms += ms
+            calls += 1
+            names |= kernels
+        if calls >= iters:
+            return total_ms / calls, sorted(names)
     raise AssertionError(f"profiler saw {calls} whole calls in {TAKES} windows of {iters} "
                          f"calls: {WINDOWS[-TAKES:]}")
 
@@ -676,6 +753,21 @@ NEAR_TIE = 0.05
 BF16_ARGMAX_SLACK = 0.01
 
 
+def top2_gap(cfg, params, prompt, path, step: int) -> float:
+    """The top-2 logit gap of ``generate()``'s model (one prefill, then
+    single-token steps) at ``step`` of a greedy run that emitted ``path``."""
+    from kubeflow_tpu_torch.models.gpt import GptLM, _fresh_cache
+
+    with torch.no_grad():
+        model = GptLM.bind(cfg, params, decode=True)
+        cache = _fresh_cache(cfg, 1, "cuda")
+        logits = model(torch.as_tensor(prompt[None]).cuda(), cache)[0, -1]
+        for t in path[:step]:
+            logits = model(torch.tensor([[t]], dtype=torch.int32, device="cuda"), cache)[0, -1]
+        top2 = torch.topk(logits.float(), 2).values
+    return float(top2[0] - top2[1])
+
+
 def hold_to_generate(label: str, cfg, params, prompt, toks, card: str,
                      exact: bool = False) -> dict:
     """``toks`` (a served request's generated tokens) against the port's
@@ -685,40 +777,44 @@ def hold_to_generate(label: str, cfg, params, prompt, toks, card: str,
     generate()'s one prefill), the first differing step is found and
     generate()'s own logits there are read, step by step as it ran: the
     request passes only if their top-2 gap is under ``NEAR_TIE``."""
-    from kubeflow_tpu_torch.models.gpt import GptLM, _fresh_cache, generate
+    from kubeflow_tpu_torch.models.gpt import generate
 
     want = generate(cfg, params, prompt[None], MAX_NEW, device="cuda")[0, len(prompt):].tolist()
-    if toks == want:
-        return {"equal_to_generate": True}
-    if exact:
+    if exact and toks != want:
         raise AssertionError(f"{label}: the static route's tokens differ from generate()")
+    held = near_tie(label, cfg, params, prompt, toks, want, card)
+    return {"equal_to_generate": held.pop("equal"), **held}
+
+
+def near_tie(label: str, cfg, params, prompt, toks, want, card: str) -> dict:
+    """``toks`` against ``want`` (the same request on a reference route):
+    equal passes; else the first differing step must be a near-tie of the
+    reference, its top-2 logit gap (``top2_gap`` along ``want``) under
+    ``NEAR_TIE``."""
+    if toks == want:
+        return {"equal": True}
     step = next(i for i, (a, b) in enumerate(zip(toks, want)) if a != b)
-    with torch.no_grad():
-        model = GptLM.bind(cfg, params, decode=True)
-        cache = _fresh_cache(cfg, 1, "cuda")
-        logits = model(torch.as_tensor(prompt[None]).cuda(), cache)[0, -1]
-        for t in want[:step]:
-            logits = model(torch.tensor([[t]], dtype=torch.int32, device="cuda"), cache)[0, -1]
-        top2 = torch.topk(logits.float(), 2).values
-    gap = float(top2[0] - top2[1])
-    emit(phase=label, card=card, differs_from_generate_at_step=step, generate_top2_gap=gap,
-         near_tie_limit=NEAR_TIE)
+    gap = top2_gap(cfg, params, prompt, want, step)
+    emit(phase=label, card=card, prompt_tokens=len(prompt), differs_at_step=step,
+         reference_top2_gap=gap, near_tie_limit=NEAR_TIE)
     if gap >= NEAR_TIE:
-        raise AssertionError(f"{label}: tokens differ from generate() at step {step}, where "
-                             f"its top-2 logit gap is {gap} (not a near-tie)")
-    return {"equal_to_generate": False, "first_differing_step": step, "generate_top2_gap": gap}
+        raise AssertionError(f"{label}: a {len(prompt)}-token prompt differs at step {step}, "
+                             f"where the reference's top-2 logit gap is {gap} (not a near-tie)")
+    return {"equal": False, "first_differing_step": step, "reference_top2_gap": gap}
 
 
-def serve(prompts, card: str, label: str, long_prompt=None, **kw):
-    """GPT-small behind ModelServer; one warm-up request, then every count
-    reset and the 8 prompts sent concurrently. Then, after the counts are
+def serve(prompts, card: str, label: str, long_prompt=None, draft=None, **kw):
+    """GPT-small behind ModelServer (``draft(cfg, params)``, where given,
+    makes its speculative draft, ``SPEC_K`` a round); one warm-up request,
+    then every count reset and the 8 prompts sent concurrently. Then, after the counts are
     read, ``long_prompt`` (over the largest prefill bucket) alone: it must
     be served and held to the port's ``generate()`` on the same weights
     (``hold_to_generate``): by chunked prefill with the default chunk, by
     the static ``generate()`` path with ``prefill_chunk=0``, which must
     equal it exactly. Returns
-    (generated tokens per prompt, launch counts of the run, decode steps of
-    the run)."""
+    (generated tokens per prompt, launch counts of the run, the run's
+    stats: decode steps, spec rounds and drafted/accepted tokens, tokens/s,
+    TTFT p50)."""
     from kubeflow_tpu_torch.models.gpt import GptConfig
     from kubeflow_tpu_torch.ops import kv_cache as kc
     from kubeflow_tpu_torch.runtime.metrics import METRICS
@@ -728,6 +824,9 @@ def serve(prompts, card: str, label: str, long_prompt=None, **kw):
     vocab = GptConfig.small().vocab_size
     model = gpt_served_model(name="gpt", tiny=False, max_new_tokens=MAX_NEW,
                              device="cuda", seed=0, **kw)
+    if draft is not None:
+        model = dataclasses.replace(model, spec_draft=draft(model.cfg, model.params),
+                                    spec_k=SPEC_K)
     server = ModelServer().add(model)
     httpd = server.serve(0)
     try:
@@ -740,16 +839,21 @@ def serve(prompts, card: str, label: str, long_prompt=None, **kw):
         out = post_all(httpd.port, prompts, label)
         wall = time.perf_counter() - t0
         counts = dict(kc.LAUNCHES)
-        steps = int(METRICS.value("serving_decode_steps_total"))
+        stats = {"steps": int(METRICS.value("serving_decode_steps_total")),
+                 "rounds": int(METRICS.value("serving_spec_rounds_total")),
+                 "drafted": METRICS.value("serving_spec_tokens_drafted_total"),
+                 "accepted": METRICS.value("serving_spec_tokens_accepted_total")}
         gen = generated(label, prompts, out, vocab)
         ttft = [ms for _, ms in ttft_ms()]
         chunk = METRICS.histogram("serving_decode_chunk_seconds")
+        stats.update(tokens_per_s=sum(len(t) for t in gen) / wall,
+                     ttft_ms_p50=float(np.median(ttft)) if ttft else None)
         emit(phase=label, card=card, requests=len(prompts),
              generated_tokens=sum(len(t) for t in gen), wall_s=wall,
-             tokens_per_s=sum(len(t) for t in gen) / wall,
-             ttft_ms_p50=float(np.median(ttft)) if ttft else None,
+             tokens_per_s=stats["tokens_per_s"], ttft_ms_p50=stats["ttft_ms_p50"],
              decode_chunk_ms_mean=(chunk.sum / chunk.total * 1e3) if chunk.total else None,
-             decode_chunks=chunk.total, decode_steps=steps, launches=counts,
+             decode_chunks=chunk.total, decode_steps=stats["steps"],
+             spec_rounds=stats["rounds"], launches=counts,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         if long_prompt is not None:
             chunks = METRICS.value("serving_prefill_chunks_total")
@@ -768,7 +872,7 @@ def serve(prompts, card: str, label: str, long_prompt=None, **kw):
                                     exact=not chunks)
             emit(phase=label, card=card, over_bucket_prompt=len(long_prompt),
                  route=route, tokens=len(o), wall_s=long_s, **held)
-        return gen, counts, steps
+        return gen, counts, stats
     finally:
         httpd.close()
         server.close()
@@ -1151,6 +1255,312 @@ def bert_phase(card: str) -> None:
         del model
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# -- phases 5d-5f: speculative decoding, draft distillation, prefill/decode roles ----------
+
+SPEC_K = 4
+#: the self-draft's depth: GPT-small's bottom quarter (``draft_config``'s default)
+DRAFT_LAYERS = 3
+#: the paged writes' wrappers, none of which may launch in a speculative run: the
+#: verify forward writes spec_k rows a slot through the multi-row paths
+PAGED_WRITES = ("kv_block_update", "kv_block_update_pair", "kv_block_update_quant",
+                "kv_block_update_quant_pair")
+
+
+#: the least accept rate of the target drafting for itself in bf16: every draft
+#: matches but where the verify forward's [32, .] GEMMs flip a near-tie of the
+#: draft's [8, .] step
+TARGET_DRAFT_ACCEPT = 0.8
+
+
+def expect_spec(label: str, counts: dict, rounds: int, steps: int,
+                draft_layers: int = DRAFT_LAYERS) -> None:
+    """A speculative run's KV launches: ``kv_row_update_pair`` once per draft
+    layer and draft step, no paged write and no plain decode step."""
+    want = draft_layers * SPEC_K * rounds
+    if (rounds == 0 or steps or counts["kv_row_update_pair"] != want or counts["kv_row_update"]
+            or any(counts[n] for n in PAGED_WRITES)):
+        raise AssertionError(f"{label}: {counts} over {rounds} spec rounds and {steps} decode "
+                             f"steps; expected {want} kv_row_update_pair and no paged write")
+
+
+def self_draft(cfg, params):
+    """The ``DRAFT_LAYERS``-layer self-draft: the target's bottom blocks and
+    its embeddings (``init_from_target``)."""
+    from kubeflow_tpu_torch.training.distill import draft_config, init_from_target
+
+    dcfg = draft_config(cfg, DRAFT_LAYERS)
+    return dcfg, init_from_target(dcfg, params)
+
+
+def spec_serve_phase(card: str, prompts, short_tokens: dict, serve_stats: dict) -> dict:
+    """Phase 5d: GPT-small served speculatively (``spec_k`` 4) in the three
+    KV layouts with the 3-layer self-draft, then in paged bf16 and
+    contiguous with the target as its own draft, the 8 prompts of phases
+    3-5 at 32 new tokens: tokens held to each layout's non-speculative
+    kernel-path run by ``near_tie`` (the verify forward's bf16 GEMMs have
+    other shapes than a one-token step's), the draft's
+    ``kv_row_update_pair`` launches, no paged write; the target as draft
+    accepts at least ``TARGET_DRAFT_ACCEPT`` of its drafts, so rounds that
+    commit several tokens are held to the plain run too; the accept rate,
+    rounds, tokens/s and TTFT p50 beside the non-speculative run's.
+    Returns the ``kv_row_update_pair`` launches of each run by label."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+
+    cfg = GptConfig.small()
+    params = None
+    launches = {}
+    runs = [(layout, kw, self_draft, DRAFT_LAYERS)
+            for layout, kw in (("paged", {}), ("contiguous", dict(paged=False)),
+                               ("int8", dict(kv_dtype="int8")))]
+    runs += [(layout, kw, lambda c, p: (c, p), cfg.n_layers)
+             for layout, kw in (("paged", {}), ("contiguous", dict(paged=False)))]
+    for layout, kw, draft, draft_layers in runs:
+        label = f"spec_serve_{layout}" + ("_target_draft" if draft_layers == cfg.n_layers
+                                          else "")
+        gen, counts, st = serve(prompts, card, label, draft=draft, **kw)
+        expect_spec(label, counts, st["rounds"], st["steps"], draft_layers)
+        differ = 0
+        if gen != short_tokens[layout]:
+            params = params or init_params(cfg, seed=0, device="cuda")
+            differ = sum(not near_tie(label, cfg, params, p, toks, want, card)["equal"]
+                         for p, toks, want in zip(prompts, gen, short_tokens[layout]))
+        base = serve_stats[layout]
+        accept = st["accepted"] / st["drafted"]
+        emit(phase=label, card=card, spec_k=SPEC_K, draft_layers=draft_layers,
+             rounds=st["rounds"], drafted=st["drafted"], accepted=st["accepted"],
+             accept_rate=accept, mean_accepted_width=1 + accept * (SPEC_K - 1),
+             tokens_per_s=st["tokens_per_s"], tokens_per_s_plain=base["tokens_per_s"],
+             ttft_ms_p50=st["ttft_ms_p50"], ttft_ms_p50_plain=base["ttft_ms_p50"],
+             requests_equal_to_plain=len(prompts) - differ, near_tie_differences=differ,
+             kv_row_update_pair=counts["kv_row_update_pair"])
+        if draft_layers == cfg.n_layers and accept < TARGET_DRAFT_ACCEPT:
+            raise AssertionError(f"{label}: the target as its own draft accepts {accept} of "
+                                 f"its drafts, below {TARGET_DRAFT_ACCEPT}")
+        launches[label] = counts["kv_row_update_pair"]
+    return launches
+
+
+def spec_write_phase(card: str) -> None:
+    """What a speculative round's verify forward costs in KV writes, at
+    GPT-small serving shapes (8 slots, ``SPEC_K`` rows a slot at in-range
+    cursors, 12 heads x 64, 2048 positions, 16-row blocks), a layer's K and
+    V: the multi-row write the verify runs (``kv_block_update_ref``'s
+    scatters, int8 after ``quantize_kv``; the contiguous cache's indexed
+    store) against ``SPEC_K`` launches of the layout's pair kernel at
+    cursors + j, which must leave the same bytes (``torch.equal``). Call ms
+    (CUDA events, back-to-back calls) and device ms (every kernel a call
+    launches, torch.profiler), a layer and a round (12 layers)."""
+    from kubeflow_tpu_torch.ops import kv_cache as kc
+
+    dev = "cuda"
+    g = torch.Generator().manual_seed(1)
+    S, T, H, D, bt, k, n_layers = 8, 2048, 12, 64, 16, SPEC_K, 12
+    mb = T // bt
+    N = S * mb + 1
+    cur = torch.tensor([n + MAX_NEW // 2 for n in PROMPT_LENS], dtype=torch.int32).to(dev)
+    curs = [cur + j for j in range(k)]
+    tables = torch.randperm(N - 1, generator=g)[: S * mb].reshape(S, mb).int().to(dev)
+    seg = [torch.randn(S, k, H, D, generator=g).to(dev, torch.bfloat16) for _ in range(2)]
+    rows = [[x[:, j].contiguous() for j in range(k)] for x in seg]
+    blank = {"paged": [torch.zeros(N, bt, H, D, dtype=torch.bfloat16, device=dev)
+                       for _ in range(2)],
+             "int8": [torch.zeros(N, bt, H, D, dtype=torch.int8, device=dev),
+                      torch.zeros(N, bt, H, 1, device=dev)] * 2,
+             "contiguous": [torch.zeros(S, T, H, D, dtype=torch.bfloat16, device=dev)
+                            for _ in range(2)]}
+    slot = torch.arange(S, device=dev)[:, None]
+    pos = cur.long()[:, None] + torch.arange(k, device=dev)
+
+    def verify(layout, t):
+        if layout == "paged":
+            for arena, x in zip(t, seg):
+                kc.kv_block_update_ref(arena, x, cur, tables, max_seq=T)
+        elif layout == "int8":
+            for (arena, scales), x in zip((t[:2], t[2:]), seg):
+                q, sc = kc.quantize_kv(x)
+                kc.kv_block_update_ref(arena, q, cur, tables, max_seq=T)
+                kc.kv_block_update_ref(scales, sc, cur, tables, max_seq=T)
+        else:
+            for cache, x in zip(t, seg):
+                cache[slot, pos] = x
+
+    def pairs(layout, t):
+        for j in range(k):
+            if layout == "paged":
+                kc.kv_block_update_pair(*t, rows[0][j], rows[1][j], curs[j], tables, max_seq=T)
+            elif layout == "int8":
+                kc.kv_block_update_quant_pair(*t, rows[0][j], rows[1][j], curs[j], tables,
+                                              max_seq=T)
+            else:
+                kc.kv_row_update_pair(*t, rows[0][j], rows[1][j], curs[j])
+
+    for layout, pair in (("paged", "kv_block_update_pair"),
+                         ("int8", "kv_block_update_quant_pair"),
+                         ("contiguous", "kv_row_update_pair")):
+        want = [t.clone() for t in blank[layout]]
+        verify(layout, want)
+        got = [t.clone() for t in blank[layout]]
+        pairs(layout, got)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"spec_write {layout}: {k} {pair} launches at cursors + j "
+                                 f"differ from the verify forward's write")
+        times = {}
+        for route, fn in (("verify_write", verify), (f"{pair}_x{k}", pairs)):
+            work = [t.clone() for t in blank[layout]]
+            call = lambda: fn(layout, work)
+            times[route] = dict(call_ms=cuda_ms(call, iters=100),
+                                device_ms=library_device_ms(call)[0])
+        emit(phase="spec_write", card=card, layout=layout, rows_a_slot=k, slots=S,
+             equal_bytes=True, per="layer (K and V)", **{
+                 f"{route}_{m}": v for route, d in times.items() for m, v in d.items()},
+             **{f"{route}_{m}_a_round": v * n_layers
+                for route, d in times.items() for m, v in d.items()})
+
+
+def distill_phase(card: str) -> dict:
+    """Phase 5e: ``distill_draft`` at the JAX defaults (300 steps, batch 8,
+    32 sequences of 16 + 48 tokens, lr 1e-3) on a GPT-small teacher, the
+    3-layer draft: the flash launches of each step (``flash_fwd`` 12 + 3,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` 3), the last step's KL below the
+    first's, and ``measure_accept_rate`` of the distilled draft at least the
+    self-draft's; steps/s. Returns the flash kernels' launches."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.training import distill
+
+    cfg = GptConfig.small()
+    params = init_params(cfg, seed=0, device="cuda")
+    dcfg = distill.draft_config(cfg)
+    self_accept = distill.measure_accept_rate(cfg, params, dcfg,
+                                              distill.init_from_target(dcfg, params))
+    curve, stamps = [], []
+
+    def on_step(step, kl):
+        curve.append(kl)
+        stamps.append(time.perf_counter())
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    _, draft = distill.distill_draft(cfg, params, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = dict(fa.LAUNCHES)
+    steps = len(curve)
+    want = {"flash_fwd": (cfg.n_layers + dcfg.n_layers) * steps,
+            "flash_bwd_dq": dcfg.n_layers * steps, "flash_bwd_dkv": dcfg.n_layers * steps}
+    if counts != want:
+        raise AssertionError(f"distill: flash launches {counts} over {steps} steps; "
+                             f"expected {want}")
+    if not all(np.isfinite(curve)) or not curve[-1] < curve[0]:
+        raise AssertionError(f"distill: KL {curve[0]} -> {curve[-1]} did not fall")
+    accept = distill.measure_accept_rate(cfg, params, dcfg, draft)
+    emit(phase="distill", card=card, steps=steps, draft_layers=dcfg.n_layers,
+         kl_first=curve[0], kl_last=curve[-1], wall_s=wall,
+         steps_per_s=(steps - 1) / (stamps[-1] - stamps[0]),
+         accept_rate_self_draft=self_accept, accept_rate_distilled=accept,
+         flash_launches=counts, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if accept < self_accept:
+        raise AssertionError(f"distill: the distilled draft accepts {accept}, below the "
+                             f"self-draft's {self_accept}")
+    return counts
+
+
+def disagg_phase(card: str, prompts) -> dict:
+    """Phase 5f: a prefill-role engine handing off to a decode-role engine
+    through ``submit_handoff`` (its sink), GPT-small, paged bf16 and int8,
+    each without and with the speculative self-draft: the 8 prompts and a
+    1,500-token one (6 chunks on the prefill side) at 32 new tokens, held
+    to a unified engine with the same options on the card, exactly. The
+    decode side's KV launches: the layout's pair kernel once per layer and
+    decode step (``expect_spec``'s counts with the draft). Without the
+    draft, first one request alone on the fresh engines: the decode
+    engine's arena blocks ``torch.equal`` to the never-moved unified
+    engine's. Blob bytes a request, ``serving_kv_handoff_seconds`` p50 and
+    p99. Returns the KV kernels' launches on the decode side."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.ops import kv_cache as kc
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+
+    cfg = GptConfig.small()
+    params = init_params(cfg, seed=0, device="cuda")
+    long_p = np.random.default_rng(7).integers(0, cfg.vocab_size, CHUNKED_PROMPT).astype(np.int32)
+    jobs = list(prompts) + [long_p]
+    spec = dict(spec_draft=self_draft(cfg, params), spec_k=SPEC_K)
+    totals: Counter = Counter()
+
+    def run(engine, reqs):
+        futs = [engine.submit(p, MAX_NEW) for p in reqs]
+        return [f.result(timeout=600) for f in futs], futs
+
+    for name, kw in (("bf16", {}), ("int8", dict(kv_dtype="int8")),
+                     ("bf16_spec", spec), ("int8_spec", dict(kv_dtype="int8", **spec))):
+        label = f"disagg_{name}"
+        pair = "kv_block_update_quant_pair" if "int8" in name else "kv_block_update_pair"
+        unified = ContinuousBatcher(cfg, params, engine_id="u", device="cuda", **kw)
+        decode = ContinuousBatcher(cfg, params, engine_id="d", role="decode", device="cuda",
+                                   **kw)
+        prefill = ContinuousBatcher(cfg, params, engine_id="p", role="prefill", device="cuda",
+                                    handoff_sink=decode.submit_handoff, **kw)
+        try:
+            arenas_equal = None
+            if "spec_draft" not in kw:
+                one = [prompts[3]]
+                if run(unified, one)[0] != run(prefill, one)[0]:
+                    raise AssertionError(f"{label}: one request's tokens differ from unified")
+                torch.cuda.synchronize()
+                arenas_equal = all(
+                    torch.equal(u["attention"][k][:-1], d["attention"][k][:-1])
+                    for u, d in zip(unified.cache.values(), decode.cache.values())
+                    for k in u["attention"] if k != "cursors")
+                if not arenas_equal:
+                    raise AssertionError(f"{label}: imported arena blocks differ from the "
+                                         f"never-moved engine's")
+            want, _ = run(unified, jobs)
+            torch.cuda.synchronize()
+            kc.reset_launches()
+            METRICS.reset()
+            t0 = time.perf_counter()
+            got, futs = run(prefill, jobs)
+            wall = time.perf_counter() - t0
+            counts = dict(kc.LAUNCHES)
+            steps = int(METRICS.value("serving_decode_steps_total"))
+            rounds = int(METRICS.value("serving_spec_rounds_total"))
+            if got != want:
+                bad = [len(p) for p, a, b in zip(jobs, got, want) if a != b]
+                raise AssertionError(f"{label}: tokens of the {bad}-token prompts differ from "
+                                     f"the unified engine's")
+            if "spec_draft" in kw:
+                expect_spec(label, counts, rounds, steps)
+            elif (steps == 0 or counts[pair] != cfg.n_layers * steps
+                  or any(counts[n] for n in PAGED_WRITES if n != pair)
+                  or counts["kv_row_update_pair"]):
+                raise AssertionError(f"{label}: {counts} over {steps} decode steps; expected "
+                                     f"{cfg.n_layers} {pair} a step and no other write")
+            sizes = [len(f.kv_blob) for f in futs]
+            if METRICS.value("serving_kv_handoff_total") != len(jobs) \
+                    or METRICS.value("serving_kv_import_total") != len(jobs):
+                raise AssertionError(f"{label}: not every request was handed off and imported")
+            emit(phase=label, card=card, requests=len(jobs), wall_s=wall,
+                 tokens_per_s=len(jobs) * MAX_NEW / wall, equal_to_unified=True,
+                 arenas_equal_to_never_moved=arenas_equal, decode_steps=steps,
+                 spec_rounds=rounds, launches=counts,
+                 blob_bytes_short_mean=float(np.mean(sizes[:-1])), blob_bytes_long=sizes[-1],
+                 handoff_s_p50=METRICS.quantile("serving_kv_handoff_seconds", 0.5),
+                 handoff_s_p99=METRICS.quantile("serving_kv_handoff_seconds", 0.99))
+            for k, n in counts.items():
+                totals[k] += n
+        finally:
+            prefill.close()
+            decode.close()
+            unified.close()
+            del prefill, decode, unified
+            gc.collect()
+            torch.cuda.empty_cache()
+    return {k: totals[k] for k in ("kv_row_update_pair", "kv_block_update_pair",
+                                   "kv_block_update_quant_pair")}
 
 
 def ref_phase(card: str) -> None:
@@ -2162,7 +2572,7 @@ def main() -> int:
 
     try:
         kernels = timed("kernels", kernel_phase)
-        launches, prompts, short_tokens = timed("serve+contig+int8", serve_phases)
+        launches, prompts, short_tokens, serve_stats = timed("serve+contig+int8", serve_phases)
         timed("ref", ref_phase)
         timed("profile", profile_phase)
         kernels.update(timed("flash", flash_phase))
@@ -2177,10 +2587,18 @@ def main() -> int:
         launches.update(timed("probe", probe_phase))
         timed("ceiling", ceiling_phase)
         timed("step_profiles", step_profiles_phase)
+        timed("spec_write", spec_write_phase)
         # after every phase that reads the profiler: these start threads and
         # servers, and read no profiler window
         timed("serve_chunked+obs", lambda c: serve_chunked_phase(c, prompts, short_tokens))
         timed("bert_serve", bert_phase)
+        spec_runs = timed("spec_serve", lambda c: spec_serve_phase(
+            c, prompts, short_tokens, serve_stats))
+        launches["kv_row_update_pair"] += sum(spec_runs.values())
+        for name, n in timed("distill", distill_phase).items():
+            launches[name] += n
+        for name, n in timed("disagg", lambda c: disagg_phase(c, prompts)).items():
+            launches[name] += n
         # last: its ~10^6 launches (the decode chunks of in_model) come after
         # every profiler window
         timed("kv_probe", kv_probe_phase)
@@ -2207,7 +2625,7 @@ def serve_phases(card: str):
     through chunked prefill in the paged run and through the static
     ``generate()`` path (``prefill_chunk=0``) in the contiguous one. Returns
     each KV kernel's launches in its layout's run, the 8 prompts and each
-    layout's kernel-path tokens."""
+    layout's kernel-path tokens and run stats (``serve``)."""
     from kubeflow_tpu_torch.models.gpt import GptConfig
 
     n_layers = GptConfig.small().n_layers
@@ -2221,8 +2639,9 @@ def serve_phases(card: str):
                                  f"{n_layers} {name} a step and no {never}")
 
     # default: the kernels
-    bf16_k, c, steps = serve(prompts, card, "serve_paged_kernel", long_prompt=long_prompt)
-    expect("serve_paged_kernel", c, "kv_block_update_pair", steps, "kv_block_update")
+    bf16_k, c, st = serve(prompts, card, "serve_paged_kernel", long_prompt=long_prompt)
+    expect("serve_paged_kernel", c, "kv_block_update_pair", st["steps"], "kv_block_update")
+    stats = {"paged": st}
     launches = {"kv_block_update_pair": c["kv_block_update_pair"]}
     bf16_p, c, _ = serve(prompts, card, "serve_paged_plain", kv_kernel=False)
     if any(c.values()):
@@ -2230,24 +2649,26 @@ def serve_phases(card: str):
     if bf16_k != bf16_p:
         raise AssertionError("paged bf16: kernel-path tokens differ from plain-path tokens")
 
-    contig, c, steps = serve(prompts, card, "serve_contiguous_kernel", long_prompt=long_prompt,
-                             paged=False, prefill_chunk=0)
-    expect("serve_contiguous_kernel", c, "kv_row_update_pair", steps, "kv_row_update",
+    contig, c, st = serve(prompts, card, "serve_contiguous_kernel", long_prompt=long_prompt,
+                          paged=False, prefill_chunk=0)
+    expect("serve_contiguous_kernel", c, "kv_row_update_pair", st["steps"], "kv_row_update",
            "kv_block_update_pair")
+    stats["contiguous"] = st
     launches["kv_row_update_pair"] = c["kv_row_update_pair"]
     if contig != bf16_k:
         raise AssertionError("contiguous tokens differ from paged tokens")
 
-    int8_k, c, steps = serve(prompts, card, "serve_int8_kernel", kv_dtype="int8")
-    expect("serve_int8_kernel", c, "kv_block_update_quant_pair", steps,
+    int8_k, c, st = serve(prompts, card, "serve_int8_kernel", kv_dtype="int8")
+    expect("serve_int8_kernel", c, "kv_block_update_quant_pair", st["steps"],
            "kv_block_update_quant")
+    stats["int8"] = st
     launches["kv_block_update_quant_pair"] = c["kv_block_update_quant_pair"]
     int8_p, _, _ = serve(prompts, card, "serve_int8_plain", kv_kernel=False, kv_dtype="int8")
     if int8_k != int8_p:
         raise AssertionError("int8: kernel-path tokens differ from plain-path tokens")
     agree = np.mean([a == b for x, y in zip(int8_k, bf16_k) for a, b in zip(x, y)])
     emit(phase="int8_vs_bf16", card=card, token_agreement=float(agree))
-    return launches, prompts, {"paged": bf16_k, "contiguous": contig, "int8": int8_k}
+    return launches, prompts, {"paged": bf16_k, "contiguous": contig, "int8": int8_k}, stats
 
 
 if __name__ == "__main__":

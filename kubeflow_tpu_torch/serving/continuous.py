@@ -1,5 +1,5 @@
 """Continuous batching for KV-cache decode — the port of
-``kubeflow_tpu/serving/continuous.py`` in its unified role.
+``kubeflow_tpu/serving/continuous.py``.
 
 Slot-based admission over one per-slot KV cache:
 
@@ -21,18 +21,24 @@ Slot-based admission over one per-slot KV cache:
   time and the next queued request takes the row;
 - chunk dispatches overlap: up to ``pipeline`` chunks are in flight, their
   token blocks fetched by non-blocking copies into pinned memory, so host
-  dispatch of the next chunk overlaps device work on the current one.
+  dispatch of the next chunk overlaps device work on the current one;
+- with ``spec_draft`` each dispatch is one speculative round instead of a
+  chunk: ``spec_k`` greedy draft steps over a contiguous per-slot draft
+  cache, ONE target forward over ``[tok, d_1 .. d_{k-1}]``, and both
+  caches' cursors rolled back to the accepted frontier on the device;
+- ``role="prefill"`` engines prefill only and hand each request to
+  ``handoff_sink`` as a KV wire blob (``serving/kv_wire.py``);
+  ``role="decode"`` engines also take such blobs through
+  :meth:`ContinuousBatcher.submit_handoff` and scatter them into the arena.
 
 PyTorch runs eagerly, and unlike JAX it mutates: the step writes the cache
-in place (JAX donated it), so the prefill template is zeroed for every wave
-and the chunked prefill's private cache for every long prompt (both are
-allocated once per engine), and every host array the device reads — block
-tables included — reaches it through a fresh pinned staging copy, never a
-view of an array the host mutates later.
-
-Not ported yet (ROADMAP.md queue A, A.4.5-A.4.6): speculative decoding,
-prefill/decode roles and the KV wire. Those raise at construction or
-submit.
+in place (JAX donated it), so the prefill templates (the target's and the
+draft's) are zeroed for every wave and the one-row caches (the chunked
+prefill's, the draft's full-prompt prefill's) for every use (all are
+allocated once per engine); an export reads its rows to the host before
+anything can zero them; and every host array the device reads — block
+tables and wire blocks included — reaches it through a fresh pinned
+staging copy, never a view of an array the host mutates later.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +81,9 @@ PREFILL_BUCKETS_S = (0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
                      10.0)
 DECODE_CHUNK_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                         0.5, 1.0, 2.5)
+#: KV handoff blob sizes, ~KBs (tiny configs) to ~100s of MB (long prompts)
+HANDOFF_BYTES_BUCKETS = (1024.0, 8192.0, 65536.0, 524288.0, 4194304.0,
+                         33554432.0, 268435456.0)
 
 #: ceiling on one batched prefill's rows: every admission group is padded
 #: to ``min(slots, MAX_GROUP)``; larger waves are chunked
@@ -83,7 +92,7 @@ MAX_GROUP = 8
 #: drain-queue sentinel (distinct from the ``None`` shutdown sentinel)
 _DRAIN = object()
 
-_LATER = "ROADMAP.md queue A, A.4.5-A.4.6"
+ROLES = ("unified", "prefill", "decode")
 
 
 def _bucket_for(n: int) -> int:
@@ -144,6 +153,11 @@ class _Request:
     span: Optional[Span] = None
     submit_at: Optional[float] = None       # perf_counter at enqueue
     last_token_at: Optional[float] = None   # perf_counter at latest token
+    #: the served model's multiplexing id, stamped into its KV export
+    model_id: str = ""
+    #: the KV wire blob once a prefill-role engine has shipped it; a
+    #: draining decode engine hands the request back with it set
+    kv_blob: Optional[bytes] = None
 
     def result(self, timeout: Optional[float] = None) -> List[int]:
         if not self.done.wait(timeout):
@@ -184,6 +198,16 @@ class _ChunkedPrefill:
     slot: int
     pos: int = 0                       # prompt tokens prefilled so far
     res: Optional[KVReservation] = None
+
+
+@dataclass(eq=False)
+class _Import:
+    """One KV-wire import awaiting a decode slot: its blocks arrived
+    prefilled (and, int8, quantized); admission reserves arena blocks like
+    any other request."""
+    req: _Request
+    manifest: Dict[str, Any]
+    arrays: Dict[str, torch.Tensor]
 
 
 def _fail(req: _Request, error: BaseException) -> None:
@@ -246,6 +270,20 @@ class ContinuousBatcher:
     servable prompt range up to ``max_seq`` minus the budget; 0 turns it
     off, and a prompt above the largest bucket then fails at admission).
     ``seed`` seeds the engine's one sampling generator (None = OS entropy).
+
+    ``spec_draft=(draft_cfg, draft_params)`` turns on speculative decoding:
+    each dispatch is one round of ``spec_k`` (at least 2) greedy draft steps
+    and ONE target forward that verifies them; greedy rows emit exactly the
+    plain engine's tokens, sampled rows one token a round drawn from the
+    verify logits. The draft shares the target's vocab and covers its
+    ``max_seq``; its one-token writes take the same ``kv_kernel`` route.
+
+    ``role``: ``"unified"`` (prefill and decode), ``"prefill"`` (every
+    admitted request is prefilled, exported with ``serving.kv_wire`` and
+    handed to ``handoff_sink(req, blob)``, which takes ownership) or
+    ``"decode"`` (also imports such blobs through :meth:`submit_handoff`).
+    The roles need the paged arena. ``model_id`` is stamped into exports
+    and checked on import.
     """
 
     def __init__(self, cfg: GptConfig, params: Params, slots: int = 8,
@@ -258,21 +296,27 @@ class ContinuousBatcher:
                  kv_blocks: Optional[int] = None,
                  kv_block_t: int = 16,
                  prefill_chunk: Optional[int] = None,
-                 spec_draft: Optional[Tuple[GptConfig, Any]] = None,
+                 spec_draft: Optional[Tuple[GptConfig, Params]] = None,
+                 spec_k: int = 4,
                  kv_dtype: str = "bf16",
                  role: str = "unified",
+                 model_id: str = "",
+                 handoff_sink: Optional[Callable[[_Request, bytes], None]] = None,
                  seed: Optional[int] = None,
                  device: DeviceLike = "cuda"):
-        if spec_draft is not None:
-            raise NotImplementedError(f"speculative decoding: {_LATER}")
-        if role != "unified":
-            raise NotImplementedError(
-                f"role {role!r}: prefill/decode roles and the KV wire: {_LATER}")
         self.kv_dtype = str(kv_dtype)
         if self.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {self.kv_dtype!r}: expected bf16|int8")
         if self.kv_dtype == "int8" and not paged:
             raise ValueError("kv_dtype='int8' requires paged=True")
+        self.role = str(role)
+        if self.role not in ROLES:
+            raise ValueError(f"role {self.role!r}: expected unified|prefill|decode")
+        if self.role != "unified" and not paged:
+            raise ValueError("prefill/decode roles require paged=True (the KV wire "
+                             "format is block-shaped)")
+        self.model_id = str(model_id)
+        self.handoff_sink = handoff_sink
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
@@ -297,22 +341,46 @@ class ContinuousBatcher:
             self._tables = np.full((slots, self._max_blocks),
                                    self._alloc.trash, np.int32)
             self._slot_res: Dict[int, KVReservation] = {}
-            # each slot's cursor at the dispatch frontier (drives granting)
+            # an upper bound on each slot's cursor at the dispatch frontier
+            # (spec rounds move the real one by a data-dependent amount on
+            # the device); it drives granting
             self._ub_cursor = np.zeros((slots,), np.int64)
         else:
             self.kv_block_t = 0
             self._alloc = None
+        self.spec_k = 0
+        if spec_draft is not None:
+            draft_cfg, draft_params = spec_draft
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("spec draft must share the target's vocab")
+            if draft_cfg.max_seq < cfg.max_seq:
+                raise ValueError("spec draft max_seq must cover the target's")
+            self.spec_k = max(2, int(spec_k))
+            self._draft_cfg = draft_cfg
+            self._draft_params = {k: v.to(self.device) for k, v in draft_params.items()}
+            self._draft_model = GptLM.bind(draft_cfg, self._draft_params, decode=True,
+                                           per_slot=True, kv_kernel=kv_kernel)
+            self._draft_prefill_model = GptLM.bind(draft_cfg, self._draft_params,
+                                                   decode=True)
         self.model = GptLM.bind(cfg, self.params, decode=True, per_slot=True,
                                 kv_kernel=kv_kernel, paged=self.paged,
                                 kv_dtype=self.kv_dtype)
         self._prefill_model = GptLM.bind(cfg, self.params, decode=True)
         self.cache = self._fresh_cache()
-        self._prefill_cache = self._fresh_prefill_cache(self._group_pad)
+        self._prefill_cache = self._fresh_prefill_cache(cfg, self._group_pad)
         self.prefill_chunk = effective_prefill_chunk(prefill_chunk, cfg.max_seq,
                                                      self.kv_block_t or 1)
         self._chunked: Optional[_ChunkedPrefill] = None
         # the long prompt's private [1, max_seq] cache, zeroed per prompt
-        self._chunk_cache = self._fresh_prefill_cache(1) if self.prefill_chunk else None
+        self._chunk_cache = (self._fresh_prefill_cache(cfg, 1)
+                             if self.prefill_chunk else None)
+        if self.spec_k:
+            # the draft stays contiguous: it is small by construction
+            self.draft_cache = self._fresh_cache(self._draft_cfg, paged=False)
+            self._draft_prefill_cache = self._fresh_prefill_cache(
+                self._draft_cfg, self._group_pad)
+            # the draft's full-prompt prefill (a chunked prompt, an import)
+            self._draft_one_cache = self._fresh_prefill_cache(self._draft_cfg, 1)
         self.last_tok = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         # per-slot temperature: on the device for the step, on the host to
         # decide whether a dispatch samples at all
@@ -320,8 +388,8 @@ class ContinuousBatcher:
         self._temps_host = np.zeros((slots,), np.float32)
         self._gen = torch.Generator(device=self.device).manual_seed(
             int.from_bytes(os.urandom(4), "little") if seed is None else int(seed))
-        # queue items are WAVES (lists of requests enqueued atomically);
-        # None is the shutdown sentinel
+        # queue items are WAVES (lists of requests enqueued atomically) or
+        # KV-wire imports; None is the shutdown sentinel
         self._queue: "queue.Queue[Any]" = queue.Queue()
         self._pending: "collections.deque[_Request]" = collections.deque()
         self._active: Dict[int, _Request] = {}
@@ -331,6 +399,8 @@ class ContinuousBatcher:
         self._draining = False
         #: requests drain() could not serve, futures still open
         self._handoff: List[_Request] = []
+        #: KV-wire imports awaiting a slot (decode role)
+        self._imports: "collections.deque[_Import]" = collections.deque()
         self._worker = threading.Thread(target=self._loop, name="continuous-batcher",
                                         daemon=True)
         self._worker.start()
@@ -339,12 +409,18 @@ class ContinuousBatcher:
     def _zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
-    def _fresh_cache(self) -> Dict[str, Any]:
-        cfg, S = self.cfg, self.slots
+    def _fresh_cache(self, cfg: Optional[GptConfig] = None,
+                     paged: Optional[bool] = None) -> Dict[str, Any]:
+        """The running per-slot cache: the target's (paged or contiguous,
+        as the engine is), or with ``cfg`` and ``paged=False`` the draft's
+        contiguous one."""
+        cfg = cfg or self.cfg
+        paged = self.paged if paged is None else paged
+        S = self.slots
         layers = {}
         for i in range(cfg.n_layers):
             att = {"cursors": self._zeros((S,), torch.int32)}
-            if self.paged:
+            if paged:
                 arena = (self._alloc.n_blocks + 1, self.kv_block_t,
                          cfg.n_heads, cfg.head_dim)
                 quant = self.kv_dtype == "int8"
@@ -360,22 +436,24 @@ class ContinuousBatcher:
             layers[f"block_{i}"] = {"attention": att}
         return layers
 
-    def _fresh_prefill_cache(self, rows: int) -> Dict[str, Any]:
-        """A scalar-cursor [rows, max_seq] cache: the group prefill's
-        (``group_pad`` rows) and the chunked prefill's (1 row); each is
-        zeroed before each use."""
-        cfg = self.cfg
+    def _fresh_prefill_cache(self, cfg: GptConfig, rows: int) -> Dict[str, Any]:
+        """A scalar-cursor [rows, max_seq] cache of ``cfg``'s model: the
+        group prefill's (``group_pad`` rows) and the one-row prefills'
+        (the chunked prompt's, the draft's full prompt); each is zeroed
+        before each use."""
         kv = (rows, cfg.max_seq, cfg.n_heads, cfg.head_dim)
         return {f"block_{i}": {"attention": {
             "k": self._zeros(kv, cfg.dtype), "v": self._zeros(kv, cfg.dtype),
             "cursor": self._zeros((), torch.int32)}}
             for i in range(cfg.n_layers)}
 
-    def _to_device(self, host: np.ndarray) -> torch.Tensor:
-        """Host array → device through a fresh pinned staging copy (the
+    def _to_device(self, host: Any) -> torch.Tensor:
+        """Host array (or a host tensor nothing mutates later, such as a
+        wire block) → device through a fresh pinned staging copy (the
         caching host allocator keeps it alive until the copy has run), so
-        the host may mutate ``host`` right after this returns."""
-        t = torch.from_numpy(np.array(host, copy=True))
+        the host may mutate an array right after this returns."""
+        t = host if isinstance(host, torch.Tensor) else torch.from_numpy(
+            np.array(host, copy=True))
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
@@ -391,9 +469,12 @@ class ContinuousBatcher:
                              - torch.log(noise), dim=-1).to(torch.int32)
         return torch.where(temps > 0.0, drawn, greedy)
 
+    def _any_sampled(self) -> bool:
+        return any(self._temps_host[s] > 0.0 for s in self._active)
+
     def _decode_chunk(self, tables: Optional[torch.Tensor]) -> torch.Tensor:
         """``chunk`` single-token steps over every slot; [slots, chunk]."""
-        sampled = any(self._temps_host[s] > 0.0 for s in self._active)
+        sampled = self._any_sampled()
         tok = self.last_tok
         out = []
         for _ in range(self.chunk):
@@ -404,31 +485,102 @@ class ContinuousBatcher:
         METRICS.counter("serving_decode_steps_total").inc(self.chunk)
         return torch.stack(out, dim=1)
 
+    def _spec_round(self, tables: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One speculative round over every slot: ``spec_k`` greedy draft
+        steps (writing the draft KV of ``tok, d_1 .. d_{k-1}``), ONE target
+        forward over ``[tok, d_1 .. d_{k-1}]``, and both caches' cursors
+        rolled back to the accepted frontier. Greedy rows accept ``m = 1 +
+        leading draft/target matches`` tokens — exactly plain greedy
+        decode's, since each is conditioned on accepted history only, and
+        positions below ``C + m`` of both caches hold accepted tokens' KV.
+        Sampled rows accept one token, drawn from the verify logits at
+        position 0. Returns (toks [S, k], m [S]); every value stays on the
+        device."""
+        k = self.spec_k
+        tok = self.last_tok
+        d, drafts = tok, []
+        for _ in range(k):
+            logits = self._draft_model(d[:, None], self.draft_cache)
+            d = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            drafts.append(d)
+        drafts = torch.stack(drafts, dim=1)                          # [S, k]
+        seg = torch.cat([tok[:, None], drafts[:, :k - 1]], dim=1)
+        logits = self.model(seg, self.cache, block_tables=tables)   # [S, k, V]
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        sampled = self._any_sampled()
+        toks = torch.cat([self._sample(logits[:, 0], self.temps, sampled)[:, None],
+                          greedy[:, 1:]], dim=1)
+        match = (drafts[:, :k - 1] == greedy[:, :k - 1]).to(torch.int32)
+        m = 1 + torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+        if sampled:
+            m = torch.where(self.temps > 0.0, torch.ones_like(m), m)
+        back = (k - m).to(torch.int32)
+        for cache in (self.cache, self.draft_cache):
+            for layer in cache.values():
+                layer["attention"]["cursors"] -= back
+        self.last_tok = toks.gather(1, (m.long() - 1)[:, None])[:, 0]
+        METRICS.counter("serving_spec_rounds_total").inc()
+        return toks, m
+
+    def _group_ids(self, prompts: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """A same-bucket group's prompts padded to [group_pad, bucket], and
+        each row's true length (1 for padding rows)."""
+        n = len(prompts)
+        bucket = _bucket_for(max(len(p) for p in prompts))
+        if n > self._group_pad:
+            raise ValueError(f"admission group of {n} exceeds pad {self._group_pad}")
+        ids = np.zeros((self._group_pad, bucket), np.int32)
+        true_lens = np.ones((self._group_pad,), np.int64)
+        for i, p in enumerate(prompts):
+            ids[i, : len(p)] = p
+            true_lens[i] = len(p)
+        return ids, true_lens
+
     def _prefill_group(self, prompts: Sequence[np.ndarray],
                        temperatures: Sequence[float]) -> torch.Tensor:
         """ONE batched prefill for a same-bucket admission group into the
         zeroed prefill cache (shared cursor 0), padded to the engine's
         fixed group size. Returns each row's first token [group_pad]."""
-        n = len(prompts)
-        bucket = _bucket_for(max(len(p) for p in prompts))
-        n_pad = self._group_pad
-        if n > n_pad:
-            raise ValueError(f"admission group of {n} exceeds pad {n_pad}")
-        ids = np.zeros((n_pad, bucket), np.int32)
-        true_lens = np.ones((n_pad,), np.int64)
-        temps = np.zeros((n_pad,), np.float32)
-        for i, p in enumerate(prompts):
-            ids[i, : len(p)] = p
-            true_lens[i] = len(p)
-            temps[i] = temperatures[i]
+        ids, true_lens = self._group_ids(prompts)
+        temps = np.zeros((self._group_pad,), np.float32)
+        temps[:len(temperatures)] = temperatures
         _zero(self._prefill_cache)
         model = self._prefill_model
         hidden = model(self._to_device(ids), self._prefill_cache, return_hidden=True)
         # each row's first token comes from ITS true last prompt position
-        rows = torch.arange(n_pad, device=self.device)
+        rows = torch.arange(self._group_pad, device=self.device)
         last = hidden[rows, self._to_device(true_lens) - 1]
         logits = last @ model.embedding.weight.float().T
         return self._sample(logits, self._to_device(temps), bool((temps > 0).any()))
+
+    def _draft_prefill(self, cache: Dict[str, Any], ids: np.ndarray) -> None:
+        """The draft's prefill of ``ids`` [rows, L] into the zeroed
+        scalar-cursor ``cache``; only its KV is read (no LM head)."""
+        _zero(cache)
+        self._draft_prefill_model(self._to_device(ids), cache, return_hidden=True)
+
+    def _draft_adopt(self, src: Dict[str, Any], slots: List[int],
+                     true_lens: List[int]) -> None:
+        """Splice rows ``0..n-1`` of the draft prefill cache ``src`` into the
+        contiguous draft cache at ``slots``, cursors at the true lengths."""
+        n = len(slots)
+        slots_t = self._to_device(np.asarray(slots, np.int64))
+        lens_t = self._to_device(np.asarray(true_lens, np.int32))
+        for name, layer in self.draft_cache.items():
+            att, small = layer["attention"], src[name]["attention"]
+            att["k"][slots_t] = small["k"][:n]
+            att["v"][slots_t] = small["v"][:n]
+            att["cursors"][slots_t] = lens_t
+
+    def _draft_full_prompt(self, prompt: np.ndarray, width: int, slot: int) -> None:
+        """The draft adopts one prompt through a single forward over it
+        padded to ``width`` (a chunked prompt's chunks, an import's
+        blocks): the draft is small, so chunking it would only add
+        dispatches."""
+        ids = np.zeros((1, width), np.int32)
+        ids[0, :len(prompt)] = prompt
+        self._draft_prefill(self._draft_one_cache, ids)
+        self._draft_adopt(self._draft_one_cache, [slot], [len(prompt)])
 
     def _adopt(self, src: Dict[str, Any], n: int, slots: List[int], true_lens: List[int],
                first: torch.Tensor, temperatures: List[float],
@@ -495,7 +647,7 @@ class ContinuousBatcher:
                     f"{self._alloc.n_blocks} (raise kv_blocks)")
         req = _Request(prompt, max_new_tokens, eos_id=eos_id,
                        temperature=float(temperature),
-                       deadline=deadline, priority=priority)
+                       deadline=deadline, priority=priority, model_id=self.model_id)
         req.span = TRACER.start_span(
             "serving.request", traceparent=traceparent,
             **{"prompt_tokens": int(len(prompt)),
@@ -520,7 +672,40 @@ class ContinuousBatcher:
         return req
 
     def submit_handoff(self, req: _Request, blob: bytes) -> _Request:
-        raise NotImplementedError(f"KV-wire import: {_LATER}")
+        """Take a request prefilled elsewhere: ``blob`` is a prefill-role
+        engine's KV wire export. The frame, every crc32 and the manifest's
+        fit (kv_dtype, block_t, model_id, prompt_len, blocks) are checked
+        here, on the caller's thread, so a bad blob raises where the caller
+        can still send the request elsewhere. The same request object
+        continues: its future, span and deadline carry over."""
+        if self.role == "prefill":
+            raise ValueError("prefill-role engines cannot import KV")
+        if not self.paged:
+            raise ValueError("KV import requires the paged arena layout")
+        from .kv_wire import unpack_kv
+
+        manifest, arrays = unpack_kv(blob)
+        if manifest.get("kv_dtype") != self.kv_dtype:
+            raise ValueError(f"wire kv_dtype {manifest.get('kv_dtype')!r} != engine "
+                             f"{self.kv_dtype!r}")
+        if int(manifest.get("block_t", 0)) != self.kv_block_t:
+            raise ValueError(f"wire block_t {manifest.get('block_t')} != engine "
+                             f"{self.kv_block_t}")
+        if manifest.get("model_id", "") != self.model_id:
+            raise ValueError(f"wire model {manifest.get('model_id')!r} != replica model "
+                             f"{self.model_id!r}")
+        if int(manifest.get("prompt_len", -1)) != len(req.prompt):
+            raise ValueError("wire prompt_len disagrees with the request")
+        need = self._alloc.blocks_for(len(req.prompt) + req.max_new_tokens)
+        if need > self._alloc.n_blocks:
+            raise ValueError(f"prompt + budget needs {need} KV blocks; the arena has "
+                             f"{self._alloc.n_blocks} (raise kv_blocks)")
+        req.kv_blob = blob
+        with self._lock:
+            if self._closed:
+                raise EngineClosed("batcher closed")
+            self._queue.put(_Import(req=req, manifest=manifest, arrays=arrays))
+        return req
 
     def cancel_requests(self, n: int = 1) -> int:
         """Abandon up to ``n`` in-flight, then queued, requests (a client
@@ -579,7 +764,8 @@ class ContinuousBatcher:
     def drain(self, timeout: float = 600.0) -> List[_Request]:
         """Graceful shutdown: stop admission, let in-flight slots run to
         completion, then return the unserved requests with their futures
-        still open. Idempotent."""
+        still open — the queued ones, and the KV imports not yet admitted
+        (their ``kv_blob`` set, to import elsewhere). Idempotent."""
         with self._lock:
             already = self._closed
             self._closed = True
@@ -614,6 +800,23 @@ class ContinuousBatcher:
                   for chunk in by_bucket.values()
                   for i in range(0, len(chunk), self._group_pad)]
         for group in groups:
+            if self.role == "prefill":
+                # a prefill specialist: ONE batched prefill, then each row's
+                # KV and first token go over the wire — no slot, no arena
+                # reservation, no decode
+                try:
+                    t0 = time.perf_counter()
+                    first = self._prefill_group([r.prompt for r in group],
+                                                [r.temperature for r in group])
+                except Exception as e:
+                    for req in group:
+                        _fail(req, e)
+                    continue
+                METRICS.histogram(
+                    "serving_prefill_seconds", buckets=PREFILL_BUCKETS_S
+                ).observe(time.perf_counter() - t0, trace_id=_trace_id(group[0]))
+                self._export_group(group, first)
+                continue
             reserved: List[KVReservation] = []
             if self.paged:
                 # reserve worst-case blocks BEFORE spending prefill compute;
@@ -657,8 +860,15 @@ class ContinuousBatcher:
                         self._tables[slot, :len(res.granted)] = res.granted
                         self._slot_res[slot] = res
                         self._ub_cursor[slot] = len(req.prompt)
-                self._adopt(self._prefill_cache, n, slots, [len(r.prompt) for r in group], first,
+                lens = [len(r.prompt) for r in group]
+                self._adopt(self._prefill_cache, n, slots, lens, first,
                             [r.temperature for r in group], block_ids)
+                if self.spec_k:
+                    # the draft adopts the same prompts before any round
+                    # includes these rows
+                    ids, _ = self._group_ids([r.prompt for r in group])
+                    self._draft_prefill(self._draft_prefill_cache, ids)
+                    self._draft_adopt(self._draft_prefill_cache, slots, lens)
             except Exception as e:  # the group fails alone
                 # restore the slots and blocks, fail the group, keep serving
                 self._free.extend(slots)
@@ -693,6 +903,50 @@ class ContinuousBatcher:
         self._set_occupancy()
         return events
 
+    # -- KV handoff: prefill-role export ---------------------------------------
+    def _export_group(self, group: List[_Request], first: torch.Tensor) -> None:
+        """Ship each row of a prefill group: its first token and its
+        prefill-cache rows go to the host now (a synchronous read), before
+        the next wave or long prompt can zero the template."""
+        first_host = first[:len(group)].cpu().numpy()
+        for i, req in enumerate(group):
+            rows = {nm: {"k": l["attention"]["k"][i], "v": l["attention"]["v"][i]}
+                    for nm, l in self._prefill_cache.items()}
+            self._ship(req, rows, int(first_host[i]))
+
+    def _ship(self, req: _Request, row_cache: Dict[str, Dict[str, torch.Tensor]],
+              first_token: int) -> None:
+        """Export ONE prefilled request (its [>= prompt, h, d] cache rows
+        per layer, on the device) to the KV wire and hand it to the sink;
+        ``export_kv`` quantizes (int8) on the device, as the adopt does,
+        and reads the blocks to the host. The sink call is synchronous:
+        when it returns, ownership has moved. A failure, or no sink at all,
+        fails this request alone."""
+        from .kv_wire import export_kv
+
+        sink = self.handoff_sink
+        if sink is None:
+            _fail(req, RuntimeError("prefill engine has no handoff_sink — a prefill-role "
+                                    "replica cannot serve decode itself"))
+            return
+        try:
+            t0 = time.perf_counter()
+            blob = export_kv(row_cache, prompt_len=len(req.prompt), block_t=self.kv_block_t,
+                             kv_dtype=self.kv_dtype, first_token=first_token,
+                             model_id=self.model_id)
+            req.kv_blob = blob
+            sink(req, blob)
+        except Exception as e:
+            _fail(req, e)
+            return
+        dt = time.perf_counter() - t0
+        METRICS.counter("serving_kv_handoff_total").inc()
+        METRICS.histogram("serving_kv_handoff_bytes",
+                          buckets=HANDOFF_BYTES_BUCKETS).observe(float(len(blob)))
+        METRICS.histogram("serving_kv_handoff_seconds", buckets=PREFILL_BUCKETS_S
+                          ).observe(dt, trace_id=_trace_id(req))
+        _ev(req, "kv_handoff", bytes=len(blob))
+
     # -- chunked prefill ------------------------------------------------------
     def _start_chunked(self, req: _Request) -> bool:
         """Claim a slot (and, paged, the worst-case block reservation) for
@@ -701,7 +955,8 @@ class ContinuousBatcher:
         when the arena cannot reserve yet (the caller requeues it); a
         request that can never fit fails here and counts as handled."""
         res = None
-        if self.paged:
+        # a prefill specialist never decodes: the importing engine reserves
+        if self.paged and self.role != "prefill":
             try:
                 res = self._alloc.reserve(self._alloc.blocks_for(
                     len(req.prompt) + req.max_new_tokens))
@@ -773,6 +1028,14 @@ class ContinuousBatcher:
         logits = last @ self._prefill_model.embedding.weight.float().T
         temps = np.asarray([req.temperature], np.float32)
         first = self._sample(logits, self._to_device(temps), req.temperature > 0.0)
+        if self.role == "prefill":
+            # export instead of adopting: the importing engine owns it now
+            rows = {nm: {"k": l["attention"]["k"][0], "v": l["attention"]["v"][0]}
+                    for nm, l in self._chunk_cache.items()}
+            tok = int(first[0])
+            self._abort_chunked(cp)
+            self._ship(req, rows, tok)
+            return []
         slot = cp.slot
         block_ids = None
         if self.paged:
@@ -784,6 +1047,8 @@ class ContinuousBatcher:
             self._slot_res[slot] = cp.res
             self._ub_cursor[slot] = n
         self._adopt(self._chunk_cache, 1, [slot], [n], first, [req.temperature], block_ids)
+        if self.spec_k:
+            self._draft_full_prompt(req.prompt, cp.pos, slot)
         fetch = _Fetch(first)
         now = time.perf_counter()
         self._active[slot] = req
@@ -796,10 +1061,98 @@ class ContinuousBatcher:
         self._set_occupancy()
         return [("first", fetch, [(req, slot)], now)]
 
+    # -- KV handoff: decode-role import -----------------------------------------
+    def _admit_imports(self) -> List[Tuple[str, Any, Any, float]]:
+        """Admit queued KV-wire imports into free slots: reserve arena blocks
+        (an exhausted arena leaves the import queued, in its place), grant
+        the prompt's blocks, scatter the wire blocks into the arena, install
+        the cursor, ``last_tok`` and temperature, and (spec) re-prefill the
+        draft locally — the wire carries no draft KV. The 'first' event
+        carries the prefill engine's first token, so TTFT runs from the
+        original submit. A failed import frees its slot and blocks and
+        fails its own request."""
+        events: List[Tuple[str, Any, Any, float]] = []
+        quant = self.kv_dtype == "int8"
+        while self._imports and self._free:
+            imp = self._imports[0]
+            req = imp.req
+            if req.done.is_set():
+                self._imports.popleft()
+                continue
+            if req.cancel_requested:
+                self._imports.popleft()
+                req.finish_reason = "cancelled"
+                METRICS.counter("serving_cancelled_total").inc()
+                _ev(req, "cancelled", stage="import")
+                _fail(req, RequestCancelled("cancelled before KV import"))
+                continue
+            if req.expired():
+                self._imports.popleft()
+                req.finish_reason = "deadline"
+                METRICS.counter("serving_deadline_expired_total", stage="queued").inc()
+                _ev(req, "deadline_expired", stage="import")
+                _fail(req, DeadlineExceeded("deadline expired before KV import"))
+                continue
+            n = len(req.prompt)
+            try:
+                res = self._alloc.reserve(self._alloc.blocks_for(n + req.max_new_tokens))
+            except FleetSaturated:
+                break  # no blocks yet; the import keeps its place in line
+            except ValueError as e:
+                self._imports.popleft()
+                _fail(req, e)
+                continue
+            self._imports.popleft()
+            slot = self._free.pop()
+            try:
+                nb = self._alloc.blocks_for(n)
+                self._alloc.grant(res, nb)
+                block_ids = np.asarray(res.granted, np.int32)
+                if any(a.shape[0] != nb for a in imp.arrays.values()):
+                    raise ValueError(f"wire carries a block count != {nb} for prompt_len {n}")
+                self._tables[slot, :nb] = block_ids
+                self._slot_res[slot] = res
+                self._ub_cursor[slot] = n
+                ids = self._to_device(block_ids.astype(np.int64))
+                kinds = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+                for name, layer in self.cache.items():
+                    att = layer["attention"]
+                    for kind in kinds:
+                        dst = att[f"{kind}_arena"] if kind in ("k", "v") else att[kind]
+                        dst[ids] = self._to_device(imp.arrays[f"{name}/{kind}"]).to(dst.dtype)
+                    att["cursors"][slot] = n
+                self.last_tok[slot] = int(imp.manifest["first_token"])
+                self.temps[slot] = req.temperature
+                self._temps_host[slot] = req.temperature
+                if self.spec_k:
+                    self._draft_full_prompt(req.prompt, nb * self.kv_block_t, slot)
+            except Exception as e:
+                self._free.append(slot)
+                self._tables[slot, :] = self._alloc.trash
+                self._slot_res.pop(slot, None)
+                self._ub_cursor[slot] = 0
+                self._alloc.release(res)
+                _fail(req, e)
+                continue
+            now = time.perf_counter()
+            self._active[slot] = req
+            if req.submit_at is not None:
+                METRICS.histogram("serving_queue_wait_seconds", buckets=QUEUE_WAIT_BUCKETS,
+                                  ).observe(now - req.submit_at, trace_id=_trace_id(req))
+            METRICS.counter("serving_kv_import_total").inc()
+            _ev(req, "admitted", slot=slot)
+            _ev(req, "kv_import", blocks=int(nb))
+            first = torch.tensor([int(imp.manifest["first_token"])], dtype=torch.int32)
+            events.append(("first", _Fetch(first), [(req, slot)], now))
+        self._set_occupancy()
+        return events
+
     def _grant_active(self, tokens: int) -> None:
-        """Advance every active slot's cursor frontier by the tokens the next
-        dispatch writes and grant the blocks it needs — BEFORE the dispatch
-        snapshots the table."""
+        """Advance every active slot's cursor upper bound by the tokens the
+        next dispatch may write (a chunk, or a spec round's ``spec_k``) and
+        grant the blocks that frontier needs — BEFORE the dispatch
+        snapshots the table. The bound, never a cursor read back, drives
+        granting; positions past the reservation stay on trash."""
         if not self.paged:
             return
         max_seq = self.cfg.max_seq
@@ -927,8 +1280,8 @@ class ContinuousBatcher:
         return wave
 
     def _shutdown(self, cause: str) -> None:
-        """Fail everything in flight (the chunked prefill too), pending, and
-        still queued — all with the SAME cause."""
+        """Fail everything in flight (the chunked prefill too), pending,
+        awaiting import and still queued — all with the SAME cause."""
         if self._chunked is not None:
             # in neither _active nor _pending: forgetting it would hang its
             # caller
@@ -940,22 +1293,33 @@ class ContinuousBatcher:
         self._active.clear()
         while self._pending:
             _fail(self._pending.popleft(), EngineClosed(cause))
+        while self._imports:
+            _fail(self._imports.popleft().req, EngineClosed(cause))
         self._set_queue_gauge()
         while True:
             try:
                 rest = self._queue.get_nowait()
             except queue.Empty:
                 return
-            if rest is not None and rest is not _DRAIN:
+            if isinstance(rest, _Import):
+                _fail(rest.req, EngineClosed(cause))
+            elif rest is not None and rest is not _DRAIN:
                 for req in rest:
                     _fail(req, EngineClosed(cause))
 
     def _process_event(self, event: Tuple[str, Any, Any, float]) -> None:
         """Consume one pipelined event in dispatch order. ``first``: an
         admission group's first tokens. ``chunk``: a token block, retired
-        against the DISPATCH-TIME snapshot of the active slots."""
+        against the DISPATCH-TIME snapshot of the active slots. ``spec``:
+        one speculative round's [slots, spec_k] tokens and each row's
+        accepted width m; only the first m of a row are real."""
         kind, fetch, meta, dispatched_at = event
-        block = fetch.numpy()
+        widths = None
+        if kind == "spec":
+            toks_fetch, m_fetch = fetch
+            block, widths = toks_fetch.numpy(), m_fetch.numpy()
+        else:
+            block = fetch.numpy()
         now = time.perf_counter()
         if kind == "first":
             for (req, slot), tok in zip(meta, block):
@@ -980,8 +1344,14 @@ class ContinuousBatcher:
         METRICS.histogram(
             "serving_decode_chunk_seconds", buckets=DECODE_CHUNK_BUCKETS
         ).observe(now - dispatched_at)
-        width = block.shape[1]
         for slot, req in meta.items():
+            width = int(widths[slot]) if widths is not None else block.shape[1]
+            if widths is not None and not req.done.is_set():
+                # spec_k - 1 verifiable drafts a round; m - 1 of them were
+                # accepted (the +1 is the target's own token)
+                METRICS.counter("serving_spec_tokens_drafted_total").inc(self.spec_k - 1)
+                if width > 1:
+                    METRICS.counter("serving_spec_tokens_accepted_total").inc(width - 1)
             if req.done.is_set():
                 # retired in an earlier event: this row's block was
                 # computed for nobody
@@ -1024,7 +1394,7 @@ class ContinuousBatcher:
         events: "collections.deque[Tuple[str, Any, Any, float]]" = collections.deque()
 
         def chunk_depth() -> int:
-            return sum(1 for kind, _, _, _ in events if kind == "chunk")
+            return sum(1 for kind, _, _, _ in events if kind in ("chunk", "spec"))
 
         while True:
             # drain arrivals into the pending deque; block only when fully
@@ -1032,7 +1402,7 @@ class ContinuousBatcher:
             try:
                 timeout = (None if not (self._active or self._pending
                                         or events or self._draining
-                                        or self._chunked)
+                                        or self._chunked or self._imports)
                            else 0.0)
                 while True:
                     item = self._queue.get(timeout=timeout) if timeout is None \
@@ -1042,6 +1412,8 @@ class ContinuousBatcher:
                         return
                     if item is _DRAIN:
                         self._draining = True
+                    elif isinstance(item, _Import):
+                        self._imports.append(item)
                     else:
                         self._enqueue_pendings(item)
                     timeout = 0.0
@@ -1054,6 +1426,11 @@ class ContinuousBatcher:
                 self._reap_pending()
                 self._reap_active()
                 dispatched = False
+                if self._imports and self._free and not self._draining:
+                    # imports admit before fresh prompts: their prefill is
+                    # already spent
+                    events.extend(self._admit_imports())
+                    dispatched = True
                 if self._free and self._pending and not self._draining:
                     wave = self._next_wave(len(self._free))
                     self._set_queue_gauge()
@@ -1069,11 +1446,16 @@ class ContinuousBatcher:
                     # one CHUNK of decode steps for every slot (inactive rows
                     # compute too; their tokens are discarded against the
                     # snapshot)
-                    self._grant_active(self.chunk)
+                    self._grant_active(self.spec_k or self.chunk)
                     tables = self._to_device(self._tables) if self.paged else None
-                    toks = self._decode_chunk(tables)
-                    events.append(("chunk", _Fetch(toks), dict(self._active),
-                                   time.perf_counter()))
+                    if self.spec_k:
+                        toks, m = self._spec_round(tables)
+                        events.append(("spec", (_Fetch(toks), _Fetch(m)),
+                                       dict(self._active), time.perf_counter()))
+                    else:
+                        toks = self._decode_chunk(tables)
+                        events.append(("chunk", _Fetch(toks), dict(self._active),
+                                       time.perf_counter()))
                     dispatched = True
                 # keep the dispatch frontier at most ``pipeline`` chunks
                 # ahead; when nothing new was dispatched, drain one event
@@ -1083,9 +1465,13 @@ class ContinuousBatcher:
                     self._process_event(events.popleft())
                 if (self._draining and not self._active and not events
                         and self._chunked is None):
-                    # drain complete: park the unserved pendings for the caller
+                    # drain complete: park the unserved pendings for the
+                    # caller, and the unadmitted imports (``kv_blob`` set)
                     self._handoff.extend(self._pending)
                     self._pending.clear()
+                    self._handoff.extend(imp.req for imp in self._imports
+                                         if not imp.req.done.is_set())
+                    self._imports.clear()
                     self._set_queue_gauge()
                     self._set_occupancy()
                     return

@@ -257,6 +257,9 @@ class GenerativeModel(ServedModel):
     #: chunked-prefill budget (None = the largest prefill bucket; 0 turns it
     #: off, and over-bucket prompts take the static generate() path)
     prefill_chunk: Optional[int] = None
+    #: (draft_cfg, draft_params) turns on speculative decoding
+    spec_draft: Optional[Any] = None
+    spec_k: int = 4
     kv_dtype: str = "bf16"
     kv_kernel: bool = True
     seed: Optional[int] = None
@@ -275,7 +278,8 @@ class GenerativeModel(ServedModel):
                 self._engine = ContinuousBatcher(
                     self.cfg, self.params, slots=self.slots, paged=self.paged,
                     kv_blocks=self.kv_blocks, kv_block_t=self.kv_block_t,
-                    prefill_chunk=self.prefill_chunk, kv_dtype=self.kv_dtype,
+                    prefill_chunk=self.prefill_chunk, spec_draft=self.spec_draft,
+                    spec_k=self.spec_k, kv_dtype=self.kv_dtype,
                     kv_kernel=self.kv_kernel, seed=self.seed, device=self.device)
             return self._engine
 

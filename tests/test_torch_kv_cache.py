@@ -508,3 +508,51 @@ def test_kernels_bit_equal_to_plain_on_the_card():
     torch.cuda.synchronize()
     # cfg launches count nothing
     assert tkv.LAUNCHES["kv_block_update_pair"] == 1 and tkv.LAUNCHES["kv_row_update_pair"] == 2
+
+
+@pytest.mark.cuda
+def test_spec_round_tokens_equal_the_plain_engine_on_the_card():
+    """A speculative engine on the card (f32 tiny config, spec_k 4), with
+    the 1-layer self-draft and with the target as its own draft: its greedy
+    tokens are the plain engine's, and the draft's one-row writes launched
+    ``kv_row_update_pair`` once per draft layer and draft step, the
+    target's verify no KV kernel. The target as draft accepts every draft
+    (m = k each round), so rounds that commit several tokens and roll
+    back nothing are held to the plain engine too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    import dataclasses
+
+    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.training.distill import draft_config, init_from_target
+
+    cfg = GptConfig(d_model=32, n_layers=2, n_heads=2, d_ff=64, max_seq=128, vocab_size=101,
+                    dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cuda")
+    dcfg = dataclasses.replace(draft_config(cfg), dtype=torch.float32)
+    jobs = [(np.random.default_rng(s).integers(0, 101, n).astype(np.int32), b)
+            for s, n, b in ((1, 3, 6), (2, 17, 9), (3, 7, 4), (4, 30, 11), (5, 12, 5))]
+
+    def run(**kw):
+        eng = ContinuousBatcher(cfg, params, slots=3, device="cuda", **kw)
+        try:
+            futs = [eng.submit(p, b) for p, b in jobs]
+            return [f.result(timeout=300) for f in futs]
+        finally:
+            eng.close()
+
+    plain = run()
+    names = ("serving_spec_rounds_total", "serving_spec_tokens_drafted_total",
+             "serving_spec_tokens_accepted_total")
+    for draft in ((dcfg, init_from_target(dcfg, params)), (cfg, params)):
+        tkv.reset_launches()
+        before = [METRICS.value(n) for n in names]
+        got = run(spec_k=4, spec_draft=draft)
+        rounds, drafted, accepted = (METRICS.value(n) - b for n, b in zip(names, before))
+        assert got == plain
+        assert rounds > 0
+        assert tkv.LAUNCHES["kv_row_update_pair"] == draft[0].n_layers * 4 * rounds
+        assert tkv.LAUNCHES["kv_block_update_pair"] == 0
+    assert drafted > 0 and accepted == drafted

@@ -132,10 +132,26 @@ def test_deadline_shedding_drain_and_unsupported_options(weights):
         assert "shed" in outcomes and 40 in outcomes
     finally:
         assert eng.drain(timeout=60) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(tcfg, tparams, spec_draft=(tcfg, tparams), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(tcfg, tparams, role="decode", device="cpu")
+
+
+def test_bad_spec_draft_and_role_raise_the_jax_value_errors(weights):
+    """Speculative decoding and the roles are ported: a draft of another
+    vocab or a shorter max_seq, an unknown role and a role without the
+    paged arena raise JAX's ValueErrors on both packages."""
+    jcfg, jparams, tcfg, tparams = weights
+    cases = (("vocab", dict(vocab_size=99), {}), ("max_seq", dict(max_seq=64), {}),
+             ("unified\\|prefill\\|decode", None, dict(role="router")),
+             ("paged=True", None, dict(role="prefill", paged=False)))
+    for match, draft, opts in cases:
+        jkw, tkw = dict(opts), dict(opts)
+        if draft is not None:
+            jd = JCfg(**dict(SHAPE, **draft), dtype=jnp.float32)
+            jkw["spec_draft"] = (jd, jparams)
+            tkw["spec_draft"] = (GptConfig(**dict(SHAPE, **draft)), tparams)
+        with pytest.raises(ValueError, match=match):
+            JBatcher(jcfg, jparams, **jkw)
+        with pytest.raises(ValueError, match=match):
+            ContinuousBatcher(tcfg, tparams, device="cpu", **tkw)
 
 
 def _post(port, body, path="/v1/models/gpt:predict"):
@@ -211,8 +227,8 @@ def test_prompts_over_the_largest_bucket_take_the_static_path(weights):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves no jax, flax,
-    kubeflow_tpu or top-level e2e module loaded (the port's probes live in
+    """Importing every module of the port leaves no jax, flax, optax,
+    ml_dtypes, kubeflow_tpu or top-level e2e module loaded (the port's probes live in
     kubeflow_tpu_torch.e2e)."""
     root = Path(__file__).resolve().parents[1]
     mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
@@ -220,7 +236,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'jaxlib')"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'jaxlib',"
+        " 'optax', 'ml_dtypes')"
         " or k == 'kubeflow_tpu' or k.startswith('kubeflow_tpu.')"
         " or k == 'e2e' or k.startswith('e2e.')]\n"
         "print(len(sys.modules), bad)\n"
@@ -228,7 +245,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 46
+    assert len(mods) >= 48
 
 
 def test_params_are_seeded():
