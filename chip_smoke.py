@@ -104,9 +104,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              blocks equal the never-moved engine's (``torch.equal``); the
              decode side's launches (the layout's pair 12 a decode step, or
              ``kv_row_update_pair`` 36 a round); blob bytes and
-             ``serving_kv_handoff_seconds`` p50/p99. Phases 5a-5f run after
-             phase 19a, before kv_probe: they start threads and servers,
-             and read no profiler window;
+             ``serving_kv_handoff_seconds`` p50/p99;
+5g. fleet  — GPT-small served by ``EngineFleet``s sharing the card and one
+             set of weights: (a) ``gpt_served_model(replicas=2)``
+             (``max_replicas`` 3) over HTTP, the 8 prompts spread over both
+             replicas, then again: tokens held to phase 3's (``near_tie``),
+             the second pass routed by prefix (8 hits),
+             ``kv_block_update_pair`` 12 a decode step of either replica
+             and no other write, ``/debug/fleet`` naming both; (b) 24
+             requests on two replicas, then ``scale_to(1)``: every one
+             completes with phase 3's tokens, at least one re-queued;
+             ``fleet_drain_seconds``; (c) ``SLOAutoscaler`` with
+             ``ttft_slo`` a tenth of (a)'s TTFT p50: bursts between ticks
+             scale 1 → 2 once, then the cooldown holds it; the new
+             replica's cold-start seconds; (d) two models (seeds 0 and 1)
+             over prefill and decode pools, paged bf16 and int8: each
+             model's tokens held to a single engine's with its weights,
+             one KV import a request, the decode pool's pair kernel 12 a
+             decode step; tokens/s, TTFT p50, handoff p50/p99. Phases 5a-5g
+             run after phase 19a, before kv_probe: they start threads and
+             servers, and read no profiler window;
 6. ref     — a tiny f32 model's prefill logits and greedy tokens on the
              card against the same model on the CPU;
 7. profile — GPT-small's decode step alone, paged and contiguous: host ms
@@ -208,10 +225,10 @@ serving phases 3-5 for the KV writes, ``train`` for flash attention,
 ``resnet_train`` for the fused blocks, ``probe`` for the streaming
 copies): they are reset just before the run and read just after. Phases
 5a and 5c reset and read them around their own runs too, and print them
-on their own lines; phases 5d-5f reset and read them around each run,
+on their own lines; phases 5d-5g reset and read them around each run,
 print them on each run's own line, and their counts are added to the
 kernels line's (the draft's and the decode side's KV writes,
-distillation's flash launches): that line's count is then a sum over
+distillation's flash launches, the fleet replicas' KV writes): that line's count is then a sum over
 several runs, and each path's own count is on its run's line. The fused-block
 kernels' entries in the kernels line sum their per-call times over the blocks of one training step (2, 3, 5
 and 2 identity blocks; one of each stage head); their ``max_abs_err`` is
@@ -696,8 +713,20 @@ def post(port: int, prompt) -> list:
     return body["predictions"][0]
 
 
-def post_all(port: int, prompts, label: str) -> list:
-    """Every prompt posted at once, one thread each; the predictions."""
+def admitted() -> int:
+    """Requests admitted to a slot since the last reset (the count of
+    ``serving_queue_wait_seconds``), over every engine of the process."""
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+
+    snap = METRICS.histogram_counts("serving_queue_wait_seconds")
+    return snap[2] if snap else 0
+
+
+def post_all(port: int, prompts, label: str, staggered: bool = False) -> list:
+    """Every prompt posted at once, one thread each; the predictions. With
+    ``staggered``, each next thread starts once the request before it has a
+    slot (a fleet's router reads the slot gauges, so the prompts then
+    spread over the replicas)."""
     out = [None] * len(prompts)
     errors = []
 
@@ -708,8 +737,12 @@ def post_all(port: int, prompts, label: str) -> list:
             errors.append(e)
 
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
-    for t in threads:
+    base = admitted()
+    for i, t in enumerate(threads):
         t.start()
+        deadline = time.monotonic() + 60
+        while staggered and admitted() < base + i + 1 and time.monotonic() < deadline:
+            time.sleep(0.001)
     for t in threads:
         t.join(timeout=900)
     if errors or any(o is None for o in out):
@@ -1285,6 +1318,16 @@ def expect_spec(label: str, counts: dict, rounds: int, steps: int,
                              f"steps; expected {want} kv_row_update_pair and no paged write")
 
 
+def expect_pair(label: str, counts: dict, pair: str, steps: int, n_layers: int) -> None:
+    """A paged run's KV launches: ``pair`` once per layer and decode step, and
+    no other KV write."""
+    if (steps == 0 or counts[pair] != n_layers * steps
+            or any(counts[n] for n in PAGED_WRITES if n != pair)
+            or counts["kv_row_update_pair"]):
+        raise AssertionError(f"{label}: {counts} over {steps} decode steps; expected "
+                             f"{n_layers} {pair} a step and no other write")
+
+
 def self_draft(cfg, params):
     """The ``DRAFT_LAYERS``-layer self-draft: the target's bottom blocks and
     its embeddings (``init_from_target``)."""
@@ -1534,11 +1577,8 @@ def disagg_phase(card: str, prompts) -> dict:
                                      f"the unified engine's")
             if "spec_draft" in kw:
                 expect_spec(label, counts, rounds, steps)
-            elif (steps == 0 or counts[pair] != cfg.n_layers * steps
-                  or any(counts[n] for n in PAGED_WRITES if n != pair)
-                  or counts["kv_row_update_pair"]):
-                raise AssertionError(f"{label}: {counts} over {steps} decode steps; expected "
-                                     f"{cfg.n_layers} {pair} a step and no other write")
+            else:
+                expect_pair(label, counts, pair, steps, cfg.n_layers)
             sizes = [len(f.kv_blob) for f in futs]
             if METRICS.value("serving_kv_handoff_total") != len(jobs) \
                     or METRICS.value("serving_kv_import_total") != len(jobs):
@@ -1561,6 +1601,256 @@ def disagg_phase(card: str, prompts) -> dict:
             torch.cuda.empty_cache()
     return {k: totals[k] for k in ("kv_row_update_pair", "kv_block_update_pair",
                                    "kv_block_update_quant_pair")}
+
+
+# -- phase 5g: the serving fleet ------------------------------------------------
+
+#: the fleet phase's autoscaler: scale on TTFT alone, one step up, then hold
+FLEET_BURSTS = 4
+#: requests a burst (the first prompts, 8 new tokens each)
+FLEET_BURST = 4
+FLEET_COOLDOWN_TICKS = 3
+#: new tokens a request in the pools run (d): its six replicas' worker
+#: threads share one interpreter, so a step there costs several of a single
+#: engine's; the first 16 tokens are the 32-token run's first 16
+FLEET_POOL_NEW = 16
+
+
+def hold_tokens(label: str, card: str, cfg, params, prompts, got, want) -> int:
+    """Each request's tokens against ``want`` (the same prompt on a single
+    engine with the same weights and options): equal, or differing first at
+    a near-tie of that route (``near_tie``). Returns how many differ."""
+    if got == want:
+        return 0
+    return sum(not near_tie(label, cfg, params, p, toks, w, card)["equal"]
+               for p, toks, w in zip(prompts, got, want))
+
+
+def fleet_phase(card: str, prompts, short_tokens: dict) -> dict:
+    """Phase 5g: GPT-small (seeded weights, paged, 8 slots a replica) served by
+    ``EngineFleet``s on the one card. (a) ``gpt_served_model(replicas=2)``
+    (``max_replicas`` 3) behind ``ModelServer``: the 8 prompts at 32 new
+    tokens (each posted once the one before has a slot, so they spread over
+    both replicas), then the same 8 again at once; tokens held to the phase
+    3 paged run,
+    the second pass routed by prefix (8 hits), ``kv_block_update_pair`` 12
+    a decode step and no other KV write, ``/debug/fleet`` naming both
+    replicas. (b) Drain: 3 copies of each prompt on a 2-replica fleet
+    (prefix affinity puts each prompt's copies on one replica, beyond its 8
+    slots), then ``scale_to(1)``: every request completes with phase 3's
+    tokens; the requests re-queued and ``fleet_drain_seconds``. (c)
+    ``SLOAutoscaler`` on ``RegistryWindowSource``, ``ttft_slo`` a tenth
+    of (a)'s TTFT p50, ``breach_ticks`` 2, cooldown 3: bursts of 4
+    prompts between ticks scale 1 → 2 once, then hold; the new replica's
+    ``fleet_replica_cold_start_seconds``. (d) ``models={"a": seed 0, "b":
+    seed 1}``, ``pools={"prefill": 1, "decode": 2}``, ``model_slo={"b":
+    "batch"}``, paged bf16 and int8, ``FLEET_POOL_NEW`` tokens: each model's
+    tokens held to a single engine's with its weights and options (model a:
+    the first tokens of phases 3 and 5),
+    ``serving_kv_import_total`` equal to the requests, the decode pool's
+    pair kernel 12 a decode step. Tokens/s, TTFT p50, handoff p50/p99,
+    drain and cold-start seconds. Returns the KV kernels' launches of (a)
+    and (d)."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.ops import kv_cache as kc
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.runtime.tracing import TRACER
+    from kubeflow_tpu_torch.serving.autoscaler import (AutoscalerConfig,
+                                                       RegistryWindowSource, SLOAutoscaler)
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.fleet import EngineFleet
+    from kubeflow_tpu_torch.serving.server import ModelServer, gpt_served_model
+
+    cfg = GptConfig.small()
+    totals: Counter = Counter()
+    pairs = ("kv_row_update_pair", "kv_block_update_pair", "kv_block_update_quant_pair")
+
+    def cleanup():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) two replicas behind the HTTP server, the 8 prompts twice
+    model = dataclasses.replace(
+        gpt_served_model(name="gpt", tiny=False, max_new_tokens=MAX_NEW, device="cuda",
+                         seed=0, replicas=2), max_replicas=3)
+    params = model.params
+    server = ModelServer().add(model)
+    httpd = server.serve(0)
+    try:
+        post(httpd.port, np.arange(1, 17, dtype=np.int32))  # warm-up, a prefix of its own
+        torch.cuda.synchronize()
+        kc.reset_launches()
+        METRICS.reset()
+        TRACER.reset()
+        t0 = time.perf_counter()
+        first = generated("fleet_http", prompts,
+                          post_all(httpd.port, prompts, "fleet_http", staggered=True),
+                          cfg.vocab_size)
+        wall1 = time.perf_counter() - t0
+        ttft1 = [ms for _, ms in ttft_ms()]
+        split = Counter(sp.attributes["replica"]
+                        for sp in TRACER.finished_spans("serving.request"))
+        hits0 = METRICS.value("fleet_prefix_hits_total")
+        t0 = time.perf_counter()
+        second = generated("fleet_http", prompts, post_all(httpd.port, prompts, "fleet_http"),
+                           cfg.vocab_size)
+        wall2 = time.perf_counter() - t0
+        counts = dict(kc.LAUNCHES)
+        steps = int(METRICS.value("serving_decode_steps_total"))
+        hits = METRICS.value("fleet_prefix_hits_total") - hits0
+        snap = get_json(httpd.port, "/debug/fleet")
+    finally:
+        httpd.close()
+        server.close()
+        del model, server
+        cleanup()
+    differ = hold_tokens("fleet_http", card, cfg, params, prompts, first, short_tokens["paged"])
+    if second != first:
+        raise AssertionError("fleet_http: the second pass's tokens differ from the first's")
+    if hits < len(prompts):
+        raise AssertionError(f"fleet_http: the second pass made {hits} prefix hits, "
+                             f"expected {len(prompts)}")
+    expect_pair("fleet_http", counts, "kv_block_update_pair", steps, cfg.n_layers)
+    ids = {r["id"] for r in snap["replicas"]}
+    if ids != {"gpt-0", "gpt-1"} or snap["max_replicas"] != 3:
+        raise AssertionError(f"fleet_http: /debug/fleet shows {ids}, max {snap['max_replicas']}")
+    ttft_p50 = float(np.median(ttft1))
+    emit(phase="fleet_http", card=card, replicas=2, requests=2 * len(prompts),
+         requests_by_replica=dict(split), equal_to_single_engine=len(prompts) - differ,
+         near_tie_differences=differ, prefix_hits_second_pass=hits,
+         routed=snap["router"]["routed"], wall_s=[wall1, wall2],
+         tokens_per_s=len(prompts) * MAX_NEW / wall1,
+         tokens_per_s_second_pass=len(prompts) * MAX_NEW / wall2, ttft_ms_p50=ttft_p50,
+         decode_steps=steps, launches=counts)
+    for k in pairs:
+        totals[k] += counts[k]
+
+    # (b) drain one of two replicas with requests queued on it
+    t_b = time.perf_counter()
+    fleet = EngineFleet(cfg, params, replicas=2, max_replicas=2, name="drain",
+                        register_debug=False, device="cuda")
+    try:
+        METRICS.reset()
+        futs = []
+        for i, p in enumerate(prompts):
+            futs.append(fleet.submit(p, MAX_NEW))
+            # the router reads the slot gauges: let it see this admission
+            # before the next request, so the prompts alternate replicas
+            deadline = time.monotonic() + 60
+            while admitted() < i + 1 and time.monotonic() < deadline:
+                time.sleep(0.001)
+        futs += [fleet.submit(p, MAX_NEW) for _ in range(2) for p in prompts]
+        t0 = time.perf_counter()
+        fleet.scale_to(1, reason="chip_smoke")
+        scale_s = time.perf_counter() - t0
+        got = [f.result(timeout=600) for f in futs]
+        drains = fleet.debug_snapshot()["drains"]
+    finally:
+        fleet.close()
+        del fleet
+        cleanup()
+    if any(f.error is not None for f in futs) or len(drains) != 1:
+        raise AssertionError(f"fleet_drain: errors {[f.error for f in futs if f.error]}, "
+                             f"drains {drains}")
+    differ = hold_tokens("fleet_drain", card, cfg, params, prompts * 3, got,
+                         short_tokens["paged"] * 3)
+    drain_s = METRICS.histogram("fleet_drain_seconds").sum
+    emit(phase="fleet_drain", card=card, requests=len(futs), requeued=drains[0]["requeued"],
+         fleet_drain_seconds=drain_s, scale_to_s=scale_s, wall_s=time.perf_counter() - t_b,
+         equal_to_single_engine=len(futs) - differ, near_tie_differences=differ)
+    if drains[0]["requeued"] < 1:
+        raise AssertionError("fleet_drain: the drained replica handed back no request")
+
+    # (c) the SLO autoscaler on the registry's windows
+    t_c = time.perf_counter()
+    fleet = EngineFleet(cfg, params, replicas=1, max_replicas=3, name="asc",
+                        register_debug=False, device="cuda")
+    slo = 0.1 * ttft_p50 / 1e3
+    asc = SLOAutoscaler(fleet, AutoscalerConfig(
+        ttft_slo=slo, queue_wait_slo=1e6, breach_ticks=2, idle_ticks=10**6,
+        cooldown_ticks=FLEET_COOLDOWN_TICKS), source=RegistryWindowSource())
+    try:
+        METRICS.reset()
+        # one request first: the window source needs the histograms to exist
+        # at the baseline tick
+        fleet.submit(prompts[0], 8).result(timeout=600)
+        decisions = [asc.tick()]
+        windows = []
+        for _ in range(FLEET_BURSTS):
+            for f in [fleet.submit(p, 8) for p in prompts[:FLEET_BURST]]:
+                f.result(timeout=600)
+            decisions.append(asc.tick())
+            windows.append((asc.last["ttft_p"], asc.last["cooldown"], asc.last["replicas"]))
+        cold = METRICS.histogram("fleet_replica_cold_start_seconds")
+        cold_s, cold_n = cold.sum, cold.total
+    finally:
+        fleet.close()
+        del fleet
+        cleanup()
+    if decisions != [None, None, "up", None, None] or windows[-1][2] != 2:
+        raise AssertionError(f"fleet_autoscale: decisions {decisions}, windows {windows}")
+    emit(phase="fleet_autoscale", card=card, ttft_slo_s=slo, decisions=decisions,
+         windows_ttft_p99_cooldown_replicas=windows, cold_start_s=cold_s,
+         cold_starts=cold_n, wall_s=time.perf_counter() - t_c)
+
+    # (d) two models over prefill and decode pools, bf16 and int8
+    params_b = init_params(cfg, seed=1, device="cuda")
+    for dtype, layout, pair in (("bf16", "paged", "kv_block_update_pair"),
+                                ("int8", "int8", "kv_block_update_quant_pair")):
+        label = f"fleet_pools_{dtype}"
+        single = ContinuousBatcher(cfg, params_b, engine_id="b", kv_dtype=dtype, device="cuda")
+        try:
+            want_b = [f.result(timeout=600) for f in [single.submit(p, FLEET_POOL_NEW)
+                                                       for p in prompts]]
+        finally:
+            single.close()
+            del single
+        fleet = EngineFleet(models={"a": (cfg, params), "b": (cfg, params_b)},
+                            pools={"prefill": 1, "decode": 2}, model_slo={"b": "batch"},
+                            max_replicas=2, name="pools", register_debug=False,
+                            engine_kwargs={"kv_dtype": dtype}, device="cuda")
+        try:
+            torch.cuda.synchronize()
+            kc.reset_launches()
+            METRICS.reset()
+            TRACER.reset()
+            t0 = time.perf_counter()
+            futs = [fleet.submit(p, FLEET_POOL_NEW, model=m)
+                    for m in ("a", "b") for p in prompts]
+            got = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            counts = dict(kc.LAUNCHES)
+            steps = int(METRICS.value("serving_decode_steps_total"))
+            imports = METRICS.value("serving_kv_import_total")
+            handoff = (METRICS.quantile("serving_kv_handoff_seconds", 0.5),
+                       METRICS.quantile("serving_kv_handoff_seconds", 0.99))
+            ttft = [ms for _, ms in ttft_ms()]
+            roles = Counter(h.role for h in fleet.live_handles())
+        finally:
+            fleet.close()
+            del fleet
+            cleanup()
+        n = len(prompts)
+        want_a = [t[:FLEET_POOL_NEW] for t in short_tokens[layout]]
+        differ = (hold_tokens(label, card, cfg, params, prompts, got[:n], want_a)
+                  + hold_tokens(label, card, cfg, params_b, prompts, got[n:], want_b))
+        if imports != len(futs):
+            raise AssertionError(f"{label}: {imports} KV imports for {len(futs)} requests")
+        if [f.priority for f in futs] != ["interactive"] * n + ["batch"] * n:
+            raise AssertionError(f"{label}: model_slo did not set model b's class")
+        expect_pair(label, counts, pair, steps, cfg.n_layers)
+        emit(phase=label, card=card, replicas=dict(roles), requests=len(futs),
+             equal_to_single_engine=len(futs) - differ, near_tie_differences=differ,
+             new_tokens=FLEET_POOL_NEW, wall_s=wall,
+             tokens_per_s=len(futs) * FLEET_POOL_NEW / wall,
+             ttft_ms_p50=float(np.median(ttft)),
+             handoff_s_p50=handoff[0], handoff_s_p99=handoff[1], kv_imports=imports,
+             decode_steps=steps, launches=counts)
+        for k in pairs:
+            totals[k] += counts[k]
+    del params_b
+    cleanup()
+    return {k: totals[k] for k in pairs}
 
 
 def ref_phase(card: str) -> None:
@@ -2598,6 +2888,8 @@ def main() -> int:
         for name, n in timed("distill", distill_phase).items():
             launches[name] += n
         for name, n in timed("disagg", lambda c: disagg_phase(c, prompts)).items():
+            launches[name] += n
+        for name, n in timed("fleet", lambda c: fleet_phase(c, prompts, short_tokens)).items():
             launches[name] += n
         # last: its ~10^6 launches (the decode chunks of in_model) come after
         # every profiler window

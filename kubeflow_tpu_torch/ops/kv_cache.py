@@ -33,6 +33,7 @@ and count nothing.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -45,6 +46,8 @@ SOURCE = "kv_cache.cu"
 LAUNCHES: Dict[str, int] = {"kv_row_update": 0, "kv_row_update_pair": 0,
                             "kv_block_update": 0, "kv_block_update_quant": 0,
                             "kv_block_update_pair": 0, "kv_block_update_quant_pair": 0}
+#: the replicas of a fleet launch from one worker thread each
+_LAUNCHES_LOCK = threading.Lock()
 
 #: the raw pointer of a device's current stream: the value of
 #: ``torch.cuda.current_stream(i).cuda_stream`` at a small part of its cost
@@ -143,7 +146,8 @@ def _launch(counter: Optional[str], name: str, target: torch.Tensor, *args) -> N
     device = target.get_device()
     rc = _build.entry(SOURCE, name)(device, *args, _raw_stream(device))
     if counter is not None:
-        LAUNCHES[counter] += 1
+        with _LAUNCHES_LOCK:
+            LAUNCHES[counter] += 1
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 

@@ -31,22 +31,29 @@ def _current_trace_id() -> Optional[str]:
 
 
 class _Counter:
+    """Engine worker threads of a fleet add to one series at once, so each
+    read-modify-write holds the series' lock."""
+
     def __init__(self) -> None:
         self.value = 0.0
+        self._lock = threading.Lock()
 
     def inc(self, amount: float = 1.0) -> None:
-        self.value += amount
+        with self._lock:
+            self.value += amount
 
 
 class _Gauge:
     def __init__(self) -> None:
         self.value = 0.0
+        self._lock = threading.Lock()
 
     def set(self, value: float) -> None:
         self.value = float(value)
 
     def inc(self, amount: float = 1.0) -> None:
-        self.value += amount
+        with self._lock:
+            self.value += amount
 
 
 class _Histogram:
@@ -61,6 +68,7 @@ class _Histogram:
         #: per-bucket exemplar: (observed value, trace_id, unix seconds)
         self.exemplars: List[Optional[Tuple[float, str, float]]] = [None] * (
             len(self.buckets) + 1)
+        self._lock = threading.Lock()
 
     def _index(self, value: float) -> int:
         for i, b in enumerate(self.buckets):
@@ -73,14 +81,20 @@ class _Histogram:
         """Record ``count`` observations of ``value`` (count>1 amortizes a
         block of identical observations — the chunked decode path records
         per-token inter-token latency this way)."""
-        self.sum += value * count
-        self.total += count
         i = self._index(value)
-        self.counts[i] += count
+        with self._lock:
+            self.sum += value * count
+            self.total += count
+            self.counts[i] += count
         if trace_id is None:
             trace_id = _current_trace_id()
         if trace_id is not None:
             self.exemplars[i] = (float(value), trace_id, time.time())
+
+    @property
+    def mean(self) -> float:
+        """Mean observed value; 0.0 before the first observation."""
+        return self.sum / self.total if self.total else 0.0
 
 
 class NamespacedRegistry:

@@ -44,6 +44,7 @@ staging copy, never a view of an array the host mutates later.
 from __future__ import annotations
 
 import collections
+import logging
 import math
 import os
 import queue
@@ -93,6 +94,8 @@ MAX_GROUP = 8
 _DRAIN = object()
 
 ROLES = ("unified", "prefill", "decode")
+
+LOG = logging.getLogger(__name__)
 
 
 def _bucket_for(n: int) -> int:
@@ -148,6 +151,9 @@ class _Request:
     cancel_requested: bool = False    # client abandoned; worker reaps the slot
     #: "ok" (budget/EOS), "deadline", "cancelled" or "error"
     finish_reason: Optional[str] = None
+    #: fired exactly once, from whichever thread finished the request, after
+    #: ``done`` is set: the fleet's breaker and tenant metering hang here
+    on_done: Optional[Callable[["_Request"], None]] = None
     # one span covers submit()→_retire(), crossing the caller thread into
     # the engine worker — hence start_span/end_span
     span: Optional[Span] = None
@@ -178,6 +184,15 @@ class _Request:
             return False
         self.cancel_requested = True
         return True
+
+    def _notify(self) -> None:
+        """Fire ``on_done`` once; a failing callback cannot reach the worker."""
+        cb, self.on_done = self.on_done, None
+        if cb is not None:
+            try:
+                cb(self)
+            except Exception:  # the callback's fault, not the request's
+                LOG.exception("on_done callback failed")
 
 
 def _ev(req: _Request, name: str, **attrs: Any) -> None:
@@ -219,6 +234,7 @@ def _fail(req: _Request, error: BaseException) -> None:
         TRACER.end_span(req.span, error=error)
         req.span = None
     req.done.set()
+    req._notify()
 
 
 def _zero(cache: Dict[str, Any]) -> None:
@@ -328,6 +344,11 @@ class ContinuousBatcher:
         # (1 - interactive_reserve) * max_pending, interactive at the cap
         self.max_pending = max(0, int(max_pending))
         self.interactive_reserve = min(max(float(interactive_reserve), 0.0), 1.0)
+        #: chaos hooks: seconds of added latency per engine iteration, and a
+        #: one-shot poison that fails the next iteration (the worker then
+        #: fails everything it holds and closes the engine)
+        self.step_delay_s = 0.0
+        self.fail_next_step = False
         self._group_pad = min(slots, MAX_GROUP)
         self.paged = bool(paged)
         if self.paged:
@@ -625,15 +646,21 @@ class ContinuousBatcher:
                temperature: float = 0.0,
                traceparent: Optional[str] = None,
                deadline: Optional[float] = None,
-               priority: str = "interactive") -> _Request:
+               priority: str = "interactive",
+               on_done: Optional[Callable[[_Request], None]] = None) -> _Request:
         """``traceparent`` (W3C header value) parents the request's span to
         the caller's trace. ``deadline`` is an ABSOLUTE ``time.monotonic()``
         instant: a request whose deadline passes while queued fails fast
         with :class:`DeadlineExceeded`; one that expires mid-decode frees
         its slot within ~one decode chunk and completes with the partial
-        tokens. A prompt above the largest prefill bucket goes to chunked
-        prefill; with ``prefill_chunk=0`` it fails its own future at
-        admission (ValueError)."""
+        tokens. An already-expired deadline fails the returned future (and
+        does not fire ``on_done``: it says nothing of this replica) rather
+        than raising, so a fleet cannot mistake it for a dead replica. A
+        prompt above the largest prefill bucket goes to chunked prefill;
+        with ``prefill_chunk=0`` it fails its own future at admission
+        (ValueError). ``on_done(req)`` fires once when the request finishes,
+        however it finishes; a request that :meth:`drain` hands back has
+        not finished."""
         if priority not in PRIORITIES:
             raise ValueError(f"priority {priority!r}; expected one of {PRIORITIES}")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -646,8 +673,8 @@ class ContinuousBatcher:
                     f"prompt + budget needs {need} KV blocks; the arena has "
                     f"{self._alloc.n_blocks} (raise kv_blocks)")
         req = _Request(prompt, max_new_tokens, eos_id=eos_id,
-                       temperature=float(temperature),
-                       deadline=deadline, priority=priority, model_id=self.model_id)
+                       temperature=float(temperature), deadline=deadline,
+                       priority=priority, on_done=on_done, model_id=self.model_id)
         req.span = TRACER.start_span(
             "serving.request", traceparent=traceparent,
             **{"prompt_tokens": int(len(prompt)),
@@ -660,6 +687,7 @@ class ContinuousBatcher:
             METRICS.counter("serving_deadline_expired_total", stage="queued").inc()
             _ev(req, "deadline_expired", stage="queued")
             req.finish_reason = "deadline"
+            req.on_done = None
             _fail(req, DeadlineExceeded("deadline already expired at submit"))
             return req
         # closed-check and enqueue under one lock: a put racing close()
@@ -1199,6 +1227,7 @@ class ContinuousBatcher:
             TRACER.end_span(req.span)
             req.span = None
         req.done.set()
+        req._notify()
         METRICS.counter("serving_continuous_requests_total").inc()
         self._set_occupancy()
 
@@ -1421,6 +1450,15 @@ class ContinuousBatcher:
                 pass
             self._set_queue_gauge()
             try:
+                if self.fail_next_step:
+                    # chaos: poison this iteration; the handler below fails
+                    # everything and closes the engine, as a device death would
+                    self.fail_next_step = False
+                    raise RuntimeError("chaos: replica crashed mid-decode")
+                if self.step_delay_s > 0:
+                    # chaos: a slow replica, so deadlines expire and a
+                    # fleet's breaker sees it
+                    time.sleep(min(self.step_delay_s, 5.0))
                 # reap BEFORE admission: an expired queued request must never
                 # take a slot, and an expired in-flight one frees its slot
                 self._reap_pending()

@@ -11,10 +11,12 @@ API shape (the same as ``kubeflow_tpu/serving/server.py``):
 ``apply_fn`` once; ``ModelServer(batching=True)`` coalesces concurrent
 requests per model into one such forward (``serving/batching.py``).
 ``GenerativeModel`` serves autoregressive generation through the
-continuous-batching engine; ``gpt_served_model`` builds GPT-small (or the
-tiny config) and ``bert_served_model`` BERT-base (or tiny) with seeded
-random weights. ``python -m kubeflow_tpu_torch.serving.server`` runs one
-of them on the card.
+continuous-batching engine, or through an ``EngineFleet`` of several
+(``replicas``, ``max_replicas``, ``pools``, ``mux_models``);
+``gpt_served_model`` builds GPT-small (or the tiny config) and
+``bert_served_model`` BERT-base (or tiny) with seeded random weights.
+``python -m kubeflow_tpu_torch.serving.server`` runs one of them on the
+card.
 """
 
 from __future__ import annotations
@@ -157,7 +159,7 @@ class ModelServer:
         return self
 
     def _predict(self, model: ServedModel, instances, deadline: Optional[float] = None,
-                 priority: str = "interactive") -> List[Any]:
+                 priority: str = "interactive", model_id: Optional[str] = None) -> List[Any]:
         batcher = self._batchers.get(model.name)
         if batcher is not None:
             try:
@@ -167,7 +169,8 @@ class ModelServer:
                 # unbatched
                 pass
         if isinstance(model, GenerativeModel):
-            return model.predict(instances, deadline=deadline, priority=priority)
+            return model.predict(instances, deadline=deadline, priority=priority,
+                                 model=model_id)
         return model.predict(instances)
 
     def close(self) -> None:
@@ -204,10 +207,12 @@ class ModelServer:
             if instances is None:
                 raise HttpError(400, "body must carry 'instances'")
             deadline, priority = request_deadline_opts(req, body)
+            # a multiplexing servable routes on the body's "model" id
+            model_id = body.get("model") if isinstance(body, dict) else None
             t0 = time.perf_counter()
             try:
                 predictions = self._predict(model, instances, deadline=deadline,
-                                            priority=priority)
+                                            priority=priority, model_id=model_id)
             except HttpError:
                 raise
             except DeadlineExceeded as e:
@@ -242,13 +247,22 @@ class GenerativeModel(ServedModel):
     servable prompt range stays ``cfg.max_seq`` either way.
     ``continuous=False`` serves every request through the static path, the
     batch padded to a ``BATCH_BUCKETS`` size. The routing is the JAX
-    server's (``kubeflow_tpu/serving/server.py:381-392``)."""
+    server's (``kubeflow_tpu/serving/server.py:381-392``).
+
+    ``replicas > 1``, ``max_replicas``, ``pools`` or ``mux_models`` serve
+    through an ``EngineFleet`` (``serving/fleet.py``) with the same engine
+    options, as JAX's ``_wants_fleet`` decides; a multiplexing servable
+    takes the model id from the request body's ``"model"``."""
 
     cfg: Any = None
     max_new_tokens: int = 16
     temperature: float = 0.0
     continuous: bool = True
     slots: int = 8
+    #: > 1 serves through an EngineFleet of that many replicas
+    replicas: int = 1
+    #: the fleet's autoscaling headroom; None pins it at ``replicas``
+    max_replicas: Optional[int] = None
     paged: bool = True
     #: allocatable arena blocks (None = contiguous-capacity parity)
     kv_blocks: Optional[int] = None
@@ -261,6 +275,13 @@ class GenerativeModel(ServedModel):
     spec_draft: Optional[Any] = None
     spec_k: int = 4
     kv_dtype: str = "bf16"
+    #: role pools of a disaggregated fleet, e.g. {"prefill": 1, "decode": 2}
+    pools: Optional[Dict[str, int]] = None
+    #: model_id -> (cfg, params): models multiplexed over one fleet
+    mux_models: Optional[Dict[str, Any]] = None
+    #: model_id -> its admission class ("interactive" or "batch"), which
+    #: overrides the request's
+    model_slo: Optional[Dict[str, str]] = None
     kv_kernel: bool = True
     seed: Optional[int] = None
     _engine: Any = field(default=None, init=False, repr=False)
@@ -270,17 +291,33 @@ class GenerativeModel(ServedModel):
         self._engine_lock = threading.Lock()
         self._static_draws = 0
 
-    def engine(self):
-        from .continuous import ContinuousBatcher
+    def _wants_fleet(self) -> bool:
+        # pools and multiplexing are fleet concepts; a single engine serves
+        # only the plain one-replica case
+        return bool(self.replicas > 1 or self.max_replicas or self.pools or self.mux_models)
 
+    def engine(self):
+        """The continuous engine (or fleet), built on first use."""
+        from .continuous import ContinuousBatcher
+        from .fleet import EngineFleet
+
+        engine_kwargs = dict(paged=self.paged, kv_blocks=self.kv_blocks,
+                             kv_block_t=self.kv_block_t, prefill_chunk=self.prefill_chunk,
+                             spec_draft=self.spec_draft, spec_k=self.spec_k,
+                             kv_dtype=self.kv_dtype, kv_kernel=self.kv_kernel,
+                             seed=self.seed)
         with self._engine_lock:
             if self._engine is None:
-                self._engine = ContinuousBatcher(
-                    self.cfg, self.params, slots=self.slots, paged=self.paged,
-                    kv_blocks=self.kv_blocks, kv_block_t=self.kv_block_t,
-                    prefill_chunk=self.prefill_chunk, spec_draft=self.spec_draft,
-                    spec_k=self.spec_k, kv_dtype=self.kv_dtype,
-                    kv_kernel=self.kv_kernel, seed=self.seed, device=self.device)
+                if self._wants_fleet():
+                    self._engine = EngineFleet(
+                        self.cfg, self.params, replicas=self.replicas,
+                        max_replicas=self.max_replicas or max(self.replicas, 1),
+                        slots=self.slots, name=self.name, pools=self.pools,
+                        models=self.mux_models, model_slo=self.model_slo,
+                        engine_kwargs=engine_kwargs, device=self.device)
+                else:
+                    self._engine = ContinuousBatcher(self.cfg, self.params, slots=self.slots,
+                                                     device=self.device, **engine_kwargs)
             return self._engine
 
     def close(self) -> None:
@@ -290,11 +327,19 @@ class GenerativeModel(ServedModel):
             engine.close()
 
     def predict(self, instances: Sequence[Any], deadline: Optional[float] = None,
-                priority: str = "interactive") -> List[Any]:
+                priority: str = "interactive", model: Optional[str] = None) -> List[Any]:
+        """``model`` names the multiplexed model: required with
+        ``mux_models``, refused (400) without; ``model_slo`` then sets the
+        request's priority."""
         from .continuous import PREFILL_BUCKETS, _block_tile, effective_prefill_chunk
 
         if not instances:
             return []
+        if model and not self.mux_models:
+            raise HttpError(400, f"servable {self.name!r} does not multiplex models")
+        if self.mux_models and not model:
+            raise HttpError(400, "body must carry 'model': this servable multiplexes "
+                                 f"{sorted(self.mux_models)}")
         if deadline is None:
             deadline = time.monotonic() + DEFAULT_DEADLINE_MS / 1000.0
         prompts = np.asarray(instances, dtype=np.int32)
@@ -313,13 +358,17 @@ class GenerativeModel(ServedModel):
         # parents to the HTTP dispatch span
         cur = TRACER.current_span()
         tp = format_traceparent(cur) if cur is not None else None
+        # a multiplexed model's class is deployment policy, not the client's
+        if model and self.model_slo and model in self.model_slo:
+            priority = self.model_slo[model]
+        submit_kw: Dict[str, Any] = {"model": model or ""} if self._wants_fleet() else {}
         futs: List[Any] = []
         try:
             for row in prompts:
                 futs.append(eng.submit(row, self.max_new_tokens,
                                        temperature=self.temperature,
                                        traceparent=tp, deadline=deadline,
-                                       priority=priority))
+                                       priority=priority, **submit_kw))
             out = []
             for row, f in zip(prompts, futs):
                 remaining = max(0.0, deadline - time.monotonic())
@@ -371,12 +420,14 @@ def gpt_served_model(name: str = "gpt", tiny: bool = True, max_new_tokens: int =
                      temperature: float = 0.0, device: DeviceLike = "cuda",
                      kv_kernel: bool = True, paged: bool = True,
                      kv_dtype: str = "bf16", prefill_chunk: Optional[int] = None,
-                     seed: int = 0) -> GenerativeModel:
+                     seed: int = 0, replicas: int = 1) -> GenerativeModel:
     """GPT text-generation servable with seeded random weights: ``tiny``
     for CPU tests, ``tiny=False`` for GPT-small (GPT-2 124M class: d768,
     12 layers, 12 heads, d_ff 3072, vocab 32000, max_seq 2048, bf16).
     ``kv_kernel`` defaults on: the served decode path writes its KV rows
-    through the CUDA kernels. ``prefill_chunk`` is ``GenerativeModel``'s."""
+    through the CUDA kernels. ``prefill_chunk`` is ``GenerativeModel``'s;
+    ``replicas`` > 1 serves through an ``EngineFleet`` whose replicas share
+    the one set of weights."""
     from ..models.gpt import GptConfig, init_params
 
     cfg = GptConfig.tiny() if tiny else GptConfig.small()
@@ -384,7 +435,7 @@ def gpt_served_model(name: str = "gpt", tiny: bool = True, max_new_tokens: int =
         name=name, apply_fn=None, params=init_params(cfg, seed=seed, device=device),
         cfg=cfg, max_new_tokens=max_new_tokens, temperature=temperature,
         paged=paged, kv_dtype=kv_dtype, kv_kernel=kv_kernel,
-        prefill_chunk=prefill_chunk, seed=seed, device=device)
+        prefill_chunk=prefill_chunk, seed=seed, replicas=replicas, device=device)
 
 
 def bert_served_model(name: str = "bert", tiny: bool = True, device: DeviceLike = "cuda",
@@ -419,7 +470,8 @@ def bert_served_model(name: str = "bert", tiny: bool = True, device: DeviceLike 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     """``python -m kubeflow_tpu_torch.serving.server`` — GPT-small on the
-    card by default; ``--model bert`` serves BERT-base."""
+    card by default; ``--model bert`` serves BERT-base. ``--replicas`` (or
+    ``FLEET_REPLICAS``) > 1 serves GPT through an engine fleet."""
     import argparse
     import os
 
@@ -431,6 +483,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--tiny", action="store_true",
                         help="serve the tiny config instead of GPT-small or BERT-base")
     parser.add_argument("--max-new-tokens", type=int, default=16)
+    parser.add_argument("--replicas", type=int,
+                        default=int(os.environ.get("FLEET_REPLICAS", "1")))
     args = parser.parse_args(argv)
 
     server = ModelServer()
@@ -439,9 +493,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     else:
         server.add(gpt_served_model(name=args.model, tiny=args.tiny,
                                     max_new_tokens=args.max_new_tokens,
-                                    device=args.device))
+                                    device=args.device, replicas=args.replicas))
     httpd = server.serve(args.port)
-    print(f"model-server: {args.model!r} on :{httpd.port} ({args.device})", flush=True)
+    print(f"model-server: {args.model!r} on :{httpd.port} ({args.device}, "
+          f"fleet replicas={args.replicas})", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
