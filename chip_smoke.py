@@ -90,11 +90,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              commit several tokens); the accept rate, rounds, tokens/s and
              TTFT p50 beside the phase 3-5 run's;
 5e. distill — ``distill_draft`` at its defaults (300 steps, batch 8, 32
-             sequences of 16 + 48 tokens) on a GPT-small teacher: 15
-             ``flash_fwd``, 3 ``flash_bwd_dq`` and 3 ``flash_bwd_dkv``
-             launches a step, the last step's KL below the first's, the
-             distilled draft's ``measure_accept_rate`` at least the
-             self-draft's; steps/s;
+             sequences of 16 + 48 tokens) on a GPT-small teacher, saving
+             the draft through ``checkpoint_dir``: 15 ``flash_fwd``, 3
+             ``flash_bwd_dq`` and 3 ``flash_bwd_dkv`` launches a step, the
+             last step's KL below the first's; the checkpoint read back
+             (``Checkpointer.restore_numpy``: meta ``kind`` "spec_draft",
+             the run's ``steps`` and ``final_kl``) and carried into the
+             port (``params_from_flax``) bit-equal to the distilled draft,
+             whose restored copy's ``measure_accept_rate`` is at least the
+             self-draft's; steps/s, the checkpoint's save and restore
+             seconds and bytes on disk;
 5f. disagg — a prefill-role engine handing off to a decode-role engine
              (``submit_handoff`` as its sink), paged bf16 and int8, each
              without and with the speculative self-draft: the 8 prompts and
@@ -209,11 +214,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              4 launches of the layout's pair kernel at cursors + j, which
              leave the same bytes (``torch.equal``); call and device ms a
              layer and a round;
+19b. resnet_data — the bench's ResNet-50 step (batch 256, 224 x 224) fed
+             by ``synthetic_classifier_source`` for 6 steps through
+             ``DataPipeline`` (pinned buffers, a side stream, a producer
+             thread) and 6 with no prefetch (each batch drawn and copied on
+             the training thread), from the same seeded weights:
+             ``data_wait_s_per_step``, step ms, images/s, finite losses,
+             12 ``fused_bottleneck`` and 4 ``fused_transition`` launches a
+             step, the two runs' first losses within 1e-3; then the model's
+             variables through the ``Checkpointer`` into a fresh model:
+             every tensor bit-equal, the eval logits equal; save and
+             restore seconds, bytes on disk;
+19c. mnist_trial — the HPO trial ``mnist_objective`` on the card at JAX's
+             defaults (30 steps, batch 64): the loss falls, the accuracy
+             in [0, 1]; a ``report_fn`` returning False at step 10 stops it
+             there with that report's metrics; seconds a trial. Phases
+             19b-19c run after 19a and read no profiler window;
 20. kv_probe — ``kubeflow_tpu_torch.e2e.kv_update_probe``: the KV writes
              alone (contiguous and paged), the host split of a write's
              call, the decode chunk per token with the writes plain and
-             through the kernels. It runs last: no profiler window follows
-             its launches.
+             through the kernels (100 calls a time, 4,000 calls a part, 2
+             timed chunks a row: fewer repeats than the probe's defaults).
+             It runs last: no profiler window follows its launches.
 
 The peaks in every bound and mfu come from the port's catalog
 (``kubeflow_tpu_torch.training.flops`` with ``detect_generation()``, which
@@ -228,8 +250,10 @@ copies): they are reset just before the run and read just after. Phases
 on their own lines; phases 5d-5g reset and read them around each run,
 print them on each run's own line, and their counts are added to the
 kernels line's (the draft's and the decode side's KV writes,
-distillation's flash launches, the fleet replicas' KV writes): that line's count is then a sum over
-several runs, and each path's own count is on its run's line. The fused-block
+distillation's flash launches, the fleet replicas' KV writes), as are
+phase 19b's fused-block launches (both of its runs): that line's count is
+then a sum over several runs, and each path's own count is on its run's
+line. The fused-block
 kernels' entries in the kernels line sum their per-call times over the blocks of one training step (2, 3, 5
 and 2 identity blocks; one of each stage head); their ``max_abs_err`` is
 the largest over the shapes. Every device time read from torch.profiler
@@ -248,6 +272,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1466,13 +1491,22 @@ def spec_write_phase(card: str) -> None:
 def distill_phase(card: str) -> dict:
     """Phase 5e: ``distill_draft`` at the JAX defaults (300 steps, batch 8,
     32 sequences of 16 + 48 tokens, lr 1e-3) on a GPT-small teacher, the
-    3-layer draft: the flash launches of each step (``flash_fwd`` 12 + 3,
-    ``flash_bwd_dq`` and ``flash_bwd_dkv`` 3), the last step's KL below the
-    first's, and ``measure_accept_rate`` of the distilled draft at least the
-    self-draft's; steps/s. Returns the flash kernels' launches."""
+    3-layer draft, saved through ``checkpoint_dir``: the flash launches of
+    each step (``flash_fwd`` 12 + 3, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    3), the last step's KL below the first's; the checkpoint read back by
+    ``Checkpointer.restore_numpy`` (meta ``kind`` "spec_draft", ``steps``
+    and ``final_kl`` the run's) and carried into the port by
+    ``params_from_flax``, every tensor bit-equal to the returned draft's;
+    ``measure_accept_rate`` of the RESTORED draft at least the
+    self-draft's; steps/s, the save and restore seconds (the checkpoint
+    histograms) and the bytes on disk. Returns the flash kernels'
+    launches."""
+    from kubeflow_tpu_torch.models.convert import params_from_flax
     from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
     from kubeflow_tpu_torch.training import distill
+    from kubeflow_tpu_torch.training.checkpoint import Checkpointer
 
     cfg = GptConfig.small()
     params = init_params(cfg, seed=0, device="cuda")
@@ -1485,11 +1519,19 @@ def distill_phase(card: str) -> dict:
         curve.append(kl)
         stamps.append(time.perf_counter())
 
-    fa.reset_launches()
-    t0 = time.perf_counter()
-    _, draft = distill.distill_draft(cfg, params, on_step=on_step)
-    wall = time.perf_counter() - t0
-    counts = dict(fa.LAUNCHES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_draft_") as ckdir:
+        save0, restore0 = checkpoint_seconds(METRICS)
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        _, draft = distill.distill_draft(cfg, params, checkpoint_dir=ckdir, on_step=on_step)
+        wall = time.perf_counter() - t0
+        counts = dict(fa.LAUNCHES)
+        ckpt = Checkpointer(ckdir)
+        tree, meta = ckpt.restore_numpy()
+        restored = params_from_flax(tree, dcfg)
+        save1, restore1 = checkpoint_seconds(METRICS)
+        disk_bytes = dir_bytes(ckdir)
+        step_dirs = ckpt.all_steps()
     steps = len(curve)
     want = {"flash_fwd": (cfg.n_layers + dcfg.n_layers) * steps,
             "flash_bwd_dq": dcfg.n_layers * steps, "flash_bwd_dkv": dcfg.n_layers * steps}
@@ -1498,16 +1540,42 @@ def distill_phase(card: str) -> dict:
                              f"expected {want}")
     if not all(np.isfinite(curve)) or not curve[-1] < curve[0]:
         raise AssertionError(f"distill: KL {curve[0]} -> {curve[-1]} did not fall")
-    accept = distill.measure_accept_rate(cfg, params, dcfg, draft)
+    if (step_dirs != [steps] or meta.get("kind") != "spec_draft" or meta.get("steps") != steps
+            or meta.get("final_kl") != round(curve[-1], 6)
+            or meta.get("draft_layers") != dcfg.n_layers):
+        raise AssertionError(f"distill: checkpoint steps {step_dirs}, meta {meta}; the run "
+                             f"took {steps} steps to KL {curve[-1]}")
+    if sorted(restored) != sorted(draft) or not all(
+            torch.equal(restored[k], draft[k].cpu()) for k in draft):
+        raise AssertionError("distill: the restored draft differs from the distilled one")
+    restored = {k: v.to("cuda") for k, v in restored.items()}
+    accept = distill.measure_accept_rate(cfg, params, dcfg, restored)
     emit(phase="distill", card=card, steps=steps, draft_layers=dcfg.n_layers,
          kl_first=curve[0], kl_last=curve[-1], wall_s=wall,
          steps_per_s=(steps - 1) / (stamps[-1] - stamps[0]),
-         accept_rate_self_draft=self_accept, accept_rate_distilled=accept,
-         flash_launches=counts, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+         accept_rate_self_draft=self_accept, accept_rate_distilled_restored=accept,
+         checkpoint_meta=meta, checkpoint_save_s=save1 - save0,
+         checkpoint_restore_s=restore1 - restore0, checkpoint_disk_bytes=disk_bytes,
+         restored_bit_equal=True, flash_launches=counts,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     if accept < self_accept:
-        raise AssertionError(f"distill: the distilled draft accepts {accept}, below the "
-                             f"self-draft's {self_accept}")
+        raise AssertionError(f"distill: the restored distilled draft accepts {accept}, below "
+                             f"the self-draft's {self_accept}")
     return counts
+
+
+def checkpoint_seconds(metrics) -> tuple:
+    """The ``checkpoint_save_seconds`` and ``checkpoint_restore_seconds``
+    histograms' sums: the seconds every save and restore so far took."""
+    from kubeflow_tpu_torch.training.checkpoint import SAVE_BUCKETS
+
+    return tuple(metrics.histogram(name, buckets=SAVE_BUCKETS).sum
+                 for name in ("checkpoint_save_seconds", "checkpoint_restore_seconds"))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
 
 
 def disagg_phase(card: str, prompts) -> dict:
@@ -1968,16 +2036,23 @@ def profile_layout(card: str, cfg, params, paged: bool, pair_name: str) -> None:
     del model, cache
 
 
+#: the probe's repeats, cut from its defaults (200, 10,000, 5) to pay for
+#: phases 19b-19c: calls a time in ``isolated``, calls a part in
+#: ``host_split``, timed chunks a row in ``in_model``
+KV_PROBE_ITERS, KV_PROBE_HOST_CALLS, KV_PROBE_CHUNKS = 100, 4_000, 2
+
+
 def kv_probe_phase(card: str) -> None:
     """The KV-write probe (``e2e/kv_update_probe.py``): the writes alone,
     the host split of a write's call, and the decode chunk per token with
     the writes plain and through the kernels."""
     from kubeflow_tpu_torch.e2e import kv_update_probe as probe
 
-    iso = probe.isolated()
+    iso = probe.isolated(iters=KV_PROBE_ITERS)
     emit(phase="kv_probe", card=card, isolated_ms=iso)
-    emit(phase="kv_probe", card=card, host_split_us=probe.host_split())
-    model = probe.in_model()
+    emit(phase="kv_probe", card=card,
+         host_split_us=probe.host_split(n=KV_PROBE_HOST_CALLS))
+    model = probe.in_model(chunks=KV_PROBE_CHUNKS)
     emit(phase="kv_probe", card=card, in_model=model)
     if not all(np.isfinite(list(iso.values()) + list(model.values()))):
         raise AssertionError("kv_probe: a time is not finite")
@@ -2663,6 +2738,168 @@ def resnet_profile_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+
+# -- phases 19b-19c: the input pipeline, the checkpoint and the HPO trial ----------
+
+#: steps of each resnet_data run
+RESNET_DATA_STEPS = 6
+
+
+def direct_batches(source, clock, split: dict):
+    """No prefetch: each batch drawn and copied to the card on the training
+    thread, inside ``clock.data_wait()``; ``split["draw_s"]`` and
+    ``split["copy_s"]`` get each batch's host seconds of the two."""
+    it = iter(source)
+    while True:
+        with clock.data_wait():
+            t0 = time.perf_counter()
+            item = next(it, None)
+            if item is not None:
+                t1 = time.perf_counter()
+                item = {k: torch.from_numpy(v).to("cuda") for k, v in item.items()}
+                torch.cuda.synchronize()
+                split["draw_s"].append(t1 - t0)
+                split["copy_s"].append(time.perf_counter() - t1)
+        if item is None:
+            return
+        yield item
+
+
+def resnet_data_phase(card: str) -> dict:
+    """Phase 19b: the bench's ResNet-50 step (batch 256, 224 x 224, s2d
+    stem, fused blocks, SGD-momentum) fed by ``synthetic_classifier_source``
+    for ``RESNET_DATA_STEPS`` steps, (a) through ``DataPipeline`` (the
+    producer thread's pinned, side-stream copies) and (b) with no prefetch
+    (``direct_batches``), each from the same seeded weights under a
+    ``StepClock``: ``data_wait_s_per_step``, step ms, images/s, finite
+    losses, exactly 12 ``fused_bottleneck`` and 4 ``fused_transition``
+    launches a step; both runs see the same batches, so their first losses
+    agree within 1e-3. Then the model's variables saved as a flax tree
+    (``resnet_params_to_flax``) through the ``Checkpointer``, restored into a
+    fresh model (``resnet_params_from_flax``): every tensor bit-equal and
+    the eval logits equal; the save and restore seconds and the bytes on
+    disk. Returns the fused kernels' launches of both runs."""
+    from kubeflow_tpu_torch.data import DataPipeline, synthetic_classifier_source
+    from kubeflow_tpu_torch.gpu.profiling import StepClock, step_breakdown
+    from kubeflow_tpu_torch.models.convert import resnet_params_from_flax, resnet_params_to_flax
+    from kubeflow_tpu_torch.ops import fused_bottleneck as fb
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.training.checkpoint import Checkpointer
+    from kubeflow_tpu_torch.training.resnet import bench_config, make_model, make_task
+
+    cfg = bench_config()
+    n = RESNET_DATA_STEPS
+    source = synthetic_classifier_source(cfg.batch, (cfg.image, cfg.image, 3),
+                                         cfg.num_classes, steps=n)
+    totals: Counter = Counter()
+    losses = {}
+    model = make_model(cfg, seed=0, device="cuda")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    split = {"draw_s": [], "copy_s": []}
+    for label in ("prefetch", "no_prefetch"):
+        model.load_state_dict(init)  # both runs from the same weights
+        task = make_task(cfg, model)
+        state = task.init()
+        clock = StepClock()
+        batches = (iter(DataPipeline(source, device="cuda", clock=clock))
+                   if label == "prefetch" else direct_batches(source(0), clock, split))
+        torch.cuda.synchronize()
+        fb.reset_launches()
+        run_losses, step_ms = [], []
+        clock.mark()
+        for batch in batches:
+            with clock.compute():
+                state, metrics = task.train_step(state, batch["images"], batch["labels"].long())
+            with clock.fetch():
+                run_losses.append(float(metrics["loss"]))
+            step_ms.append(clock.end_step()["total"] * 1e3)
+        launches = dict(fb.LAUNCHES)
+        waits = [st.get("data_wait", 0.0) for st in clock.steps]
+        steady = float(np.median(step_ms[1:]))
+        emit(phase="resnet_data", path=label, card=card, batch=cfg.batch, image=cfg.image,
+             steps=len(run_losses), losses=run_losses, step_ms=step_ms,
+             step_ms_median=steady, images_per_s=cfg.batch / steady * 1e3,
+             data_wait_s=waits, data_wait_s_median_after_first=float(np.median(waits[1:])),
+             step_breakdown=step_breakdown(clock), launches=launches,
+             **({"draw_s": split["draw_s"], "copy_s": split["copy_s"]}
+                if label == "no_prefetch" else {}))
+        want = {"fused_bottleneck": 12 * n, "fused_transition": 4 * n}
+        if len(run_losses) != n or not all(np.isfinite(run_losses)) or launches != want:
+            raise AssertionError(f"resnet_data {label}: {len(run_losses)} steps, losses "
+                                 f"{run_losses}, launches {launches}; expected {want}")
+        totals.update(launches)
+        losses[label] = run_losses
+    images = batch["images"]
+    del init
+    first = abs(losses["prefetch"][0] - losses["no_prefetch"][0])
+    if first > 1e-3:
+        raise AssertionError(f"resnet_data: the runs' first losses differ by {first}")
+
+    # the variables through the checkpoint into a fresh model
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_") as ckdir:
+        save0, restore0 = checkpoint_seconds(METRICS)
+        Checkpointer(ckdir).save(n, resnet_params_to_flax(model.state_dict(), model),
+                                meta={"steps": n})
+        tree, meta = Checkpointer(ckdir).restore_numpy()
+        save1, restore1 = checkpoint_seconds(METRICS)
+        disk_bytes = dir_bytes(ckdir)
+    fresh = make_model(cfg, seed=1, device="cuda")
+    fresh.load_state_dict(resnet_params_from_flax(tree, fresh))
+    want, got = model.state_dict(), fresh.state_dict()
+    unequal = [k for k in want if not torch.equal(want[k], got[k])]
+    with torch.no_grad():
+        equal_logits = torch.equal(model(images, train=False), fresh(images, train=False))
+    emit(phase="resnet_data", card=card, first_loss_diff=first, checkpoint_meta=meta,
+         checkpoint_tensors=len(want), checkpoint_save_s=save1 - save0,
+         checkpoint_restore_s=restore1 - restore0, checkpoint_disk_bytes=disk_bytes,
+         restored_bit_equal=not unequal, eval_logits_equal=equal_logits)
+    if unequal or not equal_logits or meta != {"steps": n}:
+        raise AssertionError(f"resnet_data: restored tensors differ at {unequal[:5]}, eval "
+                             f"logits equal {equal_logits}, meta {meta}")
+    del model, task, state, fresh, tree, images, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(totals)
+
+
+#: the trial's hyperparameters (JAX's ``mnist_objective`` defaults otherwise)
+MNIST_PARAMS = {"lr": 1e-2, "dropout": 0.1, "width": 16}
+
+
+def mnist_trial_phase(card: str) -> None:
+    """Phase 19c: the HPO trial ``mnist_objective`` on the card at JAX's
+    defaults (30 steps, batch 64), a report every step: the loss falls and
+    the accuracy lies in [0, 1]; then again with a ``report_fn`` that
+    returns False at step 10: it stops there (reports at 5 and 10) and
+    returns that report's metrics. Seconds of each trial."""
+    from kubeflow_tpu_torch.hpo.trials import mnist_objective
+
+    curve = []
+    t0 = time.perf_counter()
+    full = mnist_objective(MNIST_PARAMS, device="cuda", report_every=1,
+                           report_fn=lambda step, m: curve.append(m["loss"]) or True)
+    full_s = time.perf_counter() - t0
+    seen = []
+
+    def stop_at_10(step, m):
+        seen.append((step, m))
+        return step < 10
+
+    t0 = time.perf_counter()
+    stopped = mnist_objective(MNIST_PARAMS, device="cuda", report_fn=stop_at_10)
+    stopped_s = time.perf_counter() - t0
+    emit(phase="mnist_trial", card=card, params=MNIST_PARAMS, steps=30, batch=64,
+         result=full, loss_first=curve[0], trial_s=full_s,
+         early_stop_reports=[s for s, _ in seen], early_stop_result=stopped,
+         early_stop_trial_s=stopped_s)
+    if not (np.isfinite(full["loss"]) and full["loss"] < curve[0]
+            and 0.0 <= full["accuracy"] <= 1.0 and len(curve) == 29):
+        raise AssertionError(f"mnist_trial: loss {curve[0]} -> {full['loss']}, accuracy "
+                             f"{full['accuracy']}, {len(curve)} reports")
+    if [s for s, _ in seen] != [5, 10] or stopped != seen[-1][1]:
+        raise AssertionError(f"mnist_trial: reports {seen}, result {stopped}")
+
+
 # -- phases 16-19: the device-evidence path ------------------------------------------
 
 STREAM_SOURCE = "kubeflow_tpu_torch/ops/csrc/stream_copy.cu"
@@ -2878,6 +3115,9 @@ def main() -> int:
         timed("ceiling", ceiling_phase)
         timed("step_profiles", step_profiles_phase)
         timed("spec_write", spec_write_phase)
+        for name, n in timed("resnet_data", resnet_data_phase).items():
+            launches[name] += n
+        timed("mnist_trial", mnist_trial_phase)
         # after every phase that reads the profiler: these start threads and
         # servers, and read no profiler window
         timed("serve_chunked+obs", lambda c: serve_chunked_phase(c, prompts, short_tokens))

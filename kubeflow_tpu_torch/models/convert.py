@@ -31,6 +31,16 @@ heads, head_dim]`` and ``out_proj [heads, head_dim, hidden]`` flattened to
 flattened.
 
 Any flax leaf left unused, or any port parameter left unfilled, raises.
+
+The inverses carry the port's tensors back into flax trees of f32 numpy
+arrays, which the JAX package loads and the port's ``Checkpointer`` saves
+under flax's names: ``params_to_flax`` undoes ``params_from_flax`` (and
+re-stacks ``block_i`` into ``blocks`` for a ``scan_blocks`` config, JAX's
+``stack_block_params``), ``resnet_params_to_flax`` undoes
+``resnet_params_from_flax`` for a ``ResNet`` or an ``MnistCNN``. They
+refuse as the forward converters do: a tensor the model lacks, one left
+unfilled, or a shape that does not fit. BERT's inverse waits for a caller
+that saves BERT weights.
 """
 
 from __future__ import annotations
@@ -170,3 +180,89 @@ def bert_params_from_flax(tree: Dict[str, Any], cfg: BertConfig) -> Params:
     :func:`params_from_flax` does."""
     return _fill(BertForMaskedLM(cfg, device="meta"), cfg,
                  ((path, *_bert_target(path, leaf, cfg)) for path, leaf in _leaves(tree)))
+
+
+def _checked(params: Params, expected: Dict[str, Tuple[int, ...]], what: str
+             ) -> Iterator[Tuple[str, np.ndarray]]:
+    """``params``' (name, f32 numpy value) pairs; a name ``expected`` lacks,
+    a shape that does not fit or a name left unfilled raises."""
+    missing = sorted(set(expected) - set(params))
+    if missing:
+        raise ValueError(f"{what}: no tensor for {missing}")
+    for name, value in params.items():
+        if name not in expected:
+            raise ValueError(f"{what}: {name!r} has no counterpart in the flax tree")
+        if tuple(value.shape) != tuple(expected[name]):
+            raise ValueError(f"{what}: {name!r} shape {tuple(value.shape)} does not fit "
+                             f"{tuple(expected[name])}")
+        yield name, value.detach().to("cpu", torch.float32).numpy()
+
+
+def _nest(flat: Iterator[Tuple[str, np.ndarray]]) -> Dict[str, Any]:
+    """``a/b/c`` paths as nested dicts."""
+    tree: Dict[str, Any] = {}
+    for path, value in flat:
+        *heads, last = path.split("/")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = value
+    return tree
+
+
+def _source(name: str, value: np.ndarray, cfg: GptConfig) -> Tuple[str, np.ndarray]:
+    """(flax path, value in flax's layout) of one port GPT tensor: the
+    inverse of :func:`_target`."""
+    parts = name.split(".")
+    if name == "embedding.weight":
+        return "embedding/embedding", value
+    if parts[-1] in ("scale", "bias") and parts[-2] in ("ln_attn", "ln_mlp", "ln_final"):
+        return "/".join(parts), value
+    if parts[-1] == "weight" and len(parts) == 4:
+        block, group, proj = parts[:3]
+        h, d = cfg.n_heads, cfg.head_dim
+        if group == "attention" and proj in ("query", "key", "value"):
+            return f"{block}/{group}/{proj}/kernel", value.T.reshape(cfg.d_model, h, d)
+        if group == "attention" and proj == "out_proj":
+            return f"{block}/{group}/{proj}/kernel", value.T.reshape(h, d, cfg.d_model)
+        if group == "mlp" and proj in ("up_proj", "down_proj"):
+            return f"{block}/{group}/{proj}/kernel", value.T
+    raise ValueError(f"port tensor {name!r} {value.shape} has no counterpart in flax")
+
+
+def params_to_flax(params: Params, cfg: GptConfig) -> Dict[str, Any]:
+    """The port's GPT state dict as the flax parameter tree (nested dicts
+    of f32 numpy arrays) that :func:`params_from_flax` reads: per-layer
+    ``block_i`` trees, or for ``cfg.scan_blocks`` one ``blocks`` tree with
+    a leading layer axis."""
+    expected = {k: tuple(v.shape) for k, v in GptLM(cfg, device="meta").state_dict().items()}
+    tree = _nest(_source(name, value, cfg)
+                 for name, value in _checked(params, expected, "params_to_flax"))
+    if not cfg.scan_blocks:
+        return tree
+    layers = [tree.pop(f"block_{i}") for i in range(cfg.n_layers)]
+
+    def stack(*xs: Any) -> Any:
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+
+    tree["blocks"] = stack(*layers)
+    return tree
+
+
+def resnet_params_to_flax(state: Params, model: torch.nn.Module) -> Dict[str, Any]:
+    """``state`` (a state dict of ``model``'s names, e.g.
+    ``model.state_dict()``) as the flax variables that
+    :func:`resnet_params_from_flax` reads: ``{"params": ...}`` from the
+    model's parameters and, when it has buffers (a ResNet's BatchNorm
+    statistics), ``"batch_stats"`` from them; nested dicts of f32 numpy
+    arrays."""
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    shapes.update((n, tuple(b.shape)) for n, b in model.named_buffers())
+    buffers = {n for n, _ in model.named_buffers()}
+    flat = list(_checked(state, shapes, "resnet_params_to_flax"))
+    out = {"params": _nest((n.replace(".", "/"), v) for n, v in flat if n not in buffers)}
+    if buffers:
+        out["batch_stats"] = _nest((n.replace(".", "/"), v) for n, v in flat if n in buffers)
+    return out

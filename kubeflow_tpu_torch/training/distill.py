@@ -23,6 +23,13 @@ prompts come from the port's own seeded generator: JAX's
 ``jax.random.randint`` cannot be reproduced, so ``_decode_corpus`` takes
 ``prompts`` to give both packages the same ones. ``(draft_cfg,
 draft_params)`` plugs into ``ContinuousBatcher(spec_draft=...)``.
+
+With ``checkpoint_dir`` the draft is saved as JAX saves it: its flax tree
+(``models.convert.params_to_flax``, f32) at step ``steps`` through the
+port's ``Checkpointer``, with JAX's ``spec_draft`` meta record. Either
+package reads it back: ``Checkpointer(dir).restore_numpy()`` gives the tree
+and the meta, and ``params_from_flax(tree, draft_cfg)`` the port's
+``spec_draft`` params.
 """
 
 from __future__ import annotations
@@ -33,8 +40,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..models.convert import params_to_flax
 from ..models.gpt import GptConfig, GptLM, Params, generate
 from ..runtime.metrics import METRICS
+from .checkpoint import Checkpointer
 
 
 def draft_config(cfg: GptConfig, n_layers: Optional[int] = None) -> GptConfig:
@@ -88,14 +97,14 @@ def distill_draft(cfg: GptConfig, params: Params, draft_cfg: Optional[GptConfig]
     ``np.random.default_rng(seed + 1)``, as in JAX. ``on_step(step, kl)``
     (optional) sees each step's KL, read to the host. Counts
     ``distill_steps_total`` and sets the ``distill_kl`` gauge to the last
-    step's KL."""
+    step's KL. ``checkpoint_dir`` (optional) receives the draft at step
+    ``steps`` with JAX's ``spec_draft`` meta (see the module docstring)."""
     draft_cfg = draft_cfg or draft_config(cfg)
     if draft_cfg.vocab_size != cfg.vocab_size or draft_cfg.max_seq != cfg.max_seq:
         raise ValueError("draft must share the target's vocab and max_seq")
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint_dir: the port has no Checkpointer yet (ROADMAP.md queue A, A.6)")
     dev = resolve_device(device)
+    # opened before training: an unusable directory fails before any step
+    ckpt = Checkpointer(checkpoint_dir) if checkpoint_dir else None
     params = {k: v.to(dev) for k, v in params.items()}
     corpus = _decode_corpus(cfg, params, sequences=sequences, prompt_len=prompt_len,
                             decode_len=min(decode_len, cfg.max_seq - prompt_len),
@@ -117,8 +126,20 @@ def distill_draft(cfg: GptConfig, params: Params, draft_cfg: Optional[GptConfig]
         METRICS.counter("distill_steps_total").inc()
         if on_step is not None:
             on_step(step, loss.item())
-    METRICS.gauge("distill_kl").set(loss.item() if loss is not None else 0.0)
-    return draft_cfg, {k: v.detach() for k, v in student.state_dict().items()}
+    final_kl = loss.item() if loss is not None else 0.0
+    METRICS.gauge("distill_kl").set(final_kl)
+    draft_params = {k: v.detach() for k, v in student.state_dict().items()}
+    if ckpt is not None:
+        meta = {
+            "kind": "spec_draft",
+            "distilled_from": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                               "vocab_size": cfg.vocab_size},
+            "draft_layers": draft_cfg.n_layers,
+            "steps": int(steps), "lr": lr, "seed": seed,
+            "final_kl": round(final_kl, 6),
+        }
+        ckpt.save(int(steps), params_to_flax(draft_params, draft_cfg), meta=meta)
+    return draft_cfg, draft_params
 
 
 def measure_accept_rate(cfg: GptConfig, params: Params, draft_cfg: GptConfig,

@@ -9,8 +9,13 @@ loss within f32 tolerance (rtol 1e-4, atol 1e-6), and the KL curve over 5
 Adam steps matches JAX's (rtol 1e-4); the JAX reference loop is held to the
 JAX package's own ``distill_draft`` first. On the JAX test's config
 (``tests/test_distill.py``, bf16) the port's distilled draft reaches an
-accept rate of at least 0.4, above the self-draft's. The checkpoint part
-waits for the port's Checkpointer (ROADMAP.md A.6).
+accept rate of at least 0.4, above the self-draft's. With
+``checkpoint_dir`` the port saves the draft as JAX does: the JAX
+``Checkpointer`` reads it back with JAX's ``spec_draft`` meta (the final KL
+within rtol 1e-4 of JAX's own run on the same corpus, the other fields
+equal), the JAX ``GptLM`` on the restored tree gives the port draft's
+logits within f32 tolerance (rtol 1e-4, atol 1e-6), and a JAX-written
+draft becomes the port's ``spec_draft`` through ``params_from_flax``.
 """
 
 import dataclasses
@@ -24,12 +29,14 @@ import optax
 import torch
 
 import kubeflow_tpu.training.distill as jdistill
+from kubeflow_tpu.training.checkpoint import Checkpointer as JCheckpointer
 from kubeflow_tpu.models.gpt import GptConfig as JCfg, GptLM as JLM, generate as jgenerate
 from kubeflow_tpu.runtime.metrics import METRICS as JMETRICS
 from kubeflow_tpu_torch.models.convert import params_from_flax
 from kubeflow_tpu_torch.models.gpt import GptConfig, GptLM
 from kubeflow_tpu_torch.runtime.metrics import METRICS
 from kubeflow_tpu_torch.training import distill
+from kubeflow_tpu_torch.training.checkpoint import Checkpointer
 
 torch.set_num_threads(1)
 
@@ -183,5 +190,45 @@ def test_mismatched_draft_and_checkpoint_dir_are_refused(tmp_path):
     bad = GptConfig(**dict(SHAPE, n_layers=1, vocab_size=99))
     with pytest.raises(ValueError, match="vocab"):
         distill.distill_draft(cfg, params, bad, steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        distill.distill_draft(cfg, params, steps=1, checkpoint_dir=str(tmp_path), device="cpu")
+    # an unusable checkpoint_dir (a file) is refused before any step runs
+    blocker = tmp_path / "not_a_dir"
+    blocker.write_text("")
+    steps0 = METRICS.value("distill_steps_total")
+    with pytest.raises(OSError):
+        distill.distill_draft(cfg, params, steps=1, checkpoint_dir=str(blocker), device="cpu")
+    assert METRICS.value("distill_steps_total") == steps0
+
+
+def test_checkpointed_draft_reads_back_in_both_packages(f32, monkeypatch, tmp_path):
+    jcfg, jp, jdcfg, cfg, tp, dcfg, _, corpus = f32
+    monkeypatch.setattr(distill, "_decode_corpus", lambda *a, **k: corpus)
+    monkeypatch.setattr(jdistill, "_decode_corpus", lambda *a, **k: corpus)
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    _, dp = distill.distill_draft(cfg, tp, dcfg, steps=3, lr=2e-3, seed=0,
+                                  checkpoint_dir=port_dir, device="cpu")
+    jdistill.distill_draft(jcfg, jp, jdcfg, steps=3, lr=2e-3, seed=0, checkpoint_dir=jax_dir)
+    assert JCheckpointer(port_dir).latest_step() == 3
+    tree, meta = JCheckpointer(port_dir).restore_numpy()
+    _, jmeta = JCheckpointer(jax_dir).restore_numpy()
+    assert meta["kind"] == "spec_draft" and sorted(meta) == sorted(jmeta)
+    assert {k: v for k, v in meta.items() if k != "final_kl"} == {
+        k: v for k, v in jmeta.items() if k != "final_kl"}
+    assert meta["final_kl"] == round(METRICS.gauge("distill_kl").value, 6)
+    assert meta["final_kl"] == pytest.approx(jmeta["final_kl"], rel=RTOL)
+    # the JAX model on the restored tree gives the port draft's logits
+    ids = corpus[:2]
+    want = np.asarray(JLM(jdcfg).apply({"params": tree}, jnp.asarray(ids)))
+    with torch.no_grad():
+        got = GptLM.bind(dcfg, dp)(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    # the port reads its own draft back bit for bit, and JAX's as its spec_draft
+    ptree, pmeta = Checkpointer(port_dir).restore_numpy()
+    assert pmeta == meta
+    back = params_from_flax(ptree, dcfg)
+    assert sorted(back) == sorted(dp) and all(torch.equal(back[k], dp[k]) for k in dp)
+    jtree, _ = Checkpointer(jax_dir).restore_numpy()
+    jdp = params_from_flax(jtree, dcfg)
+    with torch.no_grad():
+        jgot = GptLM.bind(dcfg, jdp)(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(jgot, np.asarray(
+        JLM(jdcfg).apply({"params": jtree}, jnp.asarray(ids))), rtol=RTOL, atol=ATOL)

@@ -245,7 +245,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 51
+    assert len(mods) >= 57
 
 
 def test_params_are_seeded():
