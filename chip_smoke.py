@@ -215,9 +215,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              leave the same bytes (``torch.equal``); call and device ms a
              layer and a round;
 19b. resnet_data — the bench's ResNet-50 step (batch 256, 224 x 224) fed
-             by ``synthetic_classifier_source`` for 6 steps through
+             by ``synthetic_classifier_source`` for 4 steps through
              ``DataPipeline`` (pinned buffers, a side stream, a producer
-             thread) and 6 with no prefetch (each batch drawn and copied on
+             thread) and 4 with no prefetch (each batch drawn and copied on
              the training thread), from the same seeded weights:
              ``data_wait_s_per_step``, step ms, images/s, finite losses,
              12 ``fused_bottleneck`` and 4 ``fused_transition`` launches a
@@ -229,12 +229,40 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              defaults (30 steps, batch 64): the loss falls, the accuracy
              in [0, 1]; a ``report_fn`` returning False at step 10 stops it
              there with that report's metrics; seconds a trial. Phases
-             19b-19c run after 19a and read no profiler window;
+             19b-19g run after 19a and read no profiler window;
+19d. profile_clock — the bench's GPT training loop (b 8, L 1024, AdamW)
+             for 8 steps in a thread, its ``StepClock`` registered as
+             "train"; ``start_profile_server(0)`` (a second port raises);
+             after step 2, ``GET /debug/profile?clock=train&steps=2&timeout=60``
+             returns exactly 2 consecutive steps recorded after the
+             request, each with its compute and fetch phases; an unknown
+             clock 404, a non-numeric ``steps`` 400; each flash kernel 24
+             launches a step;
+19e. serving_bench — ``kubeflow_tpu_torch.e2e.serving_bench`` at full
+             width (BERT-base, GPT-medium) with cut depth: BERT over HTTP
+             at buckets 1/8/32, 8 timed requests each (``flash_fwd`` 12 a
+             forward); ``generate()`` at batch 1 and 8, 64 new tokens (no
+             kernel: its scalar-cursor cache is written by an indexed
+             store); 8 requests at 8 slots, budgets 32/64/128/224, static
+             path (no kernel) against the paged engine
+             (``kv_block_update_pair`` 24 a decode step), then a draft
+             distilled for 60 steps (flash 30 + 6 + 6 a step) and the spec
+             pass (``kv_row_update_pair`` 6 x 4 a round), each request's
+             tokens held to the static path's (``near_tie``); two models
+             over prefill and decode pools, int8, 6 requests of 32 tokens
+             (every request "ok", one KV import each,
+             ``kv_block_update_quant_pair`` 24 a decode step); every row
+             printed;
+19f. stage_profile — the stem and the four ResNet-50 stages at batch 256,
+             BatchNorm in train mode, 3 timed steps a tower: ms, counted
+             GFLOP and TF/s (unfused blocks, no fused-block launch);
+19g. conv_experiments — the 14 convolution-ceiling probes at their full
+             shapes, 4 timed calls of 8 chained steps each: TF/s;
 20. kv_probe — ``kubeflow_tpu_torch.e2e.kv_update_probe``: the KV writes
              alone (contiguous and paged), the host split of a write's
              call, the decode chunk per token with the writes plain and
-             through the kernels (100 calls a time, 4,000 calls a part, 2
-             timed chunks a row: fewer repeats than the probe's defaults).
+             through the kernels (100 calls a time, 4,000 calls a part, 1
+             timed chunk a row: fewer repeats than the probe's defaults).
              It runs last: no profiler window follows its launches.
 
 The peaks in every bound and mfu come from the port's catalog
@@ -251,7 +279,10 @@ on their own lines; phases 5d-5g reset and read them around each run,
 print them on each run's own line, and their counts are added to the
 kernels line's (the draft's and the decode side's KV writes,
 distillation's flash launches, the fleet replicas' KV writes), as are
-phase 19b's fused-block launches (both of its runs): that line's count is
+phase 19b's fused-block launches (both of its runs), phase 19d's flash
+launches and phase 19e's KV and flash launches (BERT's, the engine
+pass's, distillation's, the spec draft's and the fleet's decode pool's):
+that line's count is
 then a sum over several runs, and each path's own count is on its run's
 line. The fused-block
 kernels' entries in the kernels line sum their per-call times over the blocks of one training step (2, 3, 5
@@ -275,6 +306,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from collections import Counter
 
@@ -304,6 +336,12 @@ def smi() -> str:
 
 def emit(**obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def cleanup() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -1733,10 +1771,6 @@ def fleet_phase(card: str, prompts, short_tokens: dict) -> dict:
     totals: Counter = Counter()
     pairs = ("kv_row_update_pair", "kv_block_update_pair", "kv_block_update_quant_pair")
 
-    def cleanup():
-        gc.collect()
-        torch.cuda.empty_cache()
-
     # (a) two replicas behind the HTTP server, the 8 prompts twice
     model = dataclasses.replace(
         gpt_served_model(name="gpt", tiny=False, max_new_tokens=MAX_NEW, device="cuda",
@@ -2039,7 +2073,7 @@ def profile_layout(card: str, cfg, params, paged: bool, pair_name: str) -> None:
 #: the probe's repeats, cut from its defaults (200, 10,000, 5) to pay for
 #: phases 19b-19c: calls a time in ``isolated``, calls a part in
 #: ``host_split``, timed chunks a row in ``in_model``
-KV_PROBE_ITERS, KV_PROBE_HOST_CALLS, KV_PROBE_CHUNKS = 100, 4_000, 2
+KV_PROBE_ITERS, KV_PROBE_HOST_CALLS, KV_PROBE_CHUNKS = 100, 4_000, 1
 
 
 def kv_probe_phase(card: str) -> None:
@@ -2742,7 +2776,7 @@ def resnet_profile_phase(card: str) -> None:
 # -- phases 19b-19c: the input pipeline, the checkpoint and the HPO trial ----------
 
 #: steps of each resnet_data run
-RESNET_DATA_STEPS = 6
+RESNET_DATA_STEPS = 4
 
 
 def direct_batches(source, clock, split: dict):
@@ -2900,6 +2934,313 @@ def mnist_trial_phase(card: str) -> None:
         raise AssertionError(f"mnist_trial: reports {seen}, result {stopped}")
 
 
+# -- phases 19d-19g: the profile server, the serving probe, the ResNet probes ---------
+
+#: steps of phase 19d's training loop
+PROFILE_CLOCK_STEPS = 8
+
+
+def http_status(port: int, path: str) -> int:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def profile_clock_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 19d: the bench's GPT training loop (b 8, L 1024, AdamW) for
+    ``PROFILE_CLOCK_STEPS`` steps in a thread, its ``StepClock``
+    registered as "train" (``register_profile_clock``); the profile server
+    started on port 0 (a second port refused); after step 2,
+    ``/debug/profile?clock=train&steps=2&timeout=60`` over HTTP returns
+    exactly 2 steps recorded after the request, consecutive, each with its
+    compute and fetch phases; an unknown clock answers 404 and a
+    non-numeric ``steps`` 400; each flash kernel 24 launches a step.
+    Returns the flash kernels' launches of the loop."""
+    from kubeflow_tpu_torch.gpu import profiling as prof
+    from kubeflow_tpu_torch.models.gpt import GptLM, init_params
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.training.gpt import bench_config, make_optimizer, train_step
+
+    cfg = bench_config(TRAIN_SEQ)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)), dtype=torch.int64, device=device)
+    model = GptLM.trainable(cfg, init_params(cfg, seed=0, device=device))
+    opt = make_optimizer(model.parameters())
+    clock = prof.register_profile_clock(prof.StepClock(), name="train")
+    port = prof.start_profile_server(0)
+    try:
+        prof.start_profile_server(port + 1)
+        raise AssertionError("profile_clock: a second profile server port was accepted")
+    except RuntimeError as e:
+        if f"already on port {port}" not in str(e):
+            raise
+    losses, errors = [], []
+
+    def loop():
+        try:
+            for _ in range(PROFILE_CLOCK_STEPS):
+                with clock.compute():
+                    loss_t = train_step(model, opt, ids)
+                with clock.fetch():
+                    losses.append(float(loss_t))
+                clock.end_step()
+        except Exception as e:  # surfaced below, after the join
+            errors.append(e)
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=loop, name="profile-clock-train")
+    worker.start()
+    deadline = time.monotonic() + 600
+    while len(clock.steps) < 2 and worker.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    baseline = len(clock.steps)
+    t_req = time.perf_counter()
+    doc = get_json(port, "/debug/profile?clock=train&steps=2&timeout=60")
+    capture_s = time.perf_counter() - t_req
+    statuses = {"nope": http_status(port, "/debug/profile?clock=nope"),
+                "many": http_status(port, "/debug/profile?steps=many")}
+    worker.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    prof._PROFILE_CLOCKS.pop("train", None)
+    if errors or worker.is_alive():
+        raise AssertionError(f"profile_clock: the training loop failed: {errors}")
+    steps = [e for e in doc["traceEvents"] if e["cat"] == "step"]
+    numbers = [e["args"]["step"] for e in steps]
+    phases = {n: sorted(e["name"] for e in doc["traceEvents"]
+                        if e["cat"] == "phase" and e["args"]["step"] == n) for n in numbers}
+    emit(phase="profile_clock", card=card, port=port, steps=PROFILE_CLOCK_STEPS,
+         baseline_steps=baseline, captured_steps=numbers, captured_phases=phases,
+         capture_s=capture_s, statuses=statuses, losses=losses, wall_s=wall,
+         step_ms=[r["total"] * 1e3 for r in clock.steps], launches=launches,
+         display_time_unit=doc["displayTimeUnit"])
+    if (len(numbers) != 2 or numbers[0] <= baseline or numbers[1] != numbers[0] + 1
+            or any(v != ["compute", "fetch"] for v in phases.values())):
+        raise AssertionError(f"profile_clock: captured steps {numbers} (baseline {baseline}), "
+                             f"phases {phases}")
+    if statuses != {"nope": 404, "many": 400}:
+        raise AssertionError(f"profile_clock: statuses {statuses}")
+    if not all(np.isfinite(losses)) or len(losses) != PROFILE_CLOCK_STEPS \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"profile_clock: losses {losses}")
+    want = cfg.n_layers * PROFILE_CLOCK_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"profile_clock: launches {launches}, expected {want} each")
+    del model, opt
+    cleanup()
+    return launches
+
+
+#: the serving probe's depth cuts (JAX's defaults in the comments)
+SB_BERT_REQUESTS = 8        # timed requests a bucket [40]
+SB_DECODE_NEW = 64          # new tokens of bench_gpt_decode [256]
+SB_REQUESTS = 8             # requests of bench_continuous, at 8 slots [16]
+SB_DISTILL_STEPS = 60       # the distilled draft's steps [300]
+SB_DISAGG_REQUESTS = 6      # requests of bench_disagg [24]
+SB_DISAGG_BUDGET = 32       # their new tokens [128]
+#: BERT-base's flash_fwd launches a forward (one a layer)
+BERT_LAYERS = 12
+
+
+class LaunchWindow:
+    """The KV and flash kernels' launches and the engines' decode steps and
+    spec rounds since the window opened or was last taken (the registry is
+    not reset in between)."""
+
+    def __init__(self) -> None:
+        self.base = self._now()
+
+    @staticmethod
+    def _now() -> dict:
+        from kubeflow_tpu_torch.ops import flash_attention as fa, kv_cache as kc
+        from kubeflow_tpu_torch.runtime.metrics import METRICS
+
+        return {**kc.LAUNCHES, **fa.LAUNCHES,
+                "steps": METRICS.value("serving_decode_steps_total"),
+                "rounds": METRICS.value("serving_spec_rounds_total")}
+
+    def take(self) -> dict:
+        now = self._now()
+        out = {k: int(now[k] - self.base[k]) for k in now}
+        self.base = now
+        return out
+
+
+def expect_none(label: str, counts: dict, *allowed: str) -> None:
+    bad = {k: n for k, n in counts.items() if n and k not in allowed + ("steps", "rounds")}
+    if bad:
+        raise AssertionError(f"{label}: unexpected launches {bad}")
+
+
+def serving_bench_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 19e: ``kubeflow_tpu_torch.e2e.serving_bench``'s four passes at
+    full width (BERT-base at L 128; GPT-medium, d 1024, 24 layers), cut in
+    depth (``SB_*``), each with a fresh registry as in its own process. (1)
+    BERT over HTTP, buckets 1/8/32: ``flash_fwd`` 12 a forward, nothing
+    else. (2) Static decoding at batch 1 and 8: no kernel (``generate()``
+    writes its scalar-cursor cache by an indexed store, as JAX's
+    ``dynamic_update_slice``; its attention is not flash). (3) The engine
+    pass: the static path launches nothing; the paged continuous engine
+    ``kv_block_update_pair`` 24 a decode step; distillation 24 + 6
+    ``flash_fwd`` and 6 of each backward a step; the spec engine
+    ``kv_row_update_pair`` 6 x 4 a round and no decode step; each request's
+    continuous and spec tokens held to the static path's (``near_tie``).
+    (4) The fleet: every request "ok", one KV import a request,
+    ``kv_block_update_quant_pair`` 24 a decode step on the decode pool.
+    Every row printed. Returns the kernels' launches of (1), (3) and (4)."""
+    from kubeflow_tpu_torch.e2e import serving_bench as sb
+    from kubeflow_tpu_torch.models.gpt import GptConfig
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+
+    n_layers = GptConfig.base().n_layers
+    totals: Counter = Counter()
+
+    # (1) BERT-base predict over HTTP
+    batches = (1, 8, 32)
+    METRICS.reset()
+    w = LaunchWindow()
+    t0 = time.perf_counter()
+    rows = sb.bench_bert_http(batches, SB_BERT_REQUESTS, device=device)
+    c = w.take()
+    for r in rows:
+        emit(phase="serving_bench", metric="bert_base_predict_http", card=card,
+             requests_per_batch=SB_BERT_REQUESTS, **r)
+    forwards = len(batches) * (1 + SB_BERT_REQUESTS)
+    expect_none("serving_bench_bert", c, "flash_fwd")
+    if c["flash_fwd"] != BERT_LAYERS * forwards:
+        raise AssertionError(f"serving_bench_bert: {c['flash_fwd']} flash_fwd launches over "
+                             f"{forwards} forwards")
+    emit(phase="serving_bench", run="bert", card=card, wall_s=time.perf_counter() - t0,
+         launches=c)
+    totals["flash_fwd"] += c["flash_fwd"]
+    cleanup()
+
+    # (2) static decoding
+    t0 = time.perf_counter()
+    rows = sb.bench_gpt_decode(new_tokens=SB_DECODE_NEW, device=device)
+    c = w.take()
+    for r in rows:
+        emit(phase="serving_bench", metric="gpt_medium_kv_decode", card=card,
+             new_tokens=SB_DECODE_NEW, **r)
+    expect_none("serving_bench_decode", c)
+    emit(phase="serving_bench", run="decode", card=card, wall_s=time.perf_counter() - t0,
+         launches=c)
+    cleanup()
+
+    # (3) static vs continuous batching, then the speculative pass
+    METRICS.reset()
+    w = LaunchWindow()
+    seen = {}
+    t0 = time.perf_counter()
+    row = sb.bench_continuous(n_requests=SB_REQUESTS, distill_steps=SB_DISTILL_STEPS,
+                              device=device, observe=lambda stage, info: seen.__setitem__(
+                                  stage, (info, w.take(), time.perf_counter())))
+    emit(phase="serving_bench", metric="gpt_continuous_batching", card=card, **row)
+    static, c, _ = seen["static"]
+    expect_none("serving_bench_static", c)
+    _, c, _ = seen["continuous"]
+    expect_pair("serving_bench_continuous", c, "kv_block_update_pair", c["steps"], n_layers)
+    if c["rounds"]:
+        raise AssertionError(f"serving_bench_continuous: {c['rounds']} spec rounds")
+    totals["kv_block_update_pair"] += c["kv_block_update_pair"]
+    distill, c, _ = seen["distill"]
+    dl = distill["draft_cfg"].n_layers
+    expect_none("serving_bench_distill", c, "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    want = {"flash_fwd": (n_layers + dl) * SB_DISTILL_STEPS,
+            "flash_bwd_dq": dl * SB_DISTILL_STEPS, "flash_bwd_dkv": dl * SB_DISTILL_STEPS}
+    if {k: c[k] for k in want} != want:
+        raise AssertionError(f"serving_bench_distill: launches {c}, expected {want}")
+    for k in want:
+        totals[k] += c[k]
+    spec, c, _ = seen["spec"]
+    if spec["spec_k"] != SPEC_K:
+        raise AssertionError(f"serving_bench_spec: spec_k {spec['spec_k']}")
+    expect_spec("serving_bench_spec", c, c["rounds"], c["steps"], dl)
+    totals["kv_row_update_pair"] += c["kv_row_update_pair"]
+    cfg, params, prompts = static["cfg"], static["params"], static["prompts"]
+    differ = {name: hold_tokens(f"serving_bench_{name}", card, cfg, params, prompts,
+                                seen[name][0]["tokens"], static["tokens"])
+              for name in ("continuous", "spec")}
+    emit(phase="serving_bench", run="continuous", card=card, wall_s=time.perf_counter() - t0,
+         requests=SB_REQUESTS, distill_steps=SB_DISTILL_STEPS, draft_layers=dl,
+         near_tie_differences=differ,
+         equal_to_static={k: SB_REQUESTS - n for k, n in differ.items()},
+         launches={k: v[1] for k, v in seen.items()})
+    del seen, static, params
+    cleanup()
+
+    # (4) two models over prefill and decode pools, int8 KV
+    METRICS.reset()
+    w = LaunchWindow()
+    seen = {}
+    t0 = time.perf_counter()
+    row = sb.bench_disagg(n_requests=SB_DISAGG_REQUESTS, budget=SB_DISAGG_BUDGET,
+                          device=device, observe=lambda stage, info: seen.__setitem__(stage, info))
+    c = w.take()
+    emit(phase="serving_bench", metric="decode_tok_s_heterogeneous", card=card,
+         value=row["decode_tok_s_heterogeneous"], **row)
+    reqs = seen["disagg"]["requests"] + seen["disagg"]["warm"]
+    reasons = Counter(r.finish_reason for r in reqs)
+    imports = METRICS.value("serving_kv_import_total")
+    if reasons != {"ok": len(reqs)} or imports != len(reqs):
+        raise AssertionError(f"serving_bench_disagg: finish reasons {dict(reasons)}, "
+                             f"{imports} KV imports for {len(reqs)} requests")
+    expect_pair("serving_bench_disagg", c, "kv_block_update_quant_pair", c["steps"], n_layers)
+    totals["kv_block_update_quant_pair"] += c["kv_block_update_quant_pair"]
+    emit(phase="serving_bench", run="disagg", card=card, wall_s=time.perf_counter() - t0,
+         requests=len(reqs), kv_imports=imports, launches=c)
+    del seen, reqs
+    cleanup()
+    return dict(totals)
+
+
+#: phase 19f's timed steps a tower [20]; phase 19g's timed calls a probe [20]
+STAGE_STEPS = 3
+CONV_ITERS = 4
+
+
+def stage_profile_phase(card: str, device: str = "cuda") -> None:
+    """Phase 19f: ``kubeflow_tpu_torch.e2e.stage_profile`` at batch 256, the
+    conv7x7 stem and the four stages with BatchNorm in train mode,
+    ``STAGE_STEPS`` timed steps a tower: ms, counted GFLOP and TF/s a
+    tower (unfused blocks: no fused-block launch)."""
+    from kubeflow_tpu_torch.e2e import stage_profile
+    from kubeflow_tpu_torch.ops import fused_bottleneck as fb
+
+    fb.reset_launches()
+    out = stage_profile.profile(batch=256, steps=STAGE_STEPS, device=device)
+    for r in out["rows"]:
+        emit(phase="stage_profile", card=card, batch=256, steps=STAGE_STEPS, **r)
+    emit(phase="stage_profile", card=card, sum_ms=out["sum_ms"], launches=dict(fb.LAUNCHES))
+    rates = [r["ms"] for r in out["rows"]] + [r["tflops"] or 0.0 for r in out["rows"]]
+    if len(out["rows"]) != 5 or not all(np.isfinite(rates)) or min(rates) <= 0 \
+            or any(fb.LAUNCHES.values()):
+        raise AssertionError(f"stage_profile: rows {out['rows']}, launches {fb.LAUNCHES}")
+    cleanup()
+
+
+def conv_experiments_phase(card: str, device: str = "cuda") -> None:
+    """Phase 19g: every probe of ``kubeflow_tpu_torch.e2e.conv_experiments``
+    at its full shapes, ``CONV_ITERS`` timed calls of ``CHAIN`` steps each:
+    TF/s and seconds a chain step. A probe that raises fails the phase."""
+    from kubeflow_tpu_torch.e2e import conv_experiments as ce
+
+    rows = ce.run_probes(iters=CONV_ITERS, device=device)
+    for name, r in zip(ce.PROBES, rows):
+        emit(phase="conv_experiments", card=card, probe=name, iters=CONV_ITERS,
+             chain=ce.CHAIN, **r)
+    bad = [r for r in rows if r.get("error") or not np.isfinite(r["tflops"])
+           or r["tflops"] <= 0]
+    if bad:
+        raise AssertionError(f"conv_experiments: {bad}")
+    cleanup()
+
+
 # -- phases 16-19: the device-evidence path ------------------------------------------
 
 STREAM_SOURCE = "kubeflow_tpu_torch/ops/csrc/stream_copy.cu"
@@ -3045,7 +3386,7 @@ def ceiling_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-PROFILE_STEPS = 8
+PROFILE_STEPS = 4
 
 
 def step_profiles_phase(card: str) -> None:
@@ -3118,6 +3459,12 @@ def main() -> int:
         for name, n in timed("resnet_data", resnet_data_phase).items():
             launches[name] += n
         timed("mnist_trial", mnist_trial_phase)
+        for name, n in timed("profile_clock", profile_clock_phase).items():
+            launches[name] += n
+        for name, n in timed("serving_bench", serving_bench_phase).items():
+            launches[name] += n
+        timed("stage_profile", stage_profile_phase)
+        timed("conv_experiments", conv_experiments_phase)
         # after every phase that reads the profiler: these start threads and
         # servers, and read no profiler window
         timed("serve_chunked+obs", lambda c: serve_chunked_phase(c, prompts, short_tokens))

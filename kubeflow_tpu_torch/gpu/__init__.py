@@ -1,2 +1,3 @@
 """The port's accelerator seam: the GPU catalog (``topology.py``) and step
-telemetry (``profiling.py``), the counterparts of ``kubeflow_tpu/tpu/``."""
+telemetry with its ``/debug/profile`` endpoint and profile server
+(``profiling.py``), the counterparts of ``kubeflow_tpu/tpu/``."""

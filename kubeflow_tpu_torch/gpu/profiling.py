@@ -8,10 +8,14 @@ place of ``jax.profiler`` and write Chrome traces (``*.pt.trace.json``) that
 Perfetto and chrome://tracing open. :func:`step_breakdown` is ``bench.py``'s
 ``_step_breakdown``: the per-step dict a training run reports.
 
-Left out, queued in ROADMAP.md: ``register_profile_clock`` and the
-``/debug/profile`` endpoint (they need the port's ``mount_observability``)
-and ``start_profile_server`` (TensorBoard's capture over JAX's profiler
-server).
+:func:`register_profile_clock` publishes a loop's clock at ``GET
+/debug/profile`` on every app that mounts the port's observability routes
+(``runtime/obs.py``), as JAX's does. :func:`start_profile_server` keeps
+JAX's contract (one server a process, idempotent on its port), but torch
+has no profiler server for TensorBoard to capture from: the port's server
+is the process's observability app, so ``<pod-dns>:9999`` answers
+``/debug/profile``, ``/metrics`` and ``/debug/*``. Device traces come from
+:func:`step_trace` and :func:`profile_step`.
 """
 
 from __future__ import annotations
@@ -19,11 +23,41 @@ from __future__ import annotations
 import collections
 import glob
 import os
+import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Callable, Deque, Dict, List, Optional
 
 import torch
+
+PROFILE_PORT = 9999
+
+_server_lock = threading.Lock()
+#: (port asked for, port bound) of the process's server; None before it starts
+_server_ports: Optional[tuple] = None
+_server: Optional[Any] = None
+
+
+def start_profile_server(port: int = PROFILE_PORT, host: str = "0.0.0.0") -> int:
+    """Start the process's profile server (idempotent) and return its port.
+    It serves the observability routes (``/debug/profile`` among them, see
+    :func:`register_profile_clock`) on ``port``; ``port=0`` binds a free
+    port. A second call with the port asked for, or the one bound, returns
+    it; any other port raises: one server a process, as JAX's."""
+    global _server_ports, _server
+    with _server_lock:
+        if _server_ports is not None:
+            if port not in _server_ports:
+                raise RuntimeError(
+                    f"profiler server already on port {_server_ports[1]}; "
+                    f"cannot also serve {port} (one server per process)")
+            return _server_ports[1]
+        from ..runtime.obs import mount_observability  # lazy: HTTP only when asked
+        from ..web.http import App
+
+        _server = mount_observability(App("profile-server")).serve(port, host=host)
+        _server_ports = (port, _server.port)
+        return _server.port
 
 
 @contextmanager
@@ -84,7 +118,8 @@ class StepClock:
     (``keep_steps``, default 512) so the timeline survives without a
     tracer: ``to_chrome_trace()`` renders the recorded steps as a
     Chrome-trace-event document (the ``trace.json`` Perfetto and
-    chrome://tracing load).
+    chrome://tracing load), and :func:`register_profile_clock` publishes
+    it at ``GET /debug/profile``.
 
     In eager PyTorch ``compute`` around a step measures its host dispatch
     and ``fetch`` around the loss read waits for the device, so a step's
@@ -109,6 +144,8 @@ class StepClock:
         #: long training run can't grow host memory without limit
         self._step_records: Deque[Dict[str, Any]] = collections.deque(
             maxlen=keep_steps)
+        #: the ring is appended by the loop's thread and read by HTTP's
+        self._records_lock = threading.Lock()
 
     def note(self, key: str, value: float) -> None:
         """Attach a derived scalar (analytic comm bytes, bubble fraction —
@@ -192,13 +229,14 @@ class StepClock:
         if self._metrics is not None:
             for k, v in rec.items():
                 self._metrics.gauge("step_phase_seconds", phase=k).set(v)
-        self._step_records.append({
-            "step": len(self.steps),
-            "start_ns": self._step_start_ns,
-            "end_ns": now_ns,
-            "phases": list(self._events),
-            "rec": rec,
-        })
+        with self._records_lock:
+            self._step_records.append({
+                "step": len(self.steps),
+                "start_ns": self._step_start_ns,
+                "end_ns": now_ns,
+                "phases": list(self._events),
+                "rec": rec,
+            })
         if self._tracer is not None:
             self._tracer.emit_span(
                 self._span_name, self._step_start_ns, now_ns,
@@ -219,7 +257,8 @@ class StepClock:
         complete event per measured phase (start derived from the phase
         event's end − duration). ``json.dumps`` of the return value is a
         ``trace.json`` Perfetto and chrome://tracing open directly."""
-        records = list(self._step_records)
+        with self._records_lock:
+            records = list(self._step_records)
         if steps is not None:
             records = records[-max(0, steps):]
         pid = os.getpid()
@@ -296,3 +335,54 @@ def step_breakdown(clock: StepClock, timed_steps: int = 1) -> Dict[str, float]:
         "fetch_s_per_step": round(s.get("fetch", 0.0) / timed_steps, 6),
         "host_other_s_per_step": round(s.get("other", 0.0) / timed_steps, 6),
     }
+
+
+# -- /debug/profile: on-demand step capture over HTTP -------------------------
+#
+# A training or bench loop registers its StepClock once; every server that
+# mounts observability (the profile server, a ModelServer) then serves the
+# loop's live timeline as Perfetto-loadable Chrome-trace JSON.
+
+#: registered clocks by name; the last registration of a name wins
+_PROFILE_CLOCKS: Dict[str, StepClock] = {}
+
+
+def register_profile_clock(clock: StepClock, name: str = "train") -> StepClock:
+    """Publish ``clock`` at ``GET /debug/profile`` (query: ``?steps=N`` the
+    last N steps, default 16; ``?clock=<name>`` one clock; ``?timeout=S``
+    wait up to S seconds for N *fresh* steps, the on-demand capture).
+    Returns the clock, so call sites can register at construction."""
+    from ..runtime import obs  # lazy: profiling must not drag HTTP in
+
+    _PROFILE_CLOCKS[name] = clock
+    obs.register_debug_source("profile", _profile_debug_source)
+    return clock
+
+
+def _profile_debug_source(req: Any) -> Dict[str, Any]:
+    from ..web.http import HttpError
+
+    try:
+        steps = int(req.query1("steps", "16"))
+        timeout = float(req.query1("timeout", "0"))
+    except ValueError:
+        raise HttpError(400, "steps/timeout must be numeric") from None
+    name = req.query1("clock") or None
+    if name is not None and name not in _PROFILE_CLOCKS:
+        raise HttpError(
+            404, f"unknown clock {name!r}; registered: {sorted(_PROFILE_CLOCKS)}")
+    selected = {name: _PROFILE_CLOCKS[name]} if name else dict(_PROFILE_CLOCKS)
+    if timeout > 0:
+        # capture-on-demand: wait for `steps` steps recorded AFTER the
+        # request, so the trace answers "what is the loop doing right now"
+        deadline = time.monotonic() + timeout
+        baselines = {n: len(c.steps) for n, c in selected.items()}
+        while time.monotonic() < deadline:
+            if all(len(c.steps) >= baselines[n] + steps
+                   for n, c in selected.items()):
+                break
+            time.sleep(0.02)
+    events: List[Dict[str, Any]] = []
+    for tid, (_n, clock) in enumerate(sorted(selected.items()), start=1):
+        events.extend(clock.to_chrome_trace(steps=steps, tid=tid)["traceEvents"])
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

@@ -158,6 +158,7 @@ class _Request:
     # the engine worker — hence start_span/end_span
     span: Optional[Span] = None
     submit_at: Optional[float] = None       # perf_counter at enqueue
+    first_token_at: Optional[float] = None  # perf_counter at first token
     last_token_at: Optional[float] = None   # perf_counter at latest token
     #: the served model's multiplexing id, stamped into its KV export
     model_id: str = ""
@@ -1338,10 +1339,13 @@ class ContinuousBatcher:
 
     def _process_event(self, event: Tuple[str, Any, Any, float]) -> None:
         """Consume one pipelined event in dispatch order. ``first``: an
-        admission group's first tokens. ``chunk``: a token block, retired
-        against the DISPATCH-TIME snapshot of the active slots. ``spec``:
-        one speculative round's [slots, spec_k] tokens and each row's
-        accepted width m; only the first m of a row are real."""
+        admission group's first tokens; every first token lands here (a
+        wave's, a chunked prefill's last chunk, a KV import's, a drained
+        import's re-import), so ``first_token_at`` is set here alone.
+        ``chunk``: a token block, retired against the DISPATCH-TIME
+        snapshot of the active slots. ``spec``: one speculative round's
+        [slots, spec_k] tokens and each row's accepted width m; only the
+        first m of a row are real."""
         kind, fetch, meta, dispatched_at = event
         widths = None
         if kind == "spec":
@@ -1358,7 +1362,7 @@ class ContinuousBatcher:
                         METRICS.counter("serving_wasted_decode_tokens_total").inc()
                     continue
                 req.tokens.append(int(tok))
-                req.last_token_at = now
+                req.first_token_at = req.last_token_at = now
                 METRICS.counter("serving_tokens_out_total").inc()
                 if req.submit_at is not None:
                     METRICS.histogram(
