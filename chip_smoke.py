@@ -241,15 +241,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 19e. serving_bench — ``kubeflow_tpu_torch.e2e.serving_bench`` at full
              width (BERT-base, GPT-medium) with cut depth: BERT over HTTP
              at buckets 1/8/32, 8 timed requests each (``flash_fwd`` 12 a
-             forward); ``generate()`` at batch 1 and 8, 64 new tokens (no
+             forward); ``generate()`` at batch 1 and 8, 32 new tokens (no
              kernel: its scalar-cursor cache is written by an indexed
-             store); 8 requests at 8 slots, budgets 32/64/128/224, static
+             store); 8 requests at 8 slots, budgets 16/32/64/112, static
              path (no kernel) against the paged engine
              (``kv_block_update_pair`` 24 a decode step), then a draft
-             distilled for 60 steps (flash 30 + 6 + 6 a step) and the spec
+             distilled for 30 steps (flash 30 + 6 + 6 a step) and the spec
              pass (``kv_row_update_pair`` 6 x 4 a round), each request's
              tokens held to the static path's (``near_tie``); two models
-             over prefill and decode pools, int8, 6 requests of 32 tokens
+             over prefill and decode pools, int8, 3 requests of 16 tokens
              (every request "ok", one KV import each,
              ``kv_block_update_quant_pair`` 24 a decode step); every row
              printed;
@@ -258,6 +258,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              GFLOP and TF/s (unfused blocks, no fused-block launch);
 19g. conv_experiments — the 14 convolution-ceiling probes at their full
              shapes, 4 timed calls of 8 chained steps each: TF/s;
+19h. autotune_attribution — the bench rows of ``bench.py``: ResNet-50 at
+             batch 256 with ``fused_blocks="auto"`` (both candidates
+             measured, 4 + 1 steps each: ``fused_bottleneck`` 12 and
+             ``fused_transition`` 4 a step of the fused one, none of the
+             unfused one; the choice printed beside the prediction, then 4
+             steps of the winner), GPT at ``bench_config(1024)``, b 8, with
+             ``autotune=True`` (remat off and on priced on meta tensors,
+             remat pruned, the other measured at 24 launches of each flash
+             kernel a step, then 4 steps of the choice); each run's
+             ``attribution`` row held to the report rebuilt from its clock
+             (fractions sum to 1 within 1e-6, phases rebuild the step
+             within 5%), its ``compute`` to the CUDA events around that
+             phase (within 5%) and its walk's FLOPs to the loop's counted
+             step (within 3% ResNet, 8% GPT); the fused ResNet walk at 224 x 224 covers 16/16 bottlenecks with
+             only the stem and the head unfused; then the attribution
+             driver's four checks on the card;
 20. kv_probe — ``kubeflow_tpu_torch.e2e.kv_update_probe``: the KV writes
              alone (contiguous and paged), the host split of a write's
              call, the decode chunk per token with the writes plain and
@@ -281,7 +297,9 @@ kernels line's (the draft's and the decode side's KV writes,
 distillation's flash launches, the fleet replicas' KV writes), as are
 phase 19b's fused-block launches (both of its runs), phase 19d's flash
 launches and phase 19e's KV and flash launches (BERT's, the engine
-pass's, distillation's, the spec draft's and the fleet's decode pool's):
+pass's, distillation's, the spec draft's and the fleet's decode pool's)
+and phase 19h's fused-block and flash launches (its sweeps' candidates and
+runs):
 that line's count is
 then a sum over several runs, and each path's own count is on its run's
 line. The fused-block
@@ -3038,11 +3056,12 @@ def profile_clock_phase(card: str, device: str = "cuda") -> dict:
 
 #: the serving probe's depth cuts (JAX's defaults in the comments)
 SB_BERT_REQUESTS = 8        # timed requests a bucket [40]
-SB_DECODE_NEW = 64          # new tokens of bench_gpt_decode [256]
+SB_DECODE_NEW = 32          # new tokens of bench_gpt_decode [256]
 SB_REQUESTS = 8             # requests of bench_continuous, at 8 slots [16]
-SB_DISTILL_STEPS = 60       # the distilled draft's steps [300]
-SB_DISAGG_REQUESTS = 6      # requests of bench_disagg [24]
-SB_DISAGG_BUDGET = 32       # their new tokens [128]
+SB_BUDGETS = (16, 32, 64, 112)  # their new tokens, cycled [32/64/128/224]
+SB_DISTILL_STEPS = 30       # the distilled draft's steps [300]
+SB_DISAGG_REQUESTS = 3      # requests of bench_disagg [24]
+SB_DISAGG_BUDGET = 16       # their new tokens [128]
 #: BERT-base's flash_fwd launches a forward (one a layer)
 BERT_LAYERS = 12
 
@@ -3137,8 +3156,8 @@ def serving_bench_phase(card: str, device: str = "cuda") -> dict:
     w = LaunchWindow()
     seen = {}
     t0 = time.perf_counter()
-    row = sb.bench_continuous(n_requests=SB_REQUESTS, distill_steps=SB_DISTILL_STEPS,
-                              device=device, observe=lambda stage, info: seen.__setitem__(
+    row = sb.bench_continuous(n_requests=SB_REQUESTS, budgets=SB_BUDGETS,
+                              distill_steps=SB_DISTILL_STEPS, device=device, observe=lambda stage, info: seen.__setitem__(
                                   stage, (info, w.take(), time.perf_counter())))
     emit(phase="serving_bench", metric="gpt_continuous_batching", card=card, **row)
     static, c, _ = seen["static"]
@@ -3239,6 +3258,253 @@ def conv_experiments_phase(card: str, device: str = "cuda") -> None:
     if bad:
         raise AssertionError(f"conv_experiments: {bad}")
     cleanup()
+
+
+#: phase 19h's steps of each bench run; its sweeps measure max(4, min(10, n))
+#: ResNet and max(2, min(4, n)) GPT steps a candidate, after a warm-up step
+AT_STEPS = 4
+#: the prediction phase 19h prints beside the ResNet sweep's choice: the fused
+#: step 385.2 ms against 246.9 ms unfused (PERF.md §5; H100 80GB HBM3, 700 W)
+AT_PREDICTED = {"fused_blocks": False}
+#: phase 19h: a run's clocked ``compute`` (host, ending at the synchronize)
+#: against CUDA events recorded at its two ends, per step on average
+AT_EVENT_TOL = 0.05
+#: phase 19h: the attribution walk's train-step FLOPs against the loop's
+#: counted ``flops_per_step``. On meta tensors at the bench shapes the walk
+#: is 1.0126x the loop's count for ResNet-50 (3 x the forward against the
+#: real backward, which skips the stem's input gradient) and 1.0576x for
+#: GPT (the walk's plain attention prices the full L x L dots, the loop
+#: the causal 3.5 of them a layer)
+AT_FLOPS_TOL = {"resnet": 0.03, "gpt": 0.08}
+
+
+class EventClock:
+    """A ``StepClock`` whose ``compute`` phase also records a CUDA event at
+    each end: the card's own time over the interval the host clock reads.
+    While ``compute`` ends at the loop's synchronize the two agree; a
+    ``compute`` that ended at the dispatch would read far less than its
+    events (the end event waits behind the step's kernels)."""
+
+    def __new__(cls):
+        from contextlib import contextmanager
+
+        from kubeflow_tpu_torch.gpu.profiling import StepClock
+
+        class _Clock(StepClock):
+            def __init__(self):
+                super().__init__()
+                self.events = []
+
+            @contextmanager
+            def compute(self):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with super().compute():
+                    start.record()
+                    yield
+                    end.record()
+                self.events.append((start, end))
+
+            def event_compute_s(self) -> float:
+                torch.cuda.synchronize()
+                return sum(a.elapsed_time(b) for a, b in self.events) / 1e3 / len(self.events)
+
+        return _Clock()
+
+
+class LaunchDeltas:
+    """Launches of one kernel family between ``observe`` events: each swept
+    candidate's, then the rest of the run's (``take``)."""
+
+    def __init__(self, launches: dict) -> None:
+        self.launches = launches
+        self.base = dict(launches)
+        self.candidates = []
+        self.sweep = None
+
+    def take(self) -> dict:
+        now = dict(self.launches)
+        out = {k: now[k] - self.base.get(k, 0) for k in now}
+        self.base = now
+        return out
+
+    def __call__(self, stage: str, info: dict) -> None:
+        if stage == "candidate":
+            self.candidates.append({**info, "launches": self.take()})
+        elif stage == "sweep":
+            self.sweep = info["result"]
+
+
+def check_attribution(label: str, card: str, out: dict, clock, costs, generation: str):
+    """The bench row's ``attribution`` against the report rebuilt from the
+    loop's clock (the row's rounded fractions equal; fractions summing to 1
+    within 1e-6 and the measured phases rebuilding the step within 5%,
+    which the clock's ``other`` makes so by construction), then against two
+    measurements made apart from it: the report's ``compute`` seconds
+    against the CUDA events of ``clock`` (an :class:`EventClock`) within
+    ``AT_EVENT_TOL``, and the walk's FLOPs (``costs``) against the loop's
+    counted ``flops_per_step`` within ``AT_FLOPS_TOL``."""
+    from kubeflow_tpu_torch.training.attribution import attribution_report
+
+    report = attribution_report(costs, clock=clock, generation=generation)
+    frac = sum(report.fractions.values())
+    rebuilt = sum(report.measured.values())
+    event_s = clock.event_compute_s()
+    walk = sum(m.flops for m in costs)
+    flops_ratio = walk / out["flops_per_step"]
+    row = out["attribution"]
+    emit(phase="autotune_attribution", bench=label, card=card, generation=generation,
+         fractions=report.fractions, measured=report.measured,
+         step_seconds=report.step_seconds, fraction_sum=frac, rebuilt_s=rebuilt,
+         event_compute_s=event_s, walk_flops=walk, loop_flops=out["flops_per_step"],
+         walk_over_loop_flops=flops_ratio, coverage=report.coverage(),
+         top_unfused=[m.name for m in report.top_sinks(5, fused=False)],
+         top_fused=[m.name for m in report.top_sinks(5, fused=True)])
+    if "error" in row or row["fractions"] != report.to_dict()["fractions"]:
+        raise AssertionError(f"autotune_attribution {label}: attribution row {row}")
+    if abs(frac - 1.0) > 1e-6 or abs(rebuilt - report.step_seconds) > 0.05 * report.step_seconds:
+        raise AssertionError(f"autotune_attribution {label}: fractions sum {frac}, phases "
+                             f"{rebuilt} s against the step's {report.step_seconds} s")
+    compute_s = report.measured["compute"]
+    if abs(compute_s - event_s) > AT_EVENT_TOL * event_s:
+        raise AssertionError(f"autotune_attribution {label}: clocked compute {compute_s} s "
+                             f"against the events' {event_s} s")
+    if abs(flops_ratio - 1.0) > AT_FLOPS_TOL[label]:
+        raise AssertionError(f"autotune_attribution {label}: walk {walk} FLOP against the "
+                             f"loop's {out['flops_per_step']} ({flops_ratio:.4f}x)")
+    return report
+
+
+def autotune_attribution_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 19h: the bench rows of ``bench.py``'s ``_bench`` and
+    ``_bench_gpt``. (1) ResNet-50 at batch 256 with ``fused_blocks="auto"``:
+    both candidates measured (``fused_bottleneck`` 12 and
+    ``fused_transition`` 4 a step of the fused one, none of the unfused
+    one), the choice printed beside the prediction ``AT_PREDICTED``, then
+    ``AT_STEPS`` steps of the winner; its ``attribution`` row held by
+    :func:`check_attribution`; the fused walk at 224 x 224 covers 16/16
+    bottlenecks and leaves only the stem and the head unfused. (2) GPT at
+    ``bench_config(1024)``, b 8, ``autotune=True``: remat off and on priced
+    on meta tensors, remat pruned by price, the other measured (24
+    launches of each flash kernel a step), then the chosen run (24 more for
+    its counted step); its ``attribution`` row held the same way. (3) ``e2e.attribution_driver.run(device)``: its four
+    checks. Returns the fused-block and flash kernels' launches."""
+    from kubeflow_tpu_torch.e2e import attribution_driver
+    from kubeflow_tpu_torch.gpu import profiling as prof
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import fused_bottleneck as fb
+    from kubeflow_tpu_torch.training import gpt, resnet
+    from kubeflow_tpu_torch.training.attribution import (attribute_gpt, attribute_resnet,
+                                                         attribution_report)
+    from kubeflow_tpu_torch.training.flops import detect_generation
+
+    gen = detect_generation(device)
+    totals: Counter = Counter()
+    seconds = {}
+
+    # (1) the ResNet bench sweep
+    t0 = time.perf_counter()
+    cfg = resnet.bench_config()
+    fb.reset_launches()
+    deltas = LaunchDeltas(fb.LAUNCHES)
+    clock = EventClock()
+    out = resnet.train(cfg, steps=AT_STEPS, seed=0, device=device, fused_blocks="auto",
+                       observe=deltas, clock=clock)
+    final = deltas.take()
+    for c in deltas.candidates:
+        n = c["steps"] if c["knobs"]["fused_blocks"] else 0
+        want = {"fused_bottleneck": 12 * n, "fused_transition": 4 * n}
+        emit(phase="autotune_attribution", bench="resnet", card=card, candidate=c["knobs"],
+             measured_ms=c["seconds"] * 1e3, steps=c["steps"], launches=c["launches"])
+        if c["launches"] != want:
+            raise AssertionError(f"autotune_attribution resnet {c['knobs']}: launches "
+                                 f"{c['launches']}, expected {want}")
+        totals.update(c["launches"])
+    n = AT_STEPS if out["fused_blocks"] else 0
+    want = {"fused_bottleneck": 12 * n, "fused_transition": 4 * n}
+    emit(phase="autotune_attribution", bench="resnet", card=card, batch=cfg.batch,
+         chosen=out["autotune"]["chosen"], predicted=AT_PREDICTED,
+         as_predicted=out["autotune"]["chosen"] == AT_PREDICTED, autotune=out["autotune"],
+         fused_calibration=out["fused_calibration"], sweep=deltas.sweep.to_dict(),
+         step_ms=out["step_ms"], losses=out["losses"], step_breakdown=out["step_breakdown"],
+         peak_mem_gib=out["peak_hbm_bytes"] / 2**30, launches=final)
+    if (len(deltas.candidates) != 2 or out["autotune"]["measured"] != 2 or final != want
+            or not all(np.isfinite(out["losses"]))):
+        raise AssertionError(f"autotune_attribution resnet: {len(deltas.candidates)} "
+                             f"candidates measured, run launches {final} (expected {want}), "
+                             f"losses {out['losses']}")
+    totals.update(final)
+    shape = dict(batch=cfg.batch, image=cfg.image, num_classes=cfg.num_classes, stem=cfg.stem,
+                 stage_sizes=tuple(cfg.stage_sizes), num_filters=cfg.num_filters,
+                 generation=gen)
+    check_attribution("resnet", card, out, clock,
+                      attribute_resnet(fused_blocks=out["fused_blocks"], **shape), gen)
+    fused_walk = attribution_report(attribute_resnet(fused_blocks=True, **shape),
+                                    clock=clock, generation=gen)
+    unfused = {m.name for m in fused_walk.top_sinks(6, fused=False)}
+    emit(phase="autotune_attribution", bench="resnet_fused_walk", card=card,
+         coverage=fused_walk.coverage(), top_unfused=sorted(unfused),
+         fractions=fused_walk.fractions)
+    if fused_walk.coverage() != {"fused": 16, "total": 16} \
+            or unfused != {"stem", "classifier_head"}:
+        raise AssertionError(f"autotune_attribution: fused walk coverage "
+                             f"{fused_walk.coverage()}, unfused {unfused}")
+    del out
+    cleanup()
+    seconds["resnet"] = time.perf_counter() - t0
+
+    # (2) the GPT bench sweep
+    t0 = time.perf_counter()
+    gcfg = gpt.bench_config(TRAIN_SEQ)
+    fa.reset_launches()
+    deltas = LaunchDeltas(fa.LAUNCHES)
+    clock = EventClock()
+    out = gpt.train(gcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=AT_STEPS, seed=0,
+                    device=device, autotune=True, observe=deltas, clock=clock)
+    final = deltas.take()
+    table = deltas.sweep.to_dict()
+    for c in deltas.candidates:
+        fwd = gcfg.n_layers * c["steps"] * (2 if c["knobs"]["remat"] else 1)
+        want = {"flash_fwd": fwd, "flash_bwd_dq": gcfg.n_layers * c["steps"],
+                "flash_bwd_dkv": gcfg.n_layers * c["steps"]}
+        emit(phase="autotune_attribution", bench="gpt", card=card, candidate=c["knobs"],
+             measured_ms=c["seconds"] * 1e3, steps=c["steps"], launches=c["launches"])
+        if c["launches"] != want:
+            raise AssertionError(f"autotune_attribution gpt {c['knobs']}: launches "
+                                 f"{c['launches']}, expected {want}")
+        totals.update(c["launches"])
+    steps = AT_STEPS * (2 if out["remat"] else 1) + 1  # + the counted step
+    want = {"flash_fwd": gcfg.n_layers * steps, "flash_bwd_dq": gcfg.n_layers * (AT_STEPS + 1),
+            "flash_bwd_dkv": gcfg.n_layers * (AT_STEPS + 1)}
+    remat = next(c for c in table["candidates"] if c["knobs"]["remat"])
+    emit(phase="autotune_attribution", bench="gpt", card=card, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, chosen=out["autotune"]["chosen"], autotune=out["autotune"],
+         sweep=table, remat_pruned=remat["pruned"], step_ms=out["step_ms"],
+         losses=out["losses"], step_breakdown=out["step_breakdown"],
+         peak_mem_gib=out["peak_hbm_bytes"] / 2**30, launches=final)
+    row = out["autotune"]
+    if (row["swept"] != 2 or row["measured"] != 1 or row["pruned"] != 1 or row["errors"]
+            or final != want or not all(np.isfinite(out["losses"]))):
+        raise AssertionError(f"autotune_attribution gpt: sweep {row}, run launches {final} "
+                             f"(expected {want}), losses {out['losses']}")
+    totals.update(final)
+    gcfg = dataclasses.replace(gcfg, scan_blocks=out["scan_blocks"], remat=out["remat"])
+    check_attribution("gpt", card, out, clock, attribute_gpt(
+        gcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, generation=gen), gen)
+    del out
+    cleanup()
+    seconds["gpt"] = time.perf_counter() - t0
+
+    # (3) the attribution driver on the card
+    t0 = time.perf_counter()
+    report = attribution_driver.run(device=device)
+    prof._PROFILE_CLOCKS.pop("train", None)
+    seconds["driver"] = time.perf_counter() - t0
+    emit(phase="autotune_attribution", bench="attribution_driver", card=card, report=report,
+         seconds=seconds)
+    if report.get("ok") is not True:
+        raise AssertionError(f"autotune_attribution: driver {report}")
+    return dict(totals)
 
 
 # -- phases 16-19: the device-evidence path ------------------------------------------
@@ -3465,6 +3731,8 @@ def main() -> int:
             launches[name] += n
         timed("stage_profile", stage_profile_phase)
         timed("conv_experiments", conv_experiments_phase)
+        for name, n in timed("autotune_attribution", autotune_attribution_phase).items():
+            launches[name] += n
         # after every phase that reads the profiler: these start threads and
         # servers, and read no profiler window
         timed("serve_chunked+obs", lambda c: serve_chunked_phase(c, prompts, short_tokens))

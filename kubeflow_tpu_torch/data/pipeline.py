@@ -33,15 +33,17 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..gpu.env import ENV_RANK, ENV_WORLD_SIZE
 
 
 def per_host_shard(global_batch: int, *, process_index: Optional[int] = None,
                    process_count: Optional[int] = None) -> Tuple[int, int]:
     """(start, size) of this process's rows in the global batch: which
     examples its reader must produce. The process index and count default
-    to ``RANK`` and ``WORLD_SIZE`` (0 and 1 when unset)."""
-    pi = int(os.environ.get("RANK", "0")) if process_index is None else process_index
-    pc = int(os.environ.get("WORLD_SIZE", "1")) if process_count is None else process_count
+    to the torchrun environment's ``RANK`` and ``WORLD_SIZE``
+    (``gpu/env.py``; 0 and 1 when unset)."""
+    pi = int(os.environ.get(ENV_RANK, "0")) if process_index is None else process_index
+    pc = int(os.environ.get(ENV_WORLD_SIZE, "1")) if process_count is None else process_count
     if global_batch % pc != 0:
         raise ValueError(f"global batch {global_batch} not divisible by {pc} hosts")
     size = global_batch // pc

@@ -24,3 +24,10 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op off CUDA, where ops
+    run as they are called)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

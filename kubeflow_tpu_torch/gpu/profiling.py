@@ -97,8 +97,10 @@ class StepClock:
 
         with clock.compile(): _build.load_all()   # first-use work
         for batch in data:
-            with clock.compute(): loss = train_step(model, opt, batch)
-            with clock.fetch():   value = float(loss)   # D2H sync
+            with clock.compute():
+                loss = train_step(model, opt, batch)
+                torch.cuda.synchronize()            # the device's work
+            with clock.fetch():   value = float(loss)   # D2H read
             clock.end_step()
 
     Each record holds the measured phases plus ``total`` (wall since the
@@ -121,9 +123,10 @@ class StepClock:
     chrome://tracing load), and :func:`register_profile_clock` publishes
     it at ``GET /debug/profile``.
 
-    In eager PyTorch ``compute`` around a step measures its host dispatch
-    and ``fetch`` around the loss read waits for the device, so a step's
-    device time lands in ``fetch`` once the host runs ahead.
+    In eager PyTorch the host runs ahead of the card, so a loop ends
+    ``compute`` at a device synchronize (``bench.py``'s
+    ``block_until_ready``): the step's device time is then ``compute``'s,
+    and ``fetch`` is the host read alone (the port's training loops do).
     """
 
     def __init__(self, metrics: Optional[Any] = None,
@@ -177,8 +180,8 @@ class StepClock:
         return self.phase("data_wait")
 
     def compute(self):
-        """Dispatch of the step's work (plus device execution wherever the
-        host waits inside it)."""
+        """The step's work: its dispatch and, up to the synchronize that
+        ends the phase, its device execution."""
         return self.phase("compute")
 
     def fetch(self):

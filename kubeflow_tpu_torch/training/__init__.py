@@ -2,7 +2,25 @@
 package's bench (``training/gpt.py``, ``training/resnet.py``,
 ``training/classifier.py``), draft distillation for speculative decoding
 (``training/distill.py``), crash-safe checkpoints in the JAX package's
-format (``training/checkpoint.py``) and MFU accounting
-(``training/flops.py``)."""
+format (``training/checkpoint.py``), MFU accounting (``training/flops.py``),
+per-module cost attribution (``training/attribution.py``) and the
+bench-in-the-loop autotuner (``training/autotune.py``)."""
 
-from .flops import mfu  # noqa: F401
+from .attribution import (  # noqa: F401
+    AttributionReport,
+    ModuleCost,
+    attribute_gpt,
+    attribute_resnet,
+    attribution_report,
+    price_callable,
+    record_step_peak_hbm,
+)
+from .autotune import (  # noqa: F401
+    AutotuneResult,
+    TunedCandidate,
+    autotune_gpt_quick,
+    autotune_resnet_quick,
+    measure_steps,
+    sweep,
+)
+from .flops import memory_stats, mfu, peak_hbm_bandwidth  # noqa: F401

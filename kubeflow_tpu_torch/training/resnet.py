@@ -5,10 +5,13 @@ stem="s2d", fused_blocks=True)`` at batch 256 on 224 x 224 x 3 NHWC images,
 bf16 compute with f32 parameters and f32 BatchNorm statistics, and
 ``sgd_momentum(lr=0.1, total_steps=1000)`` (weight decay 1e-4 on every
 parameter, Nesterov momentum 0.9, lr 0 at step 0 then a cosine from 0.1).
-All 16 bottlenecks run the CUDA kernels: the 12 identity blocks
-``fused_bottleneck``, the 4 stage heads ``fused_transition``. Images and
-labels are drawn once from numpy with the seed and the same batch repeats
-every step, as in the bench (which draws them from ``jax.random``).
+With fused blocks all 16 bottlenecks run the CUDA kernels: the 12
+identity blocks ``fused_bottleneck``, the 4 stage heads
+``fused_transition``. Like the bench (``BENCH_FUSED=auto``), the command
+line measures the fused and the unfused model first and trains with the
+faster (``train(fused_blocks="auto")``). Images and labels are drawn once
+from numpy with the seed and the same batch repeats every step, as in the
+bench (which draws them from ``jax.random``).
 
 Run on the card (the default device)::
 
@@ -19,8 +22,9 @@ or at a tiny size on the CPU, through the kernels' plain versions::
     python -m kubeflow_tpu_torch.training.resnet --steps 3 --tiny --device cpu
 
 Each step prints one JSON line: loss, accuracy, step ms, images/s; the
-last line holds the FLOP counts, mfu (on the card), the step breakdown and
-the peak device memory.
+last line holds the FLOP counts, mfu (on the card), the step breakdown,
+the peak device memory, the sweep's ``autotune`` row and the
+``attribution`` row.
 """
 
 from __future__ import annotations
@@ -28,18 +32,21 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, synchronize
 from ..gpu.profiling import StepClock, step_breakdown
 from ..models.resnet import BottleneckBlock, ResNet
 from ..ops import _build
 from ..runtime.tracing import TRACER
 from . import flops
+from .attribution import attribute_resnet, attribution_row, loop_generation, record_step_peak_hbm
+from .autotune import sweep
 from .classifier import ClassifierTask, sgd_momentum
 
 #: ``bench.py``'s fallback FLOP count: ResNet-50's forward at 224 x 224 is
@@ -113,31 +120,100 @@ def counted_flops_per_step(cfg: ResNetBenchConfig, images: torch.Tensor,
     return float(flops.counted_flops(task.train_step, task.init(), images, labels))
 
 
+#: the ResNet sweep's candidates (``bench.py`` ``_bench``, ``BENCH_FUSED=auto``)
+FUSED_CANDIDATES = [{"fused_blocks": False}, {"fused_blocks": True}]
+
+Observer = Callable[[str, Dict[str, Any]], None]
+
+
+def sweep_fused(cfg: ResNetBenchConfig, images: torch.Tensor, labels: torch.Tensor, *,
+                calib_steps: int, seed: int = 0, plain_kernels: bool = False,
+                observe: Optional[Observer] = None):
+    """``bench.py``'s ``BENCH_FUSED=auto``: the fused kernel set against the
+    unfused model, measured head to head by :func:`autotune.sweep` (no
+    price; strict: a candidate that fails to run raises). Each candidate is a fresh model from ``seed``: one warm-up step,
+    then ``calib_steps`` timed steps ended by a read of the last loss.
+    ``observe("candidate", {"knobs", "steps", "seconds"})`` follows each
+    measured candidate. Returns the :class:`AutotuneResult`."""
+    def measure(knobs: Dict[str, Any]) -> float:
+        model = make_model(cfg, seed=seed, device=images.device,
+                           fused_blocks=knobs["fused_blocks"], plain_kernels=plain_kernels)
+        task = make_task(cfg, model)
+        state = task.init()
+        state, metrics = task.train_step(state, images, labels)  # warm-up
+        float(metrics["loss"])
+        t0 = time.perf_counter()
+        for _ in range(calib_steps):
+            state, metrics = task.train_step(state, images, labels)
+        float(metrics["loss"])
+        seconds = (time.perf_counter() - t0) / calib_steps
+        if observe is not None:
+            observe("candidate", {"knobs": dict(knobs), "steps": calib_steps + 1,
+                                  "seconds": seconds})
+        return seconds
+
+    return sweep("resnet", FUSED_CANDIDATES, measure=measure, strict=True)
+
+
 def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLike = "cuda",
-          fused_blocks: Optional[bool] = None, plain_kernels: bool = False,
-          on_step: Optional[Callable[[Dict[str, Any]], None]] = None) -> Dict[str, Any]:
+          fused_blocks: Union[None, bool, str] = None, plain_kernels: bool = False,
+          on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
+          observe: Optional[Observer] = None,
+          clock: Optional[StepClock] = None) -> Dict[str, Any]:
     """``steps`` SGD steps from seeded weights on one seeded batch.
 
-    Each step runs under a :class:`StepClock`: ``compute`` around the step's
-    dispatch, ``fetch`` around the read of its loss (which waits for the
-    device); the kernels' first-use build is charged to ``compile``. Returns
-    the per-step losses, accuracies and step times, the images per step,
-    the step's counted FLOPs (:func:`counted_flops_per_step`) beside the
-    bench's analytic count, ``mfu`` of the median step after the first (on
-    the card; None on the CPU, which has no catalog peak), the
-    ``step_breakdown`` and ``peak_hbm_bytes`` of the training loop (None on
-    the CPU). ``on_step`` gets each step's record."""
+    ``fused_blocks``: None takes the config's, True/False pins it (the
+    ``autotune`` row says so), ``"auto"`` measures both first
+    (:func:`sweep_fused` at ``calib_steps = max(4, min(10, steps))``) and
+    trains with the faster, as ``bench.py``'s ``BENCH_FUSED=auto``.
+
+    Each step runs under a :class:`StepClock`: ``compute`` around the step
+    and a device synchronize (``bench.py``'s ``block_until_ready``),
+    ``fetch`` around the host read of its loss; the kernels' first-use
+    build is charged to ``compile``. Returns the per-step losses,
+    accuracies and step times, the images per step, the step's counted
+    FLOPs (:func:`counted_flops_per_step`) beside the bench's analytic
+    count, ``mfu`` of the median step after the first (on the card; None
+    on the CPU, which has no catalog peak), the ``step_breakdown``,
+    ``peak_hbm_bytes`` of the training loop (None on the CPU; also
+    published as ``training_step_peak_hbm_bytes``), the ``autotune`` row
+    (and ``fused_calibration`` after a sweep) and the ``attribution`` row
+    (``attribute_resnet`` over the clock, priced for
+    :func:`attribution.loop_generation`). ``on_step``
+    gets each step's record; ``observe`` each swept candidate's and then
+    ``("sweep", {"result": AutotuneResult})``. ``clock``, if given, is the
+    loop's clock (to register at ``/debug/profile`` or read after)."""
+    if fused_blocks not in (None, True, False, "auto"):
+        raise ValueError(f"fused_blocks must be None, True, False or 'auto', "
+                         f"got {fused_blocks!r}")
     dev = resolve_device(device)
     images, labels = make_batch(cfg, seed, dev)
-    clock = StepClock(tracer=TRACER)
-    fused = cfg.fused_blocks if fused_blocks is None else fused_blocks
-    if dev.type == "cuda" and fused and not plain_kernels:
-        with clock.compile():
-            _build.load("fused_bottleneck.cu")
+    clock = clock if clock is not None else StepClock(tracer=TRACER)
+    if fused_blocks == "auto" or (cfg.fused_blocks if fused_blocks is None else fused_blocks):
+        if dev.type == "cuda" and not plain_kernels:
+            with clock.compile():
+                _build.load("fused_bottleneck.cu")
+    calibration = None
+    if fused_blocks == "auto":
+        result = sweep_fused(cfg, images, labels, calib_steps=max(4, min(10, steps)),
+                             seed=seed, plain_kernels=plain_kernels, observe=observe)
+        fused = bool(result.chosen["fused_blocks"])
+        autotune_row = result.to_row()
+        if observe is not None:
+            observe("sweep", {"result": result})
+        # bench.py's legacy row, kept for comparisons with its history
+        calibration = {}
+        for c in result.candidates:
+            key = "fused" if c.knobs["fused_blocks"] else "unfused"
+            calibration[key] = round(c.measured_seconds, 6)
+    else:
+        fused = cfg.fused_blocks if fused_blocks is None else fused_blocks
+        autotune_row = {"family": "resnet", "chosen": {"fused_blocks": fused},
+                        "pinned": f"fused_blocks={fused}"}
     counted = counted_flops_per_step(cfg, images, labels, seed)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    model = make_model(cfg, seed=seed, device=dev, fused_blocks=fused_blocks,
+    model = make_model(cfg, seed=seed, device=dev, fused_blocks=fused,
                        plain_kernels=plain_kernels)
     task = make_task(cfg, model)
     state = task.init()
@@ -148,6 +224,7 @@ def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLi
     for step in range(steps):
         with clock.compute():
             state, metrics = task.train_step(state, images, labels)
+            synchronize(dev)
         with clock.fetch():
             loss = float(metrics["loss"])
         ms = clock.end_step()["total"] * 1e3
@@ -159,14 +236,26 @@ def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLi
                      "step_ms": ms, "images_per_s": cfg.batch / ms * 1e3})
     steady_s = float(np.median(step_ms[1:] or step_ms)) / 1e3
     mem = flops.memory_stats(dev)
-    return {"losses": losses, "accuracy": accuracy, "step_ms": step_ms,
-            "images_per_step": cfg.batch, "flops_per_step": counted,
-            "analytic_flops_per_step": flops_per_step(cfg.batch),
-            "mfu": (flops.mfu(counted, steady_s, generation=flops.detect_generation(dev))
-                    if dev.type == "cuda" else None),
-            "step_breakdown": step_breakdown(clock),
-            "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
-            "n_params": sum(p.numel() for p in model.parameters())}
+    record_step_peak_hbm(mem)
+    gen = loop_generation(dev)
+    out = {"losses": losses, "accuracy": accuracy, "step_ms": step_ms,
+           "images_per_step": cfg.batch, "flops_per_step": counted,
+           "analytic_flops_per_step": flops_per_step(cfg.batch),
+           "mfu": flops.mfu(counted, steady_s, generation=gen) if dev.type == "cuda" else None,
+           "step_breakdown": step_breakdown(clock),
+           "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "fused_blocks": fused, "autotune": autotune_row}
+    if calibration is not None:
+        out["fused_calibration"] = calibration
+    out["attribution"] = attribution_row(
+        lambda: attribute_resnet(batch=cfg.batch, image=cfg.image,
+                                 num_classes=cfg.num_classes, stem=cfg.stem,
+                                 fused_blocks=fused, generation=gen,
+                                 stage_sizes=tuple(cfg.stage_sizes),
+                                 num_filters=cfg.num_filters, device=dev),
+        clock, generation=gen, device=dev)
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -176,13 +265,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--tiny", action="store_true",
                     help="a two-stage, 16-filter ResNet, batch 4 of 32 x 32 images "
                          "(for --device cpu)")
+    ap.add_argument("--fused", choices=("auto", "true", "false"), default="auto",
+                    help="auto (default) measures the fused kernel set against the "
+                         "unfused model and trains with the faster, as bench.py's "
+                         "BENCH_FUSED=auto; true/false pins it")
     args = ap.parse_args(argv)
     cfg = tiny_config() if args.tiny else bench_config()
-    result = train(cfg, steps=args.steps, device=args.device,
+    fused = {"auto": "auto", "true": True, "false": False}[args.fused]
+    result = train(cfg, steps=args.steps, device=args.device, fused_blocks=fused,
                    on_step=lambda r: print(json.dumps(r), flush=True))
     keys = ("n_params", "flops_per_step", "analytic_flops_per_step", "mfu",
-            "step_breakdown", "peak_hbm_bytes")
-    print(json.dumps({k: result[k] for k in keys}), flush=True)
+            "step_breakdown", "peak_hbm_bytes", "fused_blocks", "autotune",
+            "fused_calibration", "attribution")
+    print(json.dumps({k: result[k] for k in keys if k in result}), flush=True)
     return 0
 
 

@@ -137,12 +137,17 @@ def test_train_cli_on_the_cpu(capsys):
     assert out["losses"][0] == out["losses"][1]  # lr 0 at step 0
     assert out["images_per_step"] == 4
     assert sum(tfb.LAUNCHES.values()) == 0  # the CPU runs the plain versions
-    assert trn.main(["--tiny", "--device", "cpu", "--steps", "3"]) == 0
+    # the command line sweeps fused against unfused by default (bench.py's
+    # BENCH_FUSED=auto); pinned, it trains the config train() trained
+    assert trn.main(["--tiny", "--device", "cpu", "--steps", "3", "--fused", "true"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     steps = [json.loads(line) for line in lines[:3]]
     assert [s["step"] for s in steps] == [1, 2, 3]
     assert all({"loss", "accuracy", "step_ms", "images_per_s"} <= set(s) for s in steps)
     assert [s["loss"] for s in steps] == out["losses"]
+    assert json.loads(lines[-1])["autotune"] == {"family": "resnet",
+                                                 "chosen": {"fused_blocks": True},
+                                                 "pinned": "fused_blocks=True"}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trn.train(trn.tiny_config(), steps=1)  # the default device is the card

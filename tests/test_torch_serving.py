@@ -245,7 +245,9 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 62
+    assert len(mods) >= 66
+    assert {"kubeflow_tpu_torch.training.attribution", "kubeflow_tpu_torch.training.autotune",
+            "kubeflow_tpu_torch.e2e.attribution_driver", "kubeflow_tpu_torch.gpu.env"} <= set(mods)
 
 
 def test_params_are_seeded():
