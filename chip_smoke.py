@@ -243,7 +243,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              at buckets 1/8/32, 8 timed requests each (``flash_fwd`` 12 a
              forward); ``generate()`` at batch 1 and 8, 32 new tokens (no
              kernel: its scalar-cursor cache is written by an indexed
-             store); 8 requests at 8 slots, budgets 16/32/64/112, static
+             store); 8 requests at 8 slots, budgets 16/32/48/64, static
              path (no kernel) against the paged engine
              (``kv_block_update_pair`` 24 a decode step), then a draft
              distilled for 30 steps (flash 30 + 6 + 6 a step) and the spec
@@ -274,6 +274,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              step (within 3% ResNet, 8% GPT); the fused ResNet walk at 224 x 224 covers 16/16 bottlenecks with
              only the stem and the head unfused; then the attribution
              driver's four checks on the card;
+19i. moe  — GPT-small with JAX's MoE fields (8 experts, top-2; seeded
+             weights) served paged by the engine (8 slots) with the 8
+             prompts, 32 new tokens each, admitted as one wave
+             (``AdmitGate``: every row of a call shares an expert's
+             capacity), once through the kernels and once through the plain
+             writes: the same greedy tokens, ``kv_block_update_pair`` 12 a
+             decode step; then 3 AdamW steps of ``GptLM(decode=False)`` at
+             b 8 x 256 through the flash kernels (12 launches of each a step,
+             and the counted reference step) and through the plain
+             attention: finite losses within 0.02 at step 1 and 0.05 over
+             the run;
+19j. ring  — ``parallel.ring_attention``'s block steps at ring size 4 in
+             one process (no collective): the bench GPT's attention (b 2,
+             h 16, d 64, bf16, causal) over L 4096 = 4 x 1024, forward
+             (``ring_forward``: 4 flash forwards a query block at its
+             global offsets, merged by log-sum-exp in f32) and backward
+             (``ring_backward`` from the global out and lse), 16 launches of
+             each flash kernel, against ``flash_attention`` over the whole
+             sequence (within 2% of the largest value, relative); both
+             times; then ``ring_attention`` over a one-rank NCCL group
+             against ``flash_attention``: the same bits, out and gradients;
+19k. dist1 — on that one-rank NCCL world, the composite dp x fsdp x tp x
+             pp step (every axis 1; JAX's ``CompositeConfig`` defaults, 4
+             microbatches of 8) in each gather mode and the FSDP step
+             (JAX's ``FsdpConfig`` defaults, batch 8) in both, 3 SGD steps
+             each: falling losses, ``eager`` and ``overlap`` the same bits
+             in both steps, ``amortized`` within 1e-5 of ``eager``; step ms.
+             Phases 19i-19k run after 5g, before kv_probe;
 20. kv_probe — ``kubeflow_tpu_torch.e2e.kv_update_probe``: the KV writes
              alone (contiguous and paged), the host split of a write's
              call, the decode chunk per token with the writes plain and
@@ -298,8 +326,9 @@ distillation's flash launches, the fleet replicas' KV writes), as are
 phase 19b's fused-block launches (both of its runs), phase 19d's flash
 launches and phase 19e's KV and flash launches (BERT's, the engine
 pass's, distillation's, the spec draft's and the fleet's decode pool's)
-and phase 19h's fused-block and flash launches (its sweeps' candidates and
-runs):
+phase 19h's fused-block and flash launches (its sweeps' candidates and
+runs), phase 19i's KV and flash launches (its kernel runs) and phase 19j's
+flash launches (the block steps' checked run and the one-rank ring):
 that line's count is
 then a sum over several runs, and each path's own count is on its run's
 line. The fused-block
@@ -3058,7 +3087,7 @@ def profile_clock_phase(card: str, device: str = "cuda") -> dict:
 SB_BERT_REQUESTS = 8        # timed requests a bucket [40]
 SB_DECODE_NEW = 32          # new tokens of bench_gpt_decode [256]
 SB_REQUESTS = 8             # requests of bench_continuous, at 8 slots [16]
-SB_BUDGETS = (16, 32, 64, 112)  # their new tokens, cycled [32/64/128/224]
+SB_BUDGETS = (16, 32, 48, 64)  # their new tokens, cycled [32/64/128/224]
 SB_DISTILL_STEPS = 30       # the distilled draft's steps [300]
 SB_DISAGG_REQUESTS = 3      # requests of bench_disagg [24]
 SB_DISAGG_BUDGET = 16       # their new tokens [128]
@@ -3507,6 +3536,317 @@ def autotune_attribution_phase(card: str, device: str = "cuda") -> dict:
     return dict(totals)
 
 
+# -- phases 19i-19k: the MoE GPT, ring attention's blocks, a one-rank NCCL world ----
+
+#: phase 19i: GPT-small with JAX's MoE fields; the training run (batch, seq, steps)
+MOE_EXPERTS, MOE_K = 8, 2
+MOE_TRAIN = (8, 256, 3)
+#: phase 19j: the bench GPT's attention (h 16, d 64, bf16, causal) over a ring
+#: of 4 blocks of 1024 (L 4096), batch 2
+RING_B, RING_H, RING_N, RING_BLOCK, RING_D = 2, 16, 4, 1024, 64
+#: phase 19k: microbatches x microbatch of the composite step, steps a run
+DIST_MICRO, DIST_MB, DIST_STEPS = 4, 8, 3
+
+
+def moe_config():
+    from kubeflow_tpu_torch.models.gpt import GptConfig
+
+    return dataclasses.replace(GptConfig.small(), num_experts=MOE_EXPERTS, moe_k=MOE_K)
+
+
+class AdmitGate:
+    """Holds the engine's worker once it has taken the first arrival off its
+    queue, until ``release`` is set: what is submitted meanwhile is drained
+    in the same pass, so the whole burst is admitted as one wave."""
+
+    def __init__(self, engine):
+        self.engine, self.real = engine, engine._enqueue_pendings
+        self.release = threading.Event()
+        engine._enqueue_pendings = self
+
+    def __call__(self, item):
+        if not self.release.wait(timeout=300):
+            raise RuntimeError("admission gate never released")
+        self.engine._enqueue_pendings = self.real
+        return self.real(item)
+
+
+def moe_serve(card: str, label: str, cfg, params, prompts, kernel: bool):
+    """The 8 prompts through one paged engine (8 slots), admitted as one
+    wave (``AdmitGate``): a MoE block's capacity is shared by every row of
+    a call, idle and padded rows included, so both runs must batch the same
+    requests together. Returns (tokens per prompt, launches and decode
+    steps of the run)."""
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
+
+    eng = ContinuousBatcher(cfg, params, slots=8, paged=True, kv_kernel=kernel, device="cuda")
+    try:
+        METRICS.reset()
+        w = LaunchWindow()
+        gate = AdmitGate(eng)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, MAX_NEW) for p in prompts]
+        gate.release.set()
+        toks = [list(r.result(timeout=600)) for r in reqs]
+        wall = time.perf_counter() - t0
+        counts = w.take()
+    finally:
+        eng.close()
+    if any(len(t) != MAX_NEW or min(t) < 0 or max(t) >= cfg.vocab_size for t in toks):
+        raise AssertionError(f"{label}: malformed tokens {[len(t) for t in toks]}")
+    emit(phase="moe", run=label, card=card, requests=len(prompts), wall_s=wall,
+         tokens_per_s=len(prompts) * MAX_NEW / wall, decode_steps=counts["steps"],
+         launches=counts)
+    return toks, counts
+
+
+def moe_phase(card: str, prompts) -> dict:
+    """Phase 19i: GPT-small with 8 experts, top-2 (seeded weights), served
+    paged by the engine with the 8 prompts through the kernels and through
+    the plain writes: the same greedy tokens, ``kv_block_update_pair`` 12 a
+    decode step (no launch on the plain run); then 3 AdamW steps of
+    ``GptLM(decode=False)`` at b 8 x 256 through the flash kernels (12
+    launches of each a step and the counted reference step) and through
+    the plain attention: finite losses within 0.02 at step 1 and 0.05 over
+    the run. Returns the kernels' launches of the kernel runs."""
+    from kubeflow_tpu_torch.models.gpt import causal_plain_attention, init_params
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.training.gpt import train
+
+    cfg = moe_config()
+    params = init_params(cfg, seed=0, device="cuda")
+    got, c = moe_serve(card, "serve_kernel", cfg, params, prompts, kernel=True)
+    expect_pair("moe_serve_kernel", c, "kv_block_update_pair", c["steps"], cfg.n_layers)
+    launches = Counter(kv_block_update_pair=c["kv_block_update_pair"])
+    want, c = moe_serve(card, "serve_plain", cfg, params, prompts, kernel=False)
+    expect_none("moe_serve_plain", c)
+    if got != want:
+        diff = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"moe: kernel-path tokens differ from plain-path tokens in "
+                             f"{diff} of {len(got)} requests")
+    del params
+    cleanup()
+
+    b, seq, steps = MOE_TRAIN
+    runs = {}
+    for label, attn in (("kernel", None), ("plain", causal_plain_attention)):
+        cleanup()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        res = train(cfg, batch=b, seq=seq, steps=steps, seed=0, device="cuda",
+                    **({} if attn is None else {"attention_fn": attn}))
+        c = dict(fa.LAUNCHES)
+        want_n = cfg.n_layers * (steps + 1) if attn is None else 0
+        if any(n != want_n for n in c.values()) or not all(np.isfinite(res["losses"])):
+            raise AssertionError(f"moe train {label}: launches {c} (want {want_n} each), "
+                                 f"losses {res['losses']}")
+        if attn is None:
+            launches.update(c)
+        runs[label] = res
+        emit(phase="moe", run=f"train_{label}", card=card, batch=b, seq=seq,
+             n_params=res["n_params"], losses=res["losses"], step_ms=res["step_ms"],
+             tokens_per_s=res["tokens_per_step"] / float(np.median(res["step_ms"][1:])) * 1e3,
+             peak_mem_gib=res["peak_hbm_bytes"] / 2**30, launches=c)
+    lk, lp = runs["kernel"]["losses"], runs["plain"]["losses"]
+    first, worst = abs(lk[0] - lp[0]), max(abs(x - y) for x, y in zip(lk, lp))
+    if not (first <= 0.02 and worst <= 0.05):
+        raise AssertionError(f"moe train: kernel vs plain losses: step 1 {first}, worst {worst}")
+    emit(phase="moe", card=card, experts=MOE_EXPERTS, k=MOE_K, requests_equal=len(got),
+         step1_loss_diff=first, max_loss_diff=worst)
+    cleanup()
+    return dict(launches)
+
+
+def nccl_world() -> None:
+    """A one-rank NCCL process group on this card (once)."""
+    import socket
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return max_abs_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def ring_phase(card: str) -> dict:
+    """Phase 19j: ring attention's block steps at ring size 4 in one
+    process (no collective): each query block's 4 flash forwards at its
+    global offsets merged by log-sum-exp, then the backward from the
+    global out and lse with dk/dv summed per block, against
+    ``flash_attention`` over the whole sequence (within 2% of the largest
+    value, relative; bf16); both times. Then ``ring_attention`` over a
+    one-rank NCCL group against ``flash_attention``: the same bits. Returns
+    the flash launches of the checked runs (16 + 1 of each)."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from kubeflow_tpu_torch.parallel.ring_attention import (ring_attention, ring_backward,
+                                                             ring_forward)
+
+    b, h, n, lb, d = RING_B, RING_H, RING_N, RING_BLOCK, RING_D
+    L, scale = n * lb, d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, dout = (torch.randn(b, L, h, d, device="cuda", generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    qb, kb, vb, db = ([x.contiguous() for x in t.split(lb, dim=1)] for t in (q, k, v, dout))
+
+    def blocks_for(idx):
+        return ((kb[(idx - i) % n], vb[(idx - i) % n]) for i in range(n))
+
+    def forward():
+        return [ring_forward(qb[i], blocks_for(i), i, n, causal=True, scale=scale)
+                for i in range(n)]
+
+    def backward(fw):
+        dk = [torch.zeros(x.shape, device="cuda") for x in kb]
+        dv = [torch.zeros(x.shape, device="cuda") for x in vb]
+
+        def fold(src, dk_i, dv_i):
+            dk[src] += dk_i.float()
+            dv[src] += dv_i.float()
+
+        dq = [ring_backward(qb[i], fw[i][0], fw[i][1], db[i], blocks_for(i), i, n,
+                            causal=True, scale=scale, on_block=fold) for i in range(n)]
+        return torch.cat(dq, 1), torch.cat(dk, 1), torch.cat(dv, 1)
+
+    fa.reset_launches()
+    fw = forward()
+    grads = backward(fw)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    if launches != {"flash_fwd": n * n, "flash_bwd_dq": n * n, "flash_bwd_dkv": n * n}:
+        raise AssertionError(f"ring: block-step launches {launches}, expected {n * n} each")
+    out = torch.cat([o for o, _ in fw], 1)
+    ref_out, ref_lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    ref = fa.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, causal=True, scale=scale)
+    errs = {"out": rel_err(out, ref_out)}
+    errs.update({name: rel_err(g, r) for name, g, r in zip(("dq", "dk", "dv"), grads, ref)})
+    if not all(e <= 2e-2 for e in errs.values()):
+        raise AssertionError(f"ring: block steps vs flash_attention over the whole "
+                             f"sequence, relative errors {errs}")
+    times = {"ring_fwd_ms": cuda_ms(forward, iters=5, warmup=1),
+             "ring_bwd_ms": cuda_ms(lambda: backward(fw), iters=5, warmup=1),
+             "whole_fwd_ms": cuda_ms(lambda: fa.flash_attention_fwd(
+                 q, k, v, causal=True, scale=scale), iters=5, warmup=1),
+             "whole_bwd_ms": cuda_ms(lambda: fa.flash_attention_bwd(
+                 q, k, v, ref_out, ref_lse, dout, causal=True, scale=scale), iters=5, warmup=1)}
+    emit(phase="ring", card=card, batch=b, heads=h, head_dim=d, ring=n, block=lb, seq=L,
+         causal=True, dtype="bf16", rel_err=errs, launches=launches, **times)
+    del fw, grads, ref, ref_out, ref_lse
+    cleanup()
+
+    # the same module over a one-rank NCCL group: a ring of one
+    nccl_world()
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    fa.reset_launches()
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o = ring_attention(qr, kr, vr, mesh, causal=True)
+    o.backward(dout)
+    one = dict(fa.LAUNCHES)
+    qf, kf, vf = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    of = fa.flash_attention(qf, kf, vf, causal=True)
+    of.backward(dout)
+    same = {name: torch.equal(a, c) for name, a, c in (
+        ("out", o, of), ("dq", qr.grad, qf.grad), ("dk", kr.grad, kf.grad),
+        ("dv", vr.grad, vf.grad))}
+    if not all(same.values()) or one != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+        raise AssertionError(f"ring over one NCCL rank vs flash_attention: equal {same}, "
+                             f"launches {one}")
+    emit(phase="ring", run="nccl_one_rank", card=card, seq=L, equal=same, launches=one)
+    for name in launches:
+        launches[name] += one[name]
+    cleanup()
+    return launches
+
+
+def dist1_phase(card: str) -> None:
+    """Phase 19k: on the one-rank NCCL world, the composite dp x fsdp x tp x
+    pp step (every axis 1: the collectives still run, on NCCL) at JAX's
+    ``CompositeConfig`` defaults in each gather mode, and the FSDP step at
+    JAX's ``FsdpConfig`` defaults in both, 3 SGD steps each from the same
+    seeded weights: finite, falling losses; ``eager`` and ``overlap`` the
+    same bits, losses and parameters, in both steps; ``amortized`` within
+    1e-5 of ``eager`` (its gradients are summed in another order). Step ms
+    by the host clock around a synchronized step."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import composite as comp
+    from kubeflow_tpu_torch.parallel.collectives import gather_global
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from kubeflow_tpu_torch.training import fsdp
+
+    nccl_world()
+
+    def run(step, params, ids):
+        losses, ms = [], []
+        for _ in range(DIST_STEPS):
+            t0 = time.perf_counter()
+            params, loss = step(params, ids)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"dist1: losses {losses}")
+        return losses, ms, params
+
+    rng = np.random.default_rng(1)
+    cfg = comp.CompositeConfig()
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    ids = comp.local_ids(rng.integers(0, cfg.vocab_size, (DIST_MICRO, DIST_MB, cfg.seq)), mesh)
+    runs = {}
+    for mode in comp.GATHER_MODES:
+        losses, ms, params = run(comp.make_train_step(cfg, mesh, gather_mode=mode),
+                                 comp.init_params(cfg, mesh, seed=0), ids)
+        runs[mode] = (losses, comp.canonical_params(params, mesh))
+        emit(phase="dist1", step="composite", gather_mode=mode, card=card, losses=losses,
+             step_ms=ms)
+    same = runs["eager"][0] == runs["overlap"][0] and all(
+        np.array_equal(a, c) for a, c in zip(_canon_leaves(runs["eager"][1]),
+                                            _canon_leaves(runs["overlap"][1])))
+    near = max(float(np.abs(a - c).max()) for a, c in zip(_canon_leaves(runs["eager"][1]),
+                                                            _canon_leaves(runs["amortized"][1])))
+    if not same or near > 1e-5:
+        raise AssertionError(f"dist1 composite: eager == overlap {same}, amortized off "
+                             f"eager by {near}")
+
+    fcfg = fsdp.FsdpConfig()
+    fmesh = fsdp.fsdp_mesh(device="cuda")
+    fids = fsdp.local_batch(rng.integers(0, fcfg.vocab_size, (8, fcfg.seq)), fmesh)
+    fruns = {}
+    for mode in fsdp.FSDP_GATHER_MODES:
+        losses, ms, params = run(fsdp.make_fsdp_train_step(fcfg, fmesh, gather_mode=mode),
+                                 fsdp.init_fsdp_params(fcfg, fmesh, seed=0), fids)
+        whole = [gather_global(params["embed"], fmesh, fsdp.EMBED_SPEC)] + [
+            gather_global(params["blocks"][k], fmesh, fsdp.BLOCK_SPECS[k])
+            for k in sorted(params["blocks"])]
+        fruns[mode] = (losses, [t.cpu().numpy() for t in whole])
+        emit(phase="dist1", step="fsdp", gather_mode=mode, card=card, losses=losses,
+             step_ms=ms)
+    fsame = fruns["eager"][0] == fruns["overlap"][0] and all(
+        np.array_equal(a, c) for a, c in zip(fruns["eager"][1], fruns["overlap"][1]))
+    if not fsame:
+        raise AssertionError("dist1 fsdp: eager and overlap differ")
+    emit(phase="dist1", card=card, world=dist.get_world_size(), backend=dist.get_backend(),
+         composite_eager_equals_overlap=same, composite_amortized_max_diff=near,
+         fsdp_eager_equals_overlap=fsame)
+    dist.destroy_process_group()
+    cleanup()
+
+
+def _canon_leaves(canon):
+    yield canon["embed"]
+    for k in sorted(canon["stages"]):
+        yield canon["stages"][k]
+
+
 # -- phases 16-19: the device-evidence path ------------------------------------------
 
 STREAM_SOURCE = "kubeflow_tpu_torch/ops/csrc/stream_copy.cu"
@@ -3746,6 +4086,11 @@ def main() -> int:
             launches[name] += n
         for name, n in timed("fleet", lambda c: fleet_phase(c, prompts, short_tokens)).items():
             launches[name] += n
+        for name, n in timed("moe", lambda c: moe_phase(c, prompts)).items():
+            launches[name] += n
+        for name, n in timed("ring", ring_phase).items():
+            launches[name] += n
+        timed("dist1", dist1_phase)
         # last: its ~10^6 launches (the decode chunks of in_model) come after
         # every profiler window
         timed("kv_probe", kv_probe_phase)

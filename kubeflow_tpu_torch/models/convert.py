@@ -13,6 +13,8 @@ port's state dict (f32 CPU tensors; move them with ``.to(device)``):
   ``Linear.weight [out, in]``;
 - ``{block_i/ln_attn, block_i/ln_mlp, ln_final}/{scale, bias}`` -> the
   LayerNorms' ``scale``/``bias``;
+- a MoE block's ``block_i/moe/{router [d, E], experts_wi [E, d, ff],
+  experts_wo [E, ff, d]}`` -> ``block_i.moe.<leaf>``, the same layouts;
 - the ``scan_blocks`` layout, ``blocks/...`` with a leading layer axis
   (``stack_block_params``), is unstacked into ``block_0 .. block_{n-1}``.
 
@@ -74,12 +76,18 @@ def _unstacked(tree: Any) -> Iterator[Tuple[str, np.ndarray]]:
             yield path, leaf
 
 
+#: the MoE block's leaves (``block_i/moe/<leaf>``): flax's names and layouts
+_MOE_LEAVES = ("router", "experts_wi", "experts_wo")
+
+
 def _target(path: str, leaf: np.ndarray, cfg: GptConfig) -> Tuple[str, np.ndarray]:
     """(port parameter name, value in the port's layout) of one flax leaf."""
     parts = path.split("/")
     if parts == ["embedding", "embedding"]:
         return "embedding.weight", leaf
     if parts[-1] in ("scale", "bias") and parts[-2] in ("ln_attn", "ln_mlp", "ln_final"):
+        return ".".join(parts), leaf
+    if len(parts) == 3 and parts[1] == "moe" and parts[2] in _MOE_LEAVES:
         return ".".join(parts), leaf
     if parts[-1] == "kernel" and len(parts) == 4:
         block, group, proj = parts[:3]
@@ -218,6 +226,8 @@ def _source(name: str, value: np.ndarray, cfg: GptConfig) -> Tuple[str, np.ndarr
         return "embedding/embedding", value
     if parts[-1] in ("scale", "bias") and parts[-2] in ("ln_attn", "ln_mlp", "ln_final"):
         return "/".join(parts), value
+    if len(parts) == 3 and parts[1] == "moe" and parts[2] in _MOE_LEAVES:
+        return "/".join(parts), value
     if parts[-1] == "weight" and len(parts) == 4:
         block, group, proj = parts[:3]
         h, d = cfg.n_heads, cfg.head_dim
@@ -266,3 +276,28 @@ def resnet_params_to_flax(state: Params, model: torch.nn.Module) -> Dict[str, An
     if buffers:
         out["batch_stats"] = _nest((n.replace(".", "/"), v) for n, v in flat if n in buffers)
     return out
+
+
+def gpt_flax_layout(cfg: GptConfig):
+    """The ``layout`` that ``parallel.sharding`` needs for a GPT state
+    dict: port name -> (flax path, flax shape, per port dim the flax dims
+    it is made of), the inverse of :func:`_target`'s reshapes."""
+    h, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+
+    def layout(name: str, shape: Tuple[int, ...]):
+        parts = name.split(".")
+        ident = tuple((i,) for i in range(len(shape)))
+        if name == "embedding.weight":
+            return ("embedding", "embedding"), tuple(shape), ident
+        if parts[-1] == "weight" and len(parts) == 4:
+            block, group, proj = parts[:3]
+            path = (block, group, proj, "kernel")
+            if group == "attention" and proj in ("query", "key", "value"):
+                return path, (d, h, hd), ((1, 2), (0,))
+            if group == "attention" and proj == "out_proj":
+                return path, (h, hd, d), ((2,), (0, 1))
+            if group == "mlp":
+                return path, (shape[1], shape[0]), ((1,), (0,))
+        return tuple(parts), tuple(shape), ident
+
+    return layout

@@ -28,6 +28,10 @@ A cache is a dict ``{"block_<i>": {"attention": {...}}}`` in the JAX
 package's naming (``_fresh_cache``); ``GptLM.forward`` updates it IN PLACE
 (KV rows and cursors), where the flax module returned a new collection.
 
+A config with ``num_experts > 0`` gives every block a
+``parallel.moe.MoEMlp`` (``moe``) in place of its MLP, routed over every
+row of each call, as JAX's ``GptBlock``.
+
 Numerics follow the JAX module step by step: bf16 embedding output and
 residual stream, LayerNorm in f32 (flax's epsilon 1e-6 and fast variance),
 bf16 dense layers from f32 parameters, tanh-approximated GELU, rotate-half
@@ -333,21 +337,26 @@ class GptBlock(nn.Module):
     def __init__(self, cfg: GptConfig, *, device: DeviceLike = "cuda", **attn: Any):
         super().__init__()
         device = _module_device(device)
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "MoE FFN (num_experts > 0) is ported with the parallelism "
-                "slice (ROADMAP.md queue A, item 7)")
         self.cfg = cfg
         self.ln_attn = LayerNorm(cfg.d_model, device=device)
         self.attention = GptAttention(cfg, device=device, **attn)
         self.ln_mlp = LayerNorm(cfg.d_model, device=device)
-        self.mlp = GptMlp(cfg, device=device)
+        if cfg.num_experts > 0:
+            from ..parallel.moe import MoEMlp
+
+            # routes every row of the call, padded ones included: capacity
+            # drops depend on them, as in JAX
+            self.moe = MoEMlp(cfg.num_experts, cfg.d_ff, k=cfg.moe_k, dtype=cfg.dtype,
+                              d_model=cfg.d_model, device=device)
+        else:
+            self.mlp = GptMlp(cfg, device=device)
 
     def forward(self, x: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]] = None,
                 block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype = self.cfg.dtype
         x = x + self.attention(self.ln_attn(x).to(dtype), cache, block_tables)
-        return x + self.mlp(self.ln_mlp(x).to(dtype))
+        ffn = self.moe if self.cfg.num_experts > 0 else self.mlp
+        return x + ffn(self.ln_mlp(x).to(dtype))
 
 
 class GptLM(nn.Module):
@@ -473,6 +482,17 @@ def blockwise_causal_lm_loss(hidden: torch.Tensor, embedding: torch.Tensor,
     return (lse - target_logit).mean()
 
 
+def _fan_in(name: str, shape: torch.Size) -> int:
+    """A kernel's input width: ``Linear.weight`` [out, in] and the MoE
+    experts [E, in, out] read it where their layouts keep it, the router
+    [d, E] first."""
+    if name.endswith("moe.router"):
+        return shape[0]
+    if ".moe.experts_" in name:
+        return shape[1]
+    return shape[-1]
+
+
 def init_params(cfg: GptConfig, seed: int = 0, device: DeviceLike = "cuda") -> Params:
     """Seeded random weights with flax's default scales: normal with
     std 1/sqrt(fan_in) for every kernel and the embedding, LayerNorm scale
@@ -489,7 +509,7 @@ def init_params(cfg: GptConfig, seed: int = 0, device: DeviceLike = "cuda") -> P
         elif name.endswith(".bias"):
             t = torch.zeros(shape)
         else:
-            t = torch.randn(shape, generator=gen) / math.sqrt(shape[-1])
+            t = torch.randn(shape, generator=gen) / math.sqrt(_fan_in(name, shape))
         params[name] = t.to(dev)
     return params
 

@@ -254,13 +254,21 @@ def autotune_gpt_quick(steps: int = 2, device: DeviceLike = "cuda") -> AutotuneR
     steps on ``device``. The toy's head_dim 16 is below the flash kernels'
     smallest (32), so its attention is the plain causal attention on every
     device; the bench sweep (``training/gpt.py`` ``autotune=True``) runs
-    the kernels. The ``gather_mode`` rows of :func:`gpt_quick_candidates`
-    need several devices and the FSDP step (ROADMAP A.7); one device is
-    swept."""
+    the kernels.
+
+    In an initialized ``torch.distributed`` world of more than one rank
+    (every rank calls this), the grid is :func:`gpt_quick_candidates` of
+    the world size: each row builds the FSDP step
+    (``training/fsdp.py``, the same toy widths) in its ``gather_mode`` and
+    measures it. As in JAX those rows are not priced (collectives are not
+    in a single program's cost): each is recorded as a price error."""
+    import torch.distributed as dist
+
     from ..models.gpt import GptConfig, GptLM, causal_plain_attention, init_params
 
     dev = resolve_device(device)
     batch, seq = 2, 32
+    n_dev = dist.get_world_size() if dist.is_initialized() else 1
 
     def build(knobs: Dict[str, Any], where: DeviceLike):
         cfg = GptConfig(d_model=32, n_layers=2, n_heads=2, d_ff=64,
@@ -286,14 +294,31 @@ def autotune_gpt_quick(steps: int = 2, device: DeviceLike = "cuda") -> AutotuneR
 
         return step
 
+    meshes: Dict[str, Any] = {}
+
+    def build_fsdp(knobs: Dict[str, Any]):
+        from .fsdp import (FsdpConfig, fsdp_mesh, init_fsdp_params, local_batch,
+                           make_fsdp_train_step)
+
+        cfg = FsdpConfig(d_model=32, n_layers=2, n_heads=2, d_ff=64, seq=seq, vocab_size=64)
+        if "fsdp" not in meshes:  # new_group is collective: once, on every rank
+            meshes["fsdp"] = fsdp_mesh(device=dev)
+        mesh = meshes["fsdp"]
+        params = init_fsdp_params(cfg, mesh)
+        ids = local_batch(torch.zeros(max(batch, n_dev), seq, dtype=torch.int64), mesh)
+        step = make_fsdp_train_step(cfg, mesh, gather_mode=knobs["gather_mode"])
+        return lambda: step(params, ids)
+
     def price(knobs: Dict[str, Any]) -> float:
         from .attribution import price_callable
 
+        if "gather_mode" in knobs:
+            raise ValueError("gather_mode is measured, not priced")
         return price_callable(build(knobs, "meta"), name="gpt_quick", kind="model",
                               train_factor=1.0).est_seconds
 
     def measure(knobs: Dict[str, Any]) -> float:
-        step = build(knobs, dev)
+        step = build_fsdp(knobs) if "gather_mode" in knobs else build(knobs, dev)
         step()
         synchronize(dev)
 
@@ -303,7 +328,7 @@ def autotune_gpt_quick(steps: int = 2, device: DeviceLike = "cuda") -> AutotuneR
 
         return measure_steps(timed, steps=steps)
 
-    return sweep("gpt", gpt_quick_candidates(1), measure=measure, price=price, keep=2,
+    return sweep("gpt", gpt_quick_candidates(n_dev), measure=measure, price=price, keep=2,
                  quick=True, strict=True)
 
 

@@ -6,8 +6,8 @@ running statistics in place, as flax's mutable ``batch_stats`` does), the
 cross-entropy loss in f32, the backward and the optimizer step. The port
 updates the model and the optimizer in place where JAX returns a new
 state. The JAX task's ``mesh`` and ``rules`` arguments (batch and
-parameter sharding) are left out; they wait for the parallelism slice
-(ROADMAP queue A item 7).
+parameter sharding) are left out; they wait for the second part of the
+parallelism slice (ROADMAP A.7b), on ``parallel.sharding.shard_pytree``.
 """
 
 from __future__ import annotations

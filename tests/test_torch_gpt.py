@@ -122,15 +122,17 @@ def test_sampled_generate_is_seeded_and_in_vocab():
 
 
 def test_training_forward_and_cuda_without_a_card_raise(monkeypatch):
-    """MoE is still a later slice; every module of the port, the public
-    submodules included, takes the port's device policy: default "cuda",
-    which raises on a host without it."""
+    """A MoE config builds (its blocks carry ``moe``, not ``mlp``); every
+    module of the port, the public submodules included, takes the port's
+    device policy: default "cuda", which raises on a host without it."""
     from kubeflow_tpu_torch.models.gpt import GptAttention, GptBlock, GptMlp, LayerNorm
 
     cfg = GptConfig.tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GptLM(GptConfig(**SHAPE, num_experts=2), decode=True, device="cpu")
+    moe = GptLM(GptConfig(**SHAPE, num_experts=2), decode=True, device="cpu")
+    assert hasattr(moe.block_0, "moe") and not hasattr(moe.block_0, "mlp")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GptLM(GptConfig(**SHAPE, num_experts=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GptLM(cfg, decode=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
