@@ -243,10 +243,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              at buckets 1/8/32, 8 timed requests each (``flash_fwd`` 12 a
              forward); ``generate()`` at batch 1 and 8, 32 new tokens (no
              kernel: its scalar-cursor cache is written by an indexed
-             store); 8 requests at 8 slots, budgets 16/32/48/64, static
+             store); 8 requests at 8 slots, budgets 16/24/32/40, static
              path (no kernel) against the paged engine
              (``kv_block_update_pair`` 24 a decode step), then a draft
-             distilled for 30 steps (flash 30 + 6 + 6 a step) and the spec
+             distilled for 20 steps (flash 30 + 6 + 6 a step) and the spec
              pass (``kv_row_update_pair`` 6 x 4 a round), each request's
              tokens held to the static path's (``near_tie``); two models
              over prefill and decode pools, int8, 3 requests of 16 tokens
@@ -302,6 +302,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              each: falling losses, ``eager`` and ``overlap`` the same bits
              in both steps, ``amortized`` within 1e-5 of ``eager``; step ms.
              Phases 19i-19k run after 5g, before kv_probe;
+20a. classifier_mesh — on a fresh one-rank NCCL world, the bench ResNet-50
+             (batch 256 of 224², s2d stem, fused blocks, SGD-momentum)
+             through ``ClassifierTask(mesh, FSDP_RULES)`` (the parameters
+             JAX's shards, gathered by ``all_gather`` each step, the
+             optimizer on the shards), 4 steps, and 4 steps of the
+             mesh-less task from the same seeded weights: finite losses,
+             ``fused_bottleneck`` 12 and ``fused_transition`` 4 launches a
+             step in both, losses and parameters within 1e-3 of the
+             mesh-less run (whether they are the same bits is printed);
+             step ms and images/s of both;
+20b. elastic1 — on a fresh one-rank NCCL world, ``ElasticTrainer`` with
+             ``CompositeWorkload`` (JAX's ``CompositeConfig`` defaults), a
+             ``StepClock``, a ``WorkerBeacon`` and a ``GoodputLedger``,
+             offers scripted on the drivers' in-memory cluster: (pp 1,
+             V 1) drained after its third step, (pp 1, V 2) lost at step 5
+             (2 steps past the periodic checkpoint at 3), (pp 1, V 1) to
+             step 12: completed, 1 preemption survived, 2 steps replayed,
+             losses within 1e-3 of an uninterrupted run on the card,
+             goodput fractions summing to exactly 1.0 and reconstructing
+             the wallclock within 5%; step ms and the decomposition.
+             Phases 20a-20b run after 19k, before kv_probe;
 20. kv_probe — ``kubeflow_tpu_torch.e2e.kv_update_probe``: the KV writes
              alone (contiguous and paged), the host split of a write's
              call, the decode chunk per token with the writes plain and
@@ -327,8 +348,9 @@ phase 19b's fused-block launches (both of its runs), phase 19d's flash
 launches and phase 19e's KV and flash launches (BERT's, the engine
 pass's, distillation's, the spec draft's and the fleet's decode pool's)
 phase 19h's fused-block and flash launches (its sweeps' candidates and
-runs), phase 19i's KV and flash launches (its kernel runs) and phase 19j's
-flash launches (the block steps' checked run and the one-rank ring):
+runs), phase 19i's KV and flash launches (its kernel runs), phase 19j's
+flash launches (the block steps' checked run and the one-rank ring) and
+phase 20a's fused-block launches (its mesh run):
 that line's count is
 then a sum over several runs, and each path's own count is on its run's
 line. The fused-block
@@ -348,6 +370,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3087,8 +3110,8 @@ def profile_clock_phase(card: str, device: str = "cuda") -> dict:
 SB_BERT_REQUESTS = 8        # timed requests a bucket [40]
 SB_DECODE_NEW = 32          # new tokens of bench_gpt_decode [256]
 SB_REQUESTS = 8             # requests of bench_continuous, at 8 slots [16]
-SB_BUDGETS = (16, 32, 48, 64)  # their new tokens, cycled [32/64/128/224]
-SB_DISTILL_STEPS = 30       # the distilled draft's steps [300]
+SB_BUDGETS = (16, 24, 32, 40)  # their new tokens, cycled [32/64/128/224]
+SB_DISTILL_STEPS = 20       # the distilled draft's steps [300]
 SB_DISAGG_REQUESTS = 3      # requests of bench_disagg [24]
 SB_DISAGG_BUDGET = 16       # their new tokens [128]
 #: BERT-base's flash_fwd launches a forward (one a layer)
@@ -3841,6 +3864,206 @@ def dist1_phase(card: str) -> None:
     cleanup()
 
 
+#: phase 20a's steps a run; phase 20b's steps, periodic checkpoint, tolerances
+MESH_STEPS = 4
+ELASTIC_STEPS, ELASTIC_CKPT_EVERY = 12, 4
+#: 20a: the sharded step against the mesh-less one from the same weights
+#: (the same program on one rank, up to the loss's sum-over-count and the
+#: gathers' copies): about 20x the largest gaps read on an H100 (losses
+#: 4.8e-7 and parameters 1.45e-6 over five runs; a leaf's gap over its own
+#: update 1.04e-3, one run); 20b: JAX's driver tolerance against an
+#: uninterrupted run
+MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_UPDATE_TOL = 1e-5, 2e-5, 2e-2
+ELASTIC_LOSS_TOL = 1e-3
+
+
+def classifier_mesh_phase(card: str) -> dict:
+    """Phase 20a: on a one-rank NCCL world, the bench ResNet-50 (batch 256
+    of 224², s2d stem, fused blocks, SGD-momentum) through
+    ``ClassifierTask(mesh, FSDP_RULES)`` (every parameter a shard by JAX's
+    rules, gathered each step by ``all_gather``; the optimizer on the
+    shards), ``MESH_STEPS`` steps, and the same steps of the mesh-less task
+    from the same seeded weights: finite losses, ``fused_bottleneck`` 12 and
+    ``fused_transition`` 4 launches a step in both, losses and parameters
+    within ``MESH_LOSS_TOL`` / ``MESH_PARAM_TOL`` of the mesh-less run, and
+    each leaf's update within ``MESH_UPDATE_TOL`` of the mesh-less one's,
+    relative to it (none missing); whether they are the same bits; step ms
+    and images/s of both. Returns the mesh run's kernel launches."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.ops import fused_bottleneck as fb
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from kubeflow_tpu_torch.parallel.sharding import FSDP_RULES
+    from kubeflow_tpu_torch.training.classifier import ClassifierTask
+    from kubeflow_tpu_torch.training.resnet import (bench_config, make_batch, make_model,
+                                                    make_task)
+
+    nccl_world()
+    cfg = bench_config()
+    images, labels = make_batch(cfg, 0, "cuda")
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    runs = {}
+    for label in ("meshless", "mesh"):
+        cleanup()
+        model = make_model(cfg, seed=0, device="cuda")
+        if label == "meshless":
+            start = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+        base = make_task(cfg, model)
+        task = base if label == "meshless" else ClassifierTask(
+            model, base.optimizer, mesh=mesh, rules=FSDP_RULES)
+        state = task.init()
+        x, y = task.local_batch(images), task.local_batch(labels)
+        fb.reset_launches()
+        losses, ms = [], []
+        for _ in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = task.train_step(state, x, y)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        launches = dict(fb.LAUNCHES)
+        want = {"fused_bottleneck": 12 * MESH_STEPS, "fused_transition": 4 * MESH_STEPS}
+        if launches != want or not all(np.isfinite(losses)):
+            raise AssertionError(f"classifier_mesh {label}: launches {launches} (expected "
+                                 f"{want}), losses {losses}")
+        steady = float(np.median(ms[1:]))
+        runs[label] = {"losses": losses, "launches": launches,
+                       "params": {n: p.float().cpu() for n, p in
+                                  task.canonical_params(state).items()}}
+        emit(phase="classifier_mesh", path=label, card=card, batch=cfg.batch,
+             image=cfg.image, mesh=dict(mesh.shape) if label == "mesh" else None,
+             rules="FSDP_RULES" if label == "mesh" else None, losses=losses, step_ms=ms,
+             step_ms_median=steady, images_per_s=cfg.batch / steady * 1e3, launches=launches)
+        del model, base, task, state
+    a, b = runs["mesh"], runs["meshless"]
+    loss_diff = max(abs(u - v) for u, v in zip(a["losses"], b["losses"]))
+    param_diff = max(float((a["params"][n] - b["params"][n]).abs().max()) for n in b["params"])
+    same = a["losses"] == b["losses"] and all(torch.equal(a["params"][n], b["params"][n])
+                                              for n in b["params"])
+    # each leaf's update against the mesh-less run's: a dropped or
+    # mis-summed one shows even where the update is small
+    moved = {n: float((b["params"][n] - start[n]).abs().max()) for n in b["params"]}
+    dropped = [n for n in b["params"] if moved[n] > 0
+               and float((a["params"][n] - start[n]).abs().max()) == 0]
+    gaps = {n: float((a["params"][n] - b["params"][n]).abs().max()) / moved[n]
+            for n in b["params"] if moved[n] > 0}
+    worst = max(gaps, key=gaps.get)
+    if (loss_diff > MESH_LOSS_TOL or param_diff > MESH_PARAM_TOL or dropped
+            or gaps[worst] > MESH_UPDATE_TOL):
+        raise AssertionError(f"classifier_mesh: mesh vs mesh-less losses off by {loss_diff}, "
+                             f"parameters by {param_diff}, {worst}'s update by {gaps[worst]} "
+                             f"of itself; updates missing: {dropped}")
+    emit(phase="classifier_mesh", card=card, world=dist.get_world_size(),
+         backend=dist.get_backend(), max_loss_diff=loss_diff, max_param_diff=param_diff,
+         loss_tol=MESH_LOSS_TOL, param_tol=MESH_PARAM_TOL, same_bits=same,
+         max_update_gap=gaps[worst], max_update_gap_leaf=worst, update_tol=MESH_UPDATE_TOL,
+         smallest_update=min(moved.values()), leaves=len(moved))
+    dist.destroy_process_group()
+    del runs, start
+    cleanup()
+    return a["launches"]
+
+
+def elastic1_phase(card: str) -> None:
+    """Phase 20b: on a one-rank NCCL world, ``ElasticTrainer`` with
+    ``CompositeWorkload`` (JAX's ``CompositeConfig`` defaults), a
+    ``StepClock``, a ``WorkerBeacon`` and a ``GoodputLedger``, on offers of
+    the one card scripted on the drivers' in-memory cluster: (pp 1, V 1)
+    drained after its third step → (pp 1, V 2) lost at a step ≡ 1 mod
+    ``ELASTIC_CKPT_EVERY`` → (pp 1, V 1) to the end. Checks: completed; one
+    preemption survived and 2 steps replayed, as scripted; the loss curve
+    within ``ELASTIC_LOSS_TOL`` of an uninterrupted run on the card; goodput
+    fractions summing to exactly 1.0 and reconstructing the wallclock within
+    5%. Prints the composite step ms and the decomposition."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.e2e.elastic_cluster import (NAMESPACE, PodClient, add_nodes,
+                                                        evict, place_gang, preempt_gang)
+    from kubeflow_tpu_torch.gpu.profiling import StepClock
+    from kubeflow_tpu_torch.monitoring.goodput import GoodputLedger
+    from kubeflow_tpu_torch.training.checkpoint import Checkpointer
+    from kubeflow_tpu_torch.training.elastic import (CompositeWorkload, ElasticTrainer,
+                                                     PreemptionHandler, SliceOffer)
+    from kubeflow_tpu_torch.training.heartbeat import WorkerBeacon, clear_beacons
+
+    nccl_world()
+    client = PodClient()
+    add_nodes(client, ["gpu-node-0"], 1)
+    shapes = [(1, 1), (1, 2), (1, 1)]
+    gangs = []
+
+    def provider(attempt):
+        if gangs:
+            evict(client, gangs[-1])
+        if attempt >= len(shapes):
+            return None
+        gangs.append(place_gang(client, f"elastic1-g{attempt}", 1, 1, grace=20.0))
+        pp, v = shapes[attempt]
+        return SliceOffer(devices=[0], pp=pp, virtual_stages=v, pods=gangs[-1],
+                          namespace=NAMESPACE)
+
+    class Scripted(CompositeWorkload):
+        def run_step(self, state, step):
+            state, loss = super().run_step(state, step)
+            attempt, local = len(gangs) - 1, state.setdefault("local", 0)
+            if attempt == 0 and local == 2:
+                preempt_gang(client, gangs[-1], 20.0)
+            elif attempt == 1 and local >= 1 and step % ELASTIC_CKPT_EVERY == 1:
+                evict(client, gangs[-1])  # lost: no drain signal
+            state["local"] = local + 1
+            return state, loss
+
+    clear_beacons()
+    clock = StepClock()
+    ledger = GoodputLedger("elastic1")
+    ckpt_dir = tempfile.mkdtemp(prefix="elastic1-")
+    try:
+        trainer = ElasticTrainer(
+            Scripted(clock=clock, beacon=WorkerBeacon("elastic1-0"), device="cuda"),
+            Checkpointer(ckpt_dir), provider, ELASTIC_STEPS,
+            checkpoint_every=ELASTIC_CKPT_EVERY, goodput=ledger,
+            handler_factory=lambda offer: PreemptionHandler(client, NAMESPACE, offer.pods,
+                                                            poll_interval=0.0))
+        t0 = time.perf_counter()
+        report = trainer.run()
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ref = CompositeWorkload(device="cuda")
+    state = ref.init(SliceOffer(devices=[0]))
+    ref_losses, ref_ms = {}, []
+    for s in range(ELASTIC_STEPS):
+        t = time.perf_counter()
+        state, ref_losses[s] = ref.run_step(state, s)
+        ref_ms.append((time.perf_counter() - t) * 1e3)
+    snap = ledger.snapshot()
+    outcomes = [i["outcome"] for i in report.incarnations]
+    replayed = [i["goodput"]["replaySteps"] for i in report.incarnations]
+    worst = max(abs(report.losses[s] - ref_losses[s]) for s in ref_losses)
+    step_ms = [r["total"] * 1e3 for r in clock.steps]
+    emit(phase="elastic1", card=card, world=dist.get_world_size(), backend=dist.get_backend(),
+         incarnations=[{k: v for k, v in i.items() if k != "goodput"}
+                       for i in report.incarnations],
+         max_loss_diff=worst, loss_tol=ELASTIC_LOSS_TOL, losses=report.losses,
+         step_ms=step_ms, step_ms_median=float(np.median(step_ms)),
+         uninterrupted_step_ms_median=float(np.median(ref_ms[1:])), wall_s=wall,
+         goodput_fraction=snap["goodputFraction"], fractions=snap["fractions"],
+         badput_seconds=snap["badputSeconds"],
+         reconstruction_error=snap["reconstructionError"])
+    if not (report.completed and outcomes == ["preempted", "lost", "completed"]
+            and report.preemptions_survived == 1 and replayed == [0, 0, 2]
+            and [i["offer"]["virtualStages"] for i in report.incarnations] == [1, 2, 1]):
+        raise AssertionError(f"elastic1: incarnations {report.incarnations}")
+    if worst > ELASTIC_LOSS_TOL or not all(np.isfinite(list(report.losses.values()))):
+        raise AssertionError(f"elastic1: losses off the uninterrupted run by {worst}")
+    if sum(snap["fractions"].values()) != 1.0 or snap["reconstructionError"] > 0.05:
+        raise AssertionError(f"elastic1: goodput fractions {snap['fractions']}, "
+                             f"reconstruction error {snap['reconstructionError']}")
+    clear_beacons()
+    dist.destroy_process_group()
+    cleanup()
+
+
 def _canon_leaves(canon):
     yield canon["embed"]
     for k in sorted(canon["stages"]):
@@ -4091,6 +4314,9 @@ def main() -> int:
         for name, n in timed("ring", ring_phase).items():
             launches[name] += n
         timed("dist1", dist1_phase)
+        for name, n in timed("classifier_mesh", classifier_mesh_phase).items():
+            launches[name] += n
+        timed("elastic1", elastic1_phase)
         # last: its ~10^6 launches (the decode chunks of in_model) come after
         # every profiler window
         timed("kv_probe", kv_probe_phase)

@@ -38,6 +38,7 @@ from functools import partial
 from typing import Optional, Sequence, Tuple, Type
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -45,6 +46,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.fallback import record_fallback
 from ..ops.fused_bottleneck import (conv_nhwc, folded_bottleneck, fused_bottleneck_block,
                                     fused_transition_block, maximum0)
+from ..parallel.collectives import psum
 
 Tensor = torch.Tensor
 Pads = Optional[Sequence[Tuple[int, int]]]
@@ -83,7 +85,10 @@ class BatchNorm(nn.Module):
     Train mode normalizes by the batch's f32 mean and biased variance
     (``E[x^2] - E[x]^2``, clipped at 0) and updates the running buffers
     in place; eval mode normalizes by the running buffers. The output has
-    ``dtype``."""
+    ``dtype``. With ``group`` set, the batch is this rank's shard of a
+    global batch: the f32 sum and sum of squares are all-reduced over the
+    group (``psum``, whose backward is a psum) and divided by the global
+    count, the statistics XLA computes over a sharded batch in JAX."""
 
     def __init__(self, features: int, dtype: torch.dtype, zero_scale: bool = False) -> None:
         super().__init__()
@@ -92,13 +97,23 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        #: a process group the batch is sharded over (``set_batch_group``)
+        self.group = None
 
     def forward(self, x: Tensor, train: bool) -> Tensor:
         xf = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = maximum0((xf * xf).mean(axes) - mean * mean)
+            if self.group is None:
+                mean = xf.mean(axes)
+                var = maximum0((xf * xf).mean(axes) - mean * mean)
+            else:
+                # the batch is sharded over the group: sum and sum of squares
+                # over it, divided by the global count (every shard equal)
+                sums = psum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), self.group)
+                count = xf.numel() // xf.shape[-1] * dist.get_world_size(self.group)
+                mean = sums[0] / count
+                var = maximum0(sums[1] / count - mean * mean)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -112,6 +127,14 @@ class BatchNorm(nn.Module):
         differentiable in ``scale`` and ``bias``, constant in the buffers."""
         inv = self.scale * torch.rsqrt(self.var + BN_EPSILON)
         return inv, self.bias - self.mean * inv
+
+
+def set_batch_group(model: nn.Module, group) -> None:
+    """Give every :class:`BatchNorm` of ``model`` the process group its
+    batch is sharded over (None: statistics of the local batch alone)."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.group = group
 
 
 class BottleneckBlock(nn.Module):

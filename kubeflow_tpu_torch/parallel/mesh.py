@@ -14,7 +14,10 @@ a JAX ``PartitionSpec``-shaped tuple, :func:`local_batch` by
 
 ``torch.distributed.new_group`` is collective over the whole world, so
 :func:`make_mesh` creates every group it will ever hand out (each axis and
-:data:`BATCH_AXES`) at once, in one fixed order on every rank. The backend
+:data:`BATCH_AXES`) at once, in one fixed order on every rank. Given
+``devices`` (JAX's argument: here a list of world ranks), it lays the mesh
+over those ranks alone; the others still take part in the ``new_group``
+calls and get no mesh (the elastic trainer's offer smaller than the world). The backend
 follows the device: ``nccl`` on CUDA, ``gloo`` on the CPU
 (:func:`backend_for`).
 """
@@ -22,7 +25,7 @@ follows the device: ``nccl`` on CUDA, ``gloo`` on the CPU
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -107,6 +110,8 @@ class Mesh:
     """This rank's view of the world laid out over :data:`CANONICAL_AXES`.
 
     ``shape`` maps each axis to its size (``mesh.shape[axis]`` as in JAX);
+    ``rank`` is this rank's place among the mesh's ranks (its world rank
+    unless :func:`make_mesh` was given ``devices``);
     ``coordinate(axis)`` is ``lax.axis_index`` for this rank;
     ``group(axes)`` the process group of one axis or a tuple of axes
     (flattened row-major, data outermost), ``size(axes)`` its size and
@@ -164,29 +169,41 @@ def _member_lists(sizes: Dict[str, int], axes: Tuple[str, ...]) -> list:
     return [row.tolist() for row in moved]
 
 
-def make_mesh(config: Optional[MeshConfig] = None, *, device: DeviceLike = "cuda") -> Mesh:
+def make_mesh(config: Optional[MeshConfig] = None, *, devices: Optional[Sequence[int]] = None,
+              device: DeviceLike = "cuda") -> Optional[Mesh]:
     """The mesh over the initialized ``torch.distributed`` world, in JAX's
-    row-major order. Collective: every rank calls it with the same
-    ``config``. ``device`` is where this rank's tensors live (``"cuda"``
+    row-major order. Collective: every rank of the world calls it with the
+    same ``config`` and ``devices``. ``devices`` (JAX's argument) lays the
+    mesh over these world ranks, in increasing order, instead of the whole
+    world; ``MeshConfig(data=-1)`` then resolves against their count, and a
+    rank outside the list gets None (it still takes part in every
+    ``new_group``). ``device`` is where this rank's tensors live (``"cuda"``
     means the current card; raises without CUDA unless ``"cpu"``)."""
     dev = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized torch.distributed world "
                            "(parallel.distributed.initialize, or init_process_group)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    sizes = (config or MeshConfig()).sizes(world)
+    ranks = list(range(world)) if devices is None else [int(r) for r in devices]
+    if not ranks or ranks != sorted(set(ranks)) or ranks[0] < 0 or ranks[-1] >= world:
+        raise ValueError(f"devices must be distinct world ranks in increasing order "
+                         f"(world {world}), got {ranks}")
+    sizes = (config or MeshConfig()).sizes(len(ranks))
     groups: Dict[Tuple[str, ...], object] = {}
     members: Dict[Tuple[str, ...], list] = {}
     # new_group is collective over the world: same calls, same order, everywhere
     for key in [(a,) for a in CANONICAL_AXES] + [BATCH_AXES]:
-        for ranks in _member_lists(sizes, key):
-            if len(ranks) == world:
+        for local in _member_lists(sizes, key):
+            world_ranks = [ranks[i] for i in local]
+            if len(world_ranks) == world:
                 g = dist.group.WORLD
             else:
-                g = dist.new_group(ranks)
-            if rank in ranks:
-                groups[key], members[key] = g, ranks
-    return Mesh(sizes, rank, dev, groups, members)
+                g = dist.new_group(world_ranks)
+            if rank in world_ranks:
+                groups[key], members[key] = g, world_ranks
+    if rank not in ranks:
+        return None
+    return Mesh(sizes, ranks.index(rank), dev, groups, members)
 
 
 def batch_spec(extra_dims: int = 0) -> Spec:

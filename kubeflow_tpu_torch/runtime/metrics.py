@@ -1,8 +1,9 @@
 """Prometheus-style metrics registry with text exposition.
 
 A trimmed copy of ``kubeflow_tpu/runtime/metrics.py``: the subset the
-serving path uses — counters, gauges, histograms with explicit bucket
-ladders and exemplars, namespaced views, bucket-interpolated quantiles
+serving and training paths use — counters, gauges (``dec`` too), histograms
+with explicit bucket ladders and exemplars, ``timer`` and ``total``,
+namespaced views, bucket-interpolated quantiles
 (``quantile``, ``quantile_from_counts``), scrape-time collectors with the
 stdlib process collector (``install_process_collector``) and ``render()``.
 Same names and exposition format, so a scrape of the port reads like a
@@ -15,6 +16,7 @@ import gc
 import os
 import threading
 import time
+from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 
@@ -54,6 +56,10 @@ class _Gauge:
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self.value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self.value -= amount
 
 
 class _Histogram:
@@ -117,6 +123,12 @@ class NamespacedRegistry:
                   **labels: str) -> _Histogram:
         return self._registry.histogram(self._name(name), buckets=buckets, **labels)
 
+    def timer(self, name: str, **labels: str):
+        return self._registry.timer(self._name(name), **labels)
+
+    def total(self, name: str) -> float:
+        return self._registry.total(self._name(name))
+
     def value(self, name: str, **labels: str) -> float:
         return self._registry.value(self._name(name), **labels)
 
@@ -171,6 +183,21 @@ class MetricsRegistry:
             if key not in series:
                 series[key] = _Histogram(effective)
             return series[key]
+
+    @contextmanager
+    def timer(self, name: str, **labels: str):
+        """Observe the wall time of a ``with`` body into histogram ``name``."""
+        hist = self.histogram(name, **labels)
+        start = time.perf_counter()
+        try:
+            yield hist
+        finally:
+            hist.observe(time.perf_counter() - start)
+
+    def total(self, name: str) -> float:
+        """Sum of a counter/gauge across every label combination."""
+        with self._lock:
+            return sum(getattr(m, "value", 0.0) for m in self._metrics.get(name, {}).values())
 
     def value(self, name: str, **labels: str) -> float:
         with self._lock:

@@ -4,7 +4,10 @@ A trimmed copy of ``kubeflow_tpu/runtime/tracing.py``: the OpenTelemetry
 vocabulary (traceId/spanId/parentSpanId, nanosecond epochs, status,
 attributes), an in-memory ring buffer, a thread-local current span, the
 manual ``start_span``/``end_span`` lifecycle a serving request needs (it
-starts on the HTTP thread and ends on the engine worker), ``emit_span``
+starts on the HTTP thread and ends on the engine worker) with JAX's
+open-span map (a span never ended is swept after ``open_span_ttl_s``, or
+evicted past ``max_open_spans``, recorded as ERROR and counted by
+``tracing_spans_abandoned_total``), ``emit_span``
 for an interval already elapsed (a training step), the W3C
 ``traceparent`` codec, and ``Span.to_dict`` in the OTLP field names that
 ``/debug/traces`` serves (``runtime/obs.py``).
@@ -22,6 +25,11 @@ from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, Iterator, List, Optional
 
 _local = threading.local()
+
+#: default TTL for ``start_span()`` spans never ended (a crashed worker):
+#: past it the sweep force-closes them as ERROR and counts
+#: ``tracing_spans_abandoned_total``
+OPEN_SPAN_TTL_S = 600.0
 
 
 def _rand_hex(nbytes: int) -> str:
@@ -77,13 +85,22 @@ class Span:
 class Tracer:
     """Span factory + ring-buffer store."""
 
-    def __init__(self, service: str = "kubeflow-tpu-torch", capacity: int = 4096):
+    def __init__(self, service: str = "kubeflow-tpu-torch", capacity: int = 4096,
+                 open_span_ttl_s: float = OPEN_SPAN_TTL_S):
         self.service = service
         #: OTLP resource identity (``service.instance.id``): which process a
         #: span came from
         self.instance = f"{socket.gethostname()}:{os.getpid()}"
         self._spans: Deque[Span] = collections.deque(maxlen=capacity)
         self._lock = threading.Lock()
+        # cross-thread open-span map: every start_span() registers here and
+        # end_span() removes; bounded by the TTL sweep plus a hard cap so a
+        # caller that never calls end_span can't grow memory forever
+        self.open_span_ttl_s = open_span_ttl_s
+        self.max_open_spans = capacity
+        self._open: Dict[str, Span] = {}
+        self._open_lock = threading.Lock()
+        self._last_sweep = time.monotonic()
 
     @staticmethod
     def current_span() -> Optional[Span]:
@@ -100,7 +117,7 @@ class Tracer:
                 parent = Span("remote", parsed[0], parsed[1])
         if parent is None:
             parent = self.current_span()
-        return Span(
+        span = Span(
             name=name,
             trace_id=parent.trace_id if parent else _rand_hex(16),
             span_id=_rand_hex(8),
@@ -108,6 +125,58 @@ class Tracer:
             start_ns=time.time_ns(),
             attributes={"service.name": self.service, **attributes},
         )
+        with self._open_lock:
+            self._open[span.span_id] = span
+            over = len(self._open) - self.max_open_spans
+            oldest = (sorted(self._open.values(), key=lambda s: s.start_ns)[:over]
+                      if over > 0 else [])
+            for stale in oldest:
+                del self._open[stale.span_id]
+        if oldest:
+            self._abandon(oldest, f"evicted: >{self.max_open_spans} open spans")
+        self._maybe_sweep()
+        return span
+
+    def open_spans(self) -> List[Span]:
+        """Spans started but not yet ended (debug/test view)."""
+        with self._open_lock:
+            return list(self._open.values())
+
+    def _maybe_sweep(self) -> None:
+        # amortized: at most one sweep per quarter-TTL, checked with one
+        # monotonic read on the start_span hot path
+        if time.monotonic() - self._last_sweep < self.open_span_ttl_s / 4:
+            return
+        self.sweep_abandoned()
+
+    def sweep_abandoned(self, ttl_s: Optional[float] = None) -> int:
+        """Force-close open spans older than the TTL (their worker crashed or
+        forgot end_span): recorded as ERROR and counted by
+        ``tracing_spans_abandoned_total``, so the leak is visible while the
+        open-span map stays bounded."""
+        ttl = self.open_span_ttl_s if ttl_s is None else ttl_s
+        self._last_sweep = time.monotonic()
+        cutoff = time.time_ns() - int(ttl * 1e9)
+        with self._open_lock:
+            stale = [s for s in self._open.values() if s.start_ns <= cutoff]
+            for s in stale:
+                del self._open[s.span_id]
+        self._abandon(stale, f"abandoned: not ended within {ttl:.0f}s")
+        return len(stale)
+
+    def _abandon(self, spans: List[Span], message: str) -> None:
+        if not spans:
+            return
+        # lazy: metrics reaches back into this module for exemplar trace ids
+        from .metrics import METRICS
+
+        for s in spans:
+            s.status = "ERROR"
+            s.status_message = message
+            s.end_ns = time.time_ns()
+            with self._lock:
+                self._spans.append(s)
+            METRICS.counter("tracing_spans_abandoned_total").inc()
 
     def emit_span(self, name: str, start_ns: int, end_ns: int,
                   events: Optional[List[Dict[str, Any]]] = None,
@@ -132,6 +201,9 @@ class Tracer:
         return span
 
     def end_span(self, span: Span, error: Optional[BaseException] = None) -> Span:
+        """Close and record a ``start_span()`` span."""
+        with self._open_lock:
+            self._open.pop(span.span_id, None)
         if error is not None:
             span.record_error(error)
         span.end_ns = time.time_ns()
@@ -169,6 +241,8 @@ class Tracer:
     def reset(self) -> None:
         with self._lock:
             self._spans.clear()
+        with self._open_lock:
+            self._open.clear()
 
 
 def format_traceparent(span: Span) -> str:

@@ -1,8 +1,10 @@
 """Training of the port: the GPT and ResNet-50 train steps of the JAX
 package's bench (``training/gpt.py``, ``training/resnet.py``,
-``training/classifier.py``), draft distillation for speculative decoding
-(``training/distill.py``), crash-safe checkpoints in the JAX package's
-format (``training/checkpoint.py``), MFU accounting (``training/flops.py``),
+``training/classifier.py``, on a mesh too), draft distillation for
+speculative decoding (``training/distill.py``), crash-safe checkpoints in
+the JAX package's format (``training/checkpoint.py``), elastic training
+through preemptions (``training/elastic.py``) with per-worker step beacons
+(``training/heartbeat.py``), MFU accounting (``training/flops.py``),
 per-module cost attribution (``training/attribution.py``) and the
 bench-in-the-loop autotuner (``training/autotune.py``)."""
 

@@ -245,9 +245,14 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 66
+    assert len(mods) >= 88
     assert {"kubeflow_tpu_torch.training.attribution", "kubeflow_tpu_torch.training.autotune",
-            "kubeflow_tpu_torch.e2e.attribution_driver", "kubeflow_tpu_torch.gpu.env"} <= set(mods)
+            "kubeflow_tpu_torch.e2e.attribution_driver", "kubeflow_tpu_torch.gpu.env",
+            "kubeflow_tpu_torch.training.elastic", "kubeflow_tpu_torch.training.heartbeat",
+            "kubeflow_tpu_torch.monitoring.goodput", "kubeflow_tpu_torch.monitoring.stragglers",
+            "kubeflow_tpu_torch.scheduler.gang", "kubeflow_tpu_torch.e2e.elastic_cluster",
+            "kubeflow_tpu_torch.e2e.elastic_driver", "kubeflow_tpu_torch.e2e.goodput_driver",
+            "kubeflow_tpu_torch.e2e.straggler_driver", "kubeflow_tpu_torch.entry"} <= set(mods)
 
 
 def test_params_are_seeded():
