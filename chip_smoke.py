@@ -143,7 +143,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              zeros, lse -1e30, dq 0), the same edges in bf16 (d 32 and 128,
              ragged 100/130 at d 128; atol 2e-2, lse 1e-3: the tensor-core
              kernels), BERT-base's served attention (bf16, non-causal, h 12,
-             d 64, b 16 at L 128 and b 8 at L 100) and bf16_dots; the split: at d 32, 64 and 128, out,
+             d 64, b 16 at L 128 and b 8 at L 100) and bf16_dots; head_dim
+             16 in f32 and bf16 over the same edges (ragged 100/130), d 8
+             and d 80 through the padding to 16 and 128, d 160 refused;
+             the forward's f32 out on bf16 inputs (rounded to bf16: the
+             bf16 out bit for bit; against the plain f32 out within 1e-4,
+             2e-2 under bf16_dots); the split: at d 16, 32, 64 and 128, out,
              dq, dk and dv differ from the f32 answer rounded to bf16 in at
              most 2% of elements (p and ds as hi + lo), and in more under
              bf16_dots (hi alone); each kernel run twice and compared bit
@@ -153,7 +158,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              device ms over SDPA's device ms); the port's whole backward
              (``flash_bwd_whole``: delta, dq, dk/dv) against SDPA's
              backward alone, on the device, and a check that the bf16
-             backward ran the tensor-core dq kernel;
+             backward ran the tensor-core dq kernel; per-call times of the
+             three kernels at d 16 (b 8, h 16, L 1024, bf16, causal) beside
+             their bounds, and the forward with an f32 out at the main
+             shape beside its bf16 out;
 9. train_ref — a tiny f32 GPT: loss and every gradient through the kernels
              on the card against the plain path on the CPU (atol 1e-4);
 10. train  — the bench's GPT-2-medium-class config at full width (b 8,
@@ -292,9 +300,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              global offsets, merged by log-sum-exp in f32) and backward
              (``ring_backward`` from the global out and lse), 16 launches of
              each flash kernel, against ``flash_attention`` over the whole
-             sequence (within 2% of the largest value, relative); both
-             times; then ``ring_attention`` over a one-rank NCCL group
-             against ``flash_attention``: the same bits, out and gradients;
+             sequence (within 2% of the largest value, relative: out in
+             f32 against the whole call's f32 out, and rounded to bf16
+             against its bf16 out); both times; then ``ring_attention``
+             over a one-rank NCCL group against ``flash_attention``: the
+             same bits on out (the f32 merge of one block, rounded once),
+             and on the gradients against ``flash_attention_bwd`` run from
+             the same f32 out;
 19k. dist1 — on that one-rank NCCL world, the composite dp x fsdp x tp x
              pp step (every axis 1; JAX's ``CompositeConfig`` defaults, 4
              microbatches of 8) in each gather mode and the FSDP step
@@ -302,6 +314,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              each: falling losses, ``eager`` and ``overlap`` the same bits
              in both steps, ``amortized`` within 1e-5 of ``eager``; step ms.
              Phases 19i-19k run after 5g, before kv_probe;
+21a. tiny_paths — the entry points that run the flash kernels at head_dim
+             16, each with the counts reset just before and read just
+             after: ``GptConfig.tiny()`` trained 3 AdamW steps through the
+             kernels (2 launches of each a step, and the counted reference
+             step) and through ``causal_plain_attention`` (losses within
+             0.02 at step 1 and 0.05 over the run);
+             ``bert_served_model(tiny=True)``'s ``predict`` against the
+             same weights with ``full_attention`` (logits within 0.1; one
+             ``flash_fwd`` a layer); ``autotune_gpt_quick`` on the card
+             (its measured candidates through the kernels, 2 launches of
+             each a step); ``entry._bert_phase`` on the one-rank NCCL
+             world (``BertConfig.tiny()``, 4 heads of 16, f32: the SIMT
+             kernels; loss within 1e-4 of one process's). Runs after 19k;
 20a. classifier_mesh — on a fresh one-rank NCCL world, the bench ResNet-50
              (batch 256 of 224², s2d stem, fused blocks, SGD-momentum)
              through ``ClassifierTask(mesh, FSDP_RULES)`` (the parameters
@@ -309,9 +334,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              optimizer on the shards), 4 steps, and 4 steps of the
              mesh-less task from the same seeded weights: finite losses,
              ``fused_bottleneck`` 12 and ``fused_transition`` 4 launches a
-             step in both, losses and parameters within 1e-3 of the
-             mesh-less run (whether they are the same bits is printed);
-             step ms and images/s of both;
+             step in both, losses and parameters within 1e-5 / 2e-5 of
+             the mesh-less run (whether they are the same bits is
+             printed); cuDNN held to its deterministic algorithms, so a
+             second mesh-less run must repeat the first bit for bit;
+             step ms and images/s of each run;
 20b. elastic1 — on a fresh one-rank NCCL world, ``ElasticTrainer`` with
              ``CompositeWorkload`` (JAX's ``CompositeConfig`` defaults), a
              ``StepClock``, a ``WorkerBeacon`` and a ``GoodputLedger``,
@@ -349,7 +376,8 @@ launches and phase 19e's KV and flash launches (BERT's, the engine
 pass's, distillation's, the spec draft's and the fleet's decode pool's)
 phase 19h's fused-block and flash launches (its sweeps' candidates and
 runs), phase 19i's KV and flash launches (its kernel runs), phase 19j's
-flash launches (the block steps' checked run and the one-rank ring) and
+flash launches (the block steps' checked run and the one-rank ring),
+phase 21a's flash launches (its four paths) and
 phase 20a's fused-block launches (its mesh run):
 that line's count is
 then a sum over several runs, and each path's own count is on its run's
@@ -2220,6 +2248,10 @@ def flash_case(fa, label, b, h, lq, lk, d, dtype, atol, lse_atol, causal=True,
     out, lse, dq, dk, dv = runs[0]
     p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
     plain = (p_out, p_lse, *fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw))
+    for name, a, c in zip(names, runs[0], plain):
+        if a.shape != c.shape or a.dtype != c.dtype:
+            raise AssertionError(f"flash {label}: {name} {tuple(a.shape)} {a.dtype}, plain "
+                                 f"{tuple(c.shape)} {c.dtype}")
     errs = {n: max_abs_err(a, c) for n, a, c in zip(names, runs[0], plain)}
     limits = {n: (lse_atol if n == "lse" else atol) for n in names}
     bad = {n: e for n, e in errs.items() if not e <= limits[n]}
@@ -2235,6 +2267,61 @@ def flash_case(fa, label, b, h, lq, lk, d, dtype, atol, lse_atol, causal=True,
                                                    for n, t in zip(names, runs[0])},
          deterministic=True)
     return (q, k, v, do, kw), errs
+
+
+def flash_out_f32_case(fa, label, b, h, lq, lk, d, bf16_dots=False, seed=0) -> dict:
+    """The forward's f32 ``out`` on bf16 inputs (the accumulator, not
+    rounded): rounded to bf16 it must be the bf16 out bit for bit, lse the
+    same, and it must not be the bf16 out widened; against the plain
+    version's f32 out on the same inputs within 1e-4 (2e-2 under
+    ``bf16_dots``, where p is rounded to bf16 before a sum in another
+    order)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, n, h, d, generator=g).to("cuda", torch.bfloat16)
+               for n in (lq, lk, lk))
+    kw = dict(causal=True, scale=d ** -0.5, bf16_dots=bf16_dots)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    out32, lse32 = fa.flash_attention_fwd(q, k, v, out_dtype=torch.float32, **kw)
+    p_out, _ = fa.flash_attention_fwd_plain(q, k, v, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    rounded_equal = bool(torch.equal(out32.to(torch.bfloat16), out) and torch.equal(lse32, lse))
+    widened = bool(torch.equal(out32, out.float()))
+    err, limit = max_abs_err(out32, p_out), (2e-2 if bf16_dots else 1e-4)
+    emit(phase="flash", case=label, shape=[b, lq, lk, h, d], out_dtype="float32",
+         bf16_dots=bf16_dots, rounded_equal_to_bf16_out=rounded_equal,
+         equal_to_widened_bf16_out=widened, max_abs_err_vs_plain_f32=err, limit=limit)
+    if out32.dtype != torch.float32 or not rounded_equal or widened or not err <= limit:
+        raise AssertionError(f"flash {label}: f32 out {out32.dtype}, rounded equal "
+                             f"{rounded_equal}, widened {widened}, vs plain {err} ({limit})")
+    return {"max_abs_err": err}
+
+
+def flash_d16_times(fa, card: str) -> None:
+    """Call ms (CUDA events) of the three kernels at head_dim 16 (b 8, h 16,
+    L 1024, bf16, causal: the tensor-core kernels) beside their bounds and
+    the plain versions."""
+    b, h, L, d = 8, 16, 1024, 16
+    g = torch.Generator().manual_seed(2)
+    q, k, v, do = (torch.randn(b, L, h, d, generator=g).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True, scale=d ** -0.5, q_offset=0, k_offset=0, bf16_dots=False)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    bwd_in = (q, k, v, do, lse, fa._delta(out, do))
+    bounds = flash_bounds(b, h, L, L, d, True, 0, 0, 2)
+    rows = {}
+    for name, call in (("flash_fwd", lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+                       ("flash_bwd_dq", lambda: fa.bwd_dq_kernel(*bwd_in, **kw)),
+                       ("flash_bwd_dkv", lambda: fa.bwd_dkv_kernel(*bwd_in, **kw))):
+        ms = cuda_ms(call, iters=20, warmup=3)
+        rows[name] = dict(ms=ms, bound_ms=bounds[name]["bound_ms"],
+                          bound_by=bounds[name]["bound_by"],
+                          achieved_tflops=bounds[name]["flops"] / ms / 1e9)
+    rows["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
+                                   iters=5, warmup=1)
+    rows["plain_bwd_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, **kw), iters=5, warmup=1)
+    emit(phase="flash", case="times_d16", card=card, shape=[b, L, L, h, d], dtype="bf16",
+         causal=True, **rows)
 
 
 # share of out, dk and dv elements that may differ from the f32 answer rounded
@@ -2311,6 +2398,31 @@ def flash_phase(card: str):
     flash_case(fa, "bf16_dots", 2, 2, 256, 256, 64, torch.float32, 2e-2, 1e-3, bf16_dots=True)
     flash_case(fa, "bf16_dots_bf16", 2, 4, 512, 512, 64, torch.bfloat16, 2e-2, 1e-3,
                bf16_dots=True)
+    # head_dim 16 (BERT-tiny's, GPT-tiny's): the SIMT kernels in f32 and the
+    # tensor-core kernels in bf16 over the same edges; d 8 and d 80 through
+    # the padding to 16 and 128; d 160 refused
+    f32 = dict(dtype=torch.float32, atol=1e-4, lse_atol=1e-4)
+    for tag, tol in (("f32", f32), ("bf16", bf)):
+        flash_case(fa, f"{tag}_d16", 2, 4, 256, 256, 16, **tol)
+        flash_case(fa, f"{tag}_d16_non_causal", 2, 4, 256, 256, 16, causal=False, **tol)
+        flash_case(fa, f"{tag}_d16_ragged", 1, 3, 100, 130, 16, **tol)
+        flash_case(fa, f"{tag}_d16_q_offset_lk", 2, 2, 256, 256, 16, q_offset=256, **tol)
+        flash_case(fa, f"{tag}_d16_k_offset_10lk", 2, 2, 256, 256, 16, k_offset=2560, **tol)
+        flash_case(fa, f"{tag}_d8_padded", 1, 3, 100, 130, 8, q_offset=30, **tol)
+        flash_case(fa, f"{tag}_d80_padded", 1, 3, 100, 130, 80, q_offset=30, **tol)
+    flash_case(fa, "bf16_dots_d16", 2, 4, 256, 256, 16, torch.bfloat16, 2e-2, 1e-3,
+               bf16_dots=True)
+    wide = torch.zeros(1, 64, 1, 160, device="cuda")
+    try:
+        fa.flash_attention_fwd(wide, wide, wide, causal=True, scale=1.0)
+    except ValueError as e:
+        emit(phase="flash", case="d160_refused", error=str(e))
+    else:
+        raise AssertionError("flash: head_dim 160 was not refused")
+    for dd, dots in ((16, False), (64, False), (64, True), (80, False)):
+        flash_out_f32_case(fa, f"out_f32_d{dd}{'_bf16_dots' if dots else ''}", 2, 4, 300,
+                           300, dd, bf16_dots=dots)
+    flash_d16_times(fa, card)
 
     # times at the main path's shapes
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
@@ -2368,6 +2480,13 @@ def flash_phase(card: str):
              "sdpa backward alone (dq, dk and dv together); library_ms: fwd+bwd minus fwd",
              plain="plain forward" if fwd else "plain backward (dq, dk and dv together)")
 
+    # the forward with an f32 out (ring attention's blocks) beside its bf16 out
+    emit(phase="flash", case="out_f32_times", card=card, shape=[b, L, L, h, d],
+         bf16_out_ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), iters=20,
+                             warmup=3),
+         f32_out_ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, out_dtype=torch.float32,
+                                                           **kw), iters=20, warmup=3))
+
     # the port's whole backward (delta's kernels, dq, dk/dv) against SDPA's
     whole_ms, whole_names = library_device_ms(
         lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw))
@@ -2387,7 +2506,7 @@ def flash_phase(card: str):
     torch.cuda.empty_cache()
     # after the times: in a run with these before them, the profiler's
     # windows lost every flash_fwd launch (torch 2.11, CUDA 12.8, H100)
-    for dd in (32, 64, 128):
+    for dd in (16, 32, 64, 128):
         flash_split_case(fa, dd)
     return results
 
@@ -3703,12 +3822,17 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def ring_phase(card: str) -> dict:
     """Phase 19j: ring attention's block steps at ring size 4 in one
     process (no collective): each query block's 4 flash forwards at its
-    global offsets merged by log-sum-exp, then the backward from the
-    global out and lse with dk/dv summed per block, against
-    ``flash_attention`` over the whole sequence (within 2% of the largest
-    value, relative; bf16); both times. Then ``ring_attention`` over a
-    one-rank NCCL group against ``flash_attention``: the same bits. Returns
-    the flash launches of the checked runs (16 + 1 of each)."""
+    global offsets merged by log-sum-exp in f32, then the backward from the
+    global out (f32, as the merge leaves it) and lse with dk/dv summed per
+    block, against ``flash_attention`` over the whole sequence (within 2%
+    of the largest value, relative: out in f32 against the whole call's f32
+    out and rounded to bf16 against its bf16 out, the gradients against its
+    backward from its f32 out); both times. Then ``ring_attention`` over a
+    one-rank NCCL group against ``flash_attention``: the same bits on out
+    (one block's f32 out through the merge, rounded once), and on the
+    gradients against ``flash_attention_bwd`` from the same f32 out (the
+    ring's backward takes delta from the unrounded out). Returns the flash
+    launches of the checked runs (16 + 1 of each)."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from kubeflow_tpu_torch.parallel.ring_attention import (ring_attention, ring_backward,
@@ -3748,9 +3872,13 @@ def ring_phase(card: str) -> dict:
     if launches != {"flash_fwd": n * n, "flash_bwd_dq": n * n, "flash_bwd_dkv": n * n}:
         raise AssertionError(f"ring: block-step launches {launches}, expected {n * n} each")
     out = torch.cat([o for o, _ in fw], 1)
-    ref_out, ref_lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    if out.dtype != torch.float32:
+        raise AssertionError(f"ring: ring_forward returned {out.dtype}, not the f32 merge")
+    ref_out, ref_lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale,
+                                              out_dtype=torch.float32)
     ref = fa.flash_attention_bwd(q, k, v, ref_out, ref_lse, dout, causal=True, scale=scale)
-    errs = {"out": rel_err(out, ref_out)}
+    errs = {"out": rel_err(out, ref_out),
+            "out_bf16": rel_err(out.to(torch.bfloat16), ref_out.to(torch.bfloat16))}
     errs.update({name: rel_err(g, r) for name, g, r in zip(("dq", "dk", "dv"), grads, ref)})
     if not all(e <= 2e-2 for e in errs.values()):
         raise AssertionError(f"ring: block steps vs flash_attention over the whole "
@@ -3774,20 +3902,129 @@ def ring_phase(card: str) -> dict:
     o = ring_attention(qr, kr, vr, mesh, causal=True)
     o.backward(dout)
     one = dict(fa.LAUNCHES)
-    qf, kf, vf = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    of = fa.flash_attention(qf, kf, vf, causal=True)
-    of.backward(dout)
+    of = fa.flash_attention(q, k, v, causal=True)
+    # the ring's backward starts from its f32 out: flash_attention_bwd from
+    # the same f32 out and lse
+    of32, lse32 = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale,
+                                         out_dtype=torch.float32)
+    grads32 = fa.flash_attention_bwd(q, k, v, of32, lse32, dout, causal=True, scale=scale)
     same = {name: torch.equal(a, c) for name, a, c in (
-        ("out", o, of), ("dq", qr.grad, qf.grad), ("dk", kr.grad, kf.grad),
-        ("dv", vr.grad, vf.grad))}
+        ("out", o, of), ("dq", qr.grad, grads32[0]), ("dk", kr.grad, grads32[1]),
+        ("dv", vr.grad, grads32[2]))}
     if not all(same.values()) or one != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
         raise AssertionError(f"ring over one NCCL rank vs flash_attention: equal {same}, "
                              f"launches {one}")
-    emit(phase="ring", run="nccl_one_rank", card=card, seq=L, equal=same, launches=one)
+    # against flash_attention's own backward (from its bf16 out), printed
+    qf, kf, vf = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    fa.flash_attention(qf, kf, vf, causal=True).backward(dout)
+    vs_bf16_out = {name: rel_err(a, c) for name, a, c in (
+        ("dq", qr.grad, qf.grad), ("dk", kr.grad, kf.grad), ("dv", vr.grad, vf.grad))}
+    emit(phase="ring", run="nccl_one_rank", card=card, seq=L, equal=same, launches=one,
+         grads_rel_err_vs_backward_from_bf16_out=vs_bf16_out)
     for name in launches:
         launches[name] += one[name]
     cleanup()
     return launches
+
+
+def tiny_paths_phase(card: str) -> dict:
+    """Phase 21a: the entry points that reach the flash kernels at head_dim
+    16 (BERT-tiny's and GPT-tiny's 4 heads of 16, the quick GPT's 2 of 16),
+    each with the counts reset just before it and read just after.
+    Returns the flash launches of the four paths, summed."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import entry
+    from kubeflow_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from kubeflow_tpu_torch.models.gpt import GptConfig, causal_plain_attention
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel.ring_attention import full_attention
+    from kubeflow_tpu_torch.serving.server import bert_served_model
+    from kubeflow_tpu_torch.training.autotune import autotune_gpt_quick
+    from kubeflow_tpu_torch.training.gpt import train
+
+    total = {name: 0 for name in fa.LAUNCHES}
+
+    def counted(label, want, run):
+        fa.reset_launches()
+        result = run()
+        torch.cuda.synchronize()
+        got = dict(fa.LAUNCHES)
+        expect = want(result) if callable(want) else want
+        if got != expect:
+            raise AssertionError(f"tiny_paths {label}: flash launches {got}, expected {expect}")
+        for name, n in got.items():
+            total[name] += n
+        return result, got
+
+    # GPT-tiny trained through the kernels (bf16: the tensor-core kernels at
+    # d 16) and through the plain attention, from the same seeded weights
+    cfg = GptConfig.tiny()
+    b, seq, steps = 4, cfg.max_seq, 3
+    each = cfg.n_layers * (steps + 1)  # the counted reference step, then the steps
+    runs = {}
+    for label, kw in (("kernel", {}), ("plain", {"attention_fn": causal_plain_attention})):
+        want = {n: each for n in total} if not kw else {n: 0 for n in total}
+        res, got = counted(f"gpt_tiny_{label}", want, lambda: train(
+            cfg, batch=b, seq=seq, steps=steps, seed=0, device="cuda", **kw))
+        runs[label] = res["losses"]
+        if not all(np.isfinite(res["losses"])):
+            raise AssertionError(f"tiny_paths gpt_tiny {label}: losses {res['losses']}")
+    lk, lp = runs["kernel"], runs["plain"]
+    first, worst = abs(lk[0] - lp[0]), max(abs(x - y) for x, y in zip(lk, lp))
+    emit(phase="tiny_paths", path="gpt_tiny_train", card=card, heads=cfg.n_heads,
+         head_dim=cfg.d_model // cfg.n_heads, batch=b, seq=seq, steps=steps,
+         losses_kernel=lk, losses_plain=lp, step1_loss_diff=first, max_loss_diff=worst,
+         launches_each=each)
+    if not (first <= 0.02 and worst <= 0.05):
+        raise AssertionError(f"tiny_paths gpt_tiny: kernel vs plain losses {lk} / {lp}")
+
+    # BERT-tiny served: predict through auto_attention against full_attention
+    served = bert_served_model(tiny=True, device="cuda")
+    bert_cfg = BertConfig.tiny()
+    rows = np.random.default_rng(0).integers(0, bert_cfg.vocab_size, (4, 48)).tolist()
+    preds, got = counted("bert_tiny_served", {"flash_fwd": bert_cfg.num_layers,
+                                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+                         lambda: served.predict(rows))
+    full = BertForMaskedLM.bind(bert_cfg, served.params, attention_fn=full_attention)
+    with torch.no_grad():
+        want_logits = full(torch.as_tensor(rows, dtype=torch.int32, device="cuda"))
+    logits = torch.tensor(preds, device="cuda")
+    err = max_abs_err(logits, want_logits)
+    agree = float((logits.argmax(-1) == want_logits.argmax(-1)).float().mean())
+    emit(phase="tiny_paths", path="bert_tiny_served", card=card, heads=bert_cfg.num_heads,
+         head_dim=bert_cfg.head_dim, rows=len(rows), seq=len(rows[0]), max_abs_err=err,
+         argmax_agreement=agree, launches=got)
+    if tuple(logits.shape) != tuple(want_logits.shape) or not err <= 0.1:
+        raise AssertionError(f"tiny_paths bert_tiny_served: logits {tuple(logits.shape)} "
+                             f"vs {tuple(want_logits.shape)}, max err {err}")
+    served.close()
+
+    # the quick GPT sweep: its measured candidates' steps through the kernels
+    q_steps, q_layers = 2, 2
+
+    def per_measured(result):
+        n = q_layers * (1 + q_steps) * sum(c.measured_seconds is not None
+                                           for c in result.candidates)
+        return {name: n for name in total}
+
+    result, got = counted("autotune_gpt_quick", per_measured,
+                          lambda: autotune_gpt_quick(steps=q_steps, device="cuda"))
+    emit(phase="tiny_paths", path="autotune_gpt_quick", card=card, chosen=result.chosen,
+         row=result.to_row(), launches=got)
+    if not any(got.values()):
+        raise AssertionError("tiny_paths autotune_gpt_quick: no flash launch")
+
+    # the dry run's BERT phase on a fresh one-rank NCCL world (19k's is gone)
+    nccl_world()
+    summary, got = counted("dryrun_bert", {n: bert_cfg.num_layers for n in total},
+                           lambda: entry._bert_phase(1, torch.device("cuda")))
+    emit(phase="tiny_paths", path="dryrun_bert", card=card, summary=summary, launches=got)
+    if (summary["heads"], summary["head_dim"]) != (4, 16):
+        raise AssertionError(f"tiny_paths dryrun_bert: {summary}")
+    dist.destroy_process_group()
+    cleanup()
+    return total
 
 
 def dist1_phase(card: str) -> None:
@@ -3871,8 +4108,10 @@ ELASTIC_STEPS, ELASTIC_CKPT_EVERY = 12, 4
 #: (the same program on one rank, up to the loss's sum-over-count and the
 #: gathers' copies): about 20x the largest gaps read on an H100 (losses
 #: 4.8e-7 and parameters 1.45e-6 over five runs; a leaf's gap over its own
-#: update 1.04e-3, one run); 20b: JAX's driver tolerance against an
-#: uninterrupted run
+#: update 1.04e-3, one run), read with cuDNN free to pick a
+#: non-deterministic algorithm, which once moved a run's own loss by
+#: 1.53e-5; the phase now holds cuDNN to deterministic ones; 20b: JAX's
+#: driver tolerance against an uninterrupted run
 MESH_LOSS_TOL, MESH_PARAM_TOL, MESH_UPDATE_TOL = 1e-5, 2e-5, 2e-2
 ELASTIC_LOSS_TOL = 1e-3
 
@@ -3888,7 +4127,12 @@ def classifier_mesh_phase(card: str) -> dict:
     within ``MESH_LOSS_TOL`` / ``MESH_PARAM_TOL`` of the mesh-less run, and
     each leaf's update within ``MESH_UPDATE_TOL`` of the mesh-less one's,
     relative to it (none missing); whether they are the same bits; step ms
-    and images/s of both. Returns the mesh run's kernel launches."""
+    and images/s of each run. cuDNN's wgrad may sum in any order from one
+    call to the next, so every run is held to its deterministic algorithms
+    (``cudnn.deterministic``, no ``cudnn.benchmark``; put back after) and
+    the mesh-less task runs twice: the second run must repeat the first
+    bit for bit, so the gaps above are the mesh's own. Returns the mesh
+    run's kernel launches."""
     import torch.distributed as dist
 
     from kubeflow_tpu_torch.ops import fused_bottleneck as fb
@@ -3903,39 +4147,50 @@ def classifier_mesh_phase(card: str) -> dict:
     images, labels = make_batch(cfg, 0, "cuda")
     mesh = make_mesh(MeshConfig(), device="cuda")
     runs = {}
-    for label in ("meshless", "mesh"):
-        cleanup()
-        model = make_model(cfg, seed=0, device="cuda")
-        if label == "meshless":
-            start = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
-        base = make_task(cfg, model)
-        task = base if label == "meshless" else ClassifierTask(
-            model, base.optimizer, mesh=mesh, rules=FSDP_RULES)
-        state = task.init()
-        x, y = task.local_batch(images), task.local_batch(labels)
-        fb.reset_launches()
-        losses, ms = [], []
-        for _ in range(MESH_STEPS):
-            t0 = time.perf_counter()
-            state, metrics = task.train_step(state, x, y)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(metrics["loss"]))
-        launches = dict(fb.LAUNCHES)
-        want = {"fused_bottleneck": 12 * MESH_STEPS, "fused_transition": 4 * MESH_STEPS}
-        if launches != want or not all(np.isfinite(losses)):
-            raise AssertionError(f"classifier_mesh {label}: launches {launches} (expected "
-                                 f"{want}), losses {losses}")
-        steady = float(np.median(ms[1:]))
-        runs[label] = {"losses": losses, "launches": launches,
-                       "params": {n: p.float().cpu() for n, p in
-                                  task.canonical_params(state).items()}}
-        emit(phase="classifier_mesh", path=label, card=card, batch=cfg.batch,
-             image=cfg.image, mesh=dict(mesh.shape) if label == "mesh" else None,
-             rules="FSDP_RULES" if label == "mesh" else None, losses=losses, step_ms=ms,
-             step_ms_median=steady, images_per_s=cfg.batch / steady * 1e3, launches=launches)
-        del model, base, task, state
-    a, b = runs["mesh"], runs["meshless"]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for label in ("meshless", "mesh", "meshless_again"):
+            cleanup()
+            model = make_model(cfg, seed=0, device="cuda")
+            if label == "meshless":
+                start = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+            base = make_task(cfg, model)
+            task = base if label != "mesh" else ClassifierTask(
+                model, base.optimizer, mesh=mesh, rules=FSDP_RULES)
+            state = task.init()
+            x, y = task.local_batch(images), task.local_batch(labels)
+            fb.reset_launches()
+            losses, ms = [], []
+            for _ in range(MESH_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = task.train_step(state, x, y)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(metrics["loss"]))
+            launches = dict(fb.LAUNCHES)
+            want = {"fused_bottleneck": 12 * MESH_STEPS, "fused_transition": 4 * MESH_STEPS}
+            if launches != want or not all(np.isfinite(losses)):
+                raise AssertionError(f"classifier_mesh {label}: launches {launches} (expected "
+                                     f"{want}), losses {losses}")
+            steady = float(np.median(ms[1:]))
+            runs[label] = {"losses": losses, "launches": launches,
+                           "params": {n: p.float().cpu() for n, p in
+                                      task.canonical_params(state).items()}}
+            emit(phase="classifier_mesh", path=label, card=card, batch=cfg.batch,
+                 image=cfg.image, mesh=dict(mesh.shape) if label == "mesh" else None,
+                 rules="FSDP_RULES" if label == "mesh" else None, losses=losses, step_ms=ms,
+                 step_ms_median=steady, images_per_s=cfg.batch / steady * 1e3,
+                 launches=launches)
+            del model, base, task, state
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    a, b, c = runs["mesh"], runs["meshless"], runs["meshless_again"]
+    if c["losses"] != b["losses"] or not all(torch.equal(c["params"][n], b["params"][n])
+                                             for n in b["params"]):
+        raise AssertionError(f"classifier_mesh: the mesh-less run did not repeat its own bits "
+                             f"under deterministic cuDNN: losses {b['losses']} then "
+                             f"{c['losses']}")
     loss_diff = max(abs(u - v) for u, v in zip(a["losses"], b["losses"]))
     param_diff = max(float((a["params"][n] - b["params"][n]).abs().max()) for n in b["params"])
     same = a["losses"] == b["losses"] and all(torch.equal(a["params"][n], b["params"][n])
@@ -3957,7 +4212,8 @@ def classifier_mesh_phase(card: str) -> dict:
          backend=dist.get_backend(), max_loss_diff=loss_diff, max_param_diff=param_diff,
          loss_tol=MESH_LOSS_TOL, param_tol=MESH_PARAM_TOL, same_bits=same,
          max_update_gap=gaps[worst], max_update_gap_leaf=worst, update_tol=MESH_UPDATE_TOL,
-         smallest_update=min(moved.values()), leaves=len(moved))
+         smallest_update=min(moved.values()), leaves=len(moved),
+         cudnn_deterministic=True, meshless_repeats_bits=True)
     dist.destroy_process_group()
     del runs, start
     cleanup()
@@ -4314,6 +4570,8 @@ def main() -> int:
         for name, n in timed("ring", ring_phase).items():
             launches[name] += n
         timed("dist1", dist1_phase)
+        for name, n in timed("tiny_paths", tiny_paths_phase).items():
+            launches[name] += n
         for name, n in timed("classifier_mesh", classifier_mesh_phase).items():
             launches[name] += n
         timed("elastic1", elastic1_phase)

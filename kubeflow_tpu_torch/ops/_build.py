@@ -56,9 +56,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "kv_launch_floor": (I, I, I, P),
     },
     "flash_attention.cu": {
-        # device, q, k, v, out, lse, is_bf16, b, lq, lk, h, d, scale, causal,
-        # q_offset, k_offset, bf16_dots, stream
-        "flash_fwd": (I, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, I, P),
+        # device, q, k, v, out, lse, out_f32, is_bf16, b, lq, lk, h, d, scale,
+        # causal, q_offset, k_offset, bf16_dots, stream
+        "flash_fwd": (I, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, I, P),
         # device, q, k, v, dout, lse, delta, dq, is_bf16, b, lq, lk, h, d,
         # scale, causal, q_offset, k_offset, bf16_dots, stream
         "flash_bwd_dq": (I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, I, P),

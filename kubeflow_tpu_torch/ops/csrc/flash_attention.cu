@@ -7,7 +7,14 @@
 //
 // Layout. q, out, dout: [b, lq, h, d]; k, v: [b, lk, h, d], contiguous, read
 // in place through their row stride h*d (no transposes). lse and delta:
-// [b, h, lq] f32. Element type bf16 or f32; head_dim 32, 64 or 128.
+// [b, h, lq] f32. Element type bf16 or f32; head_dim 16, 32, 64 or 128 (the
+// wrapper zero-pads any other width up to 128 to the next of these). The
+// forward writes `out` in the element type, or in f32 from bf16 inputs when
+// asked (`out_f32`): the same normalised accumulator, not rounded, so the
+// f32 out rounded to bf16 is the bf16 out bit for bit. The choice is a flag
+// read in the epilogue of one kernel, not a template parameter: two
+// instantiations are compiled apart (other registers, other FMA
+// contractions) and need not give the same accumulator.
 //
 // Grid. On the TPU the minor grid dimension runs in order and carries the
 // accumulators in VMEM scratch from step to step. Here blocks run in
@@ -61,13 +68,21 @@
 //     already in A-fragment layout; dV += P^T dO and dK += dS^T Q take dO and
 //     Q by ldmatrix.trans. Tile: 64 keys (4 warps) x 64 queries (32 at d 128).
 //   Tiles: 4 warps, 64 x 64 for every kernel (dk/dv 64 x 32 at d 128).
+//     At d 16 the score product is one k-chunk of 16 and P V, dS K, P^T dO
+//     and dS^T Q one ldmatrix.x4.trans (two 8-wide n-tiles) a 16-key step;
+//     a row is 2 cp.async chunks, and its 48-byte stride (d + 8) still puts
+//     the 8 row addresses of an ldmatrix in 8 distinct 16-byte bank groups
+//     (3 r mod 8).
 //     At b 8, h 16, L 1024, d 64 on the H100 these beat 8-warp blocks and
 //     wider k- or q-tiles (128 x 64, 64 x 128, 128 x 128 forward; 128 x 64,
 //     128 x 32 dk/dv), and 64 x 32 dk/dv was no faster (PERF.md).
 //     ptxas -v: dq and dk/dv spill nothing at any head_dim (the forward at
 //     d 32 under bf16_dots spills 4 bytes); dq's registers a thread
 //     (bf16_dots 0 / 1) are 127 / 127 at d 32, 211 / 211 at d 64 and
-//     233 / 234 at d 128, with Q and dO in shared memory there.
+//     233 / 234 at d 128, with Q and dO in shared memory there. At d 16
+//     nothing spills: forward 79 / 77, dq 106 / 104, dk/dv 136 / 137
+//     registers (the SIMT kernels 64, 126, 109); dk/dv keeps 64 x 64 tiles
+//     (dkv_bq<16>() = 64), as at d 32 and 64.
 //   Masking: the element mask runs only on tiles that cross the diagonal or
 //     the ragged edge of lk, and overwrites p with 0 there: a row that sees
 //     no key has lse = -1e30, so its exp is inf, and the mask must win (such
@@ -161,6 +176,7 @@ struct Args {
   int lq, lk, h;
   float scale;
   int causal, q_offset, k_offset, bf16_dots;
+  int out_f32;  // the bf16 forward's out is f32 (flash_fwd_kernel_mma only)
 };
 
 __device__ __forceinline__ bool visible(const Args& a, int qr, int kc) {
@@ -621,6 +637,33 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], const f
   }
 }
 
+// The f32 twin of store_rows: the accumulator times `mul`, not rounded,
+// through the warp's own [16, D + 4] f32 shared rows `stage` for 16-byte
+// stores. (Stores straight from the C fragments cost the d-64 forward its
+// register allocation: 128 registers and a spill against 139, ptxas -v.)
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], const float (&mul)[2],
+                                           float* stage, float* __restrict__ dst,
+                                           int64_t row_stride, int row0, int len) {
+  constexpr int LDF = D + 4, CPR = D / 4;  // f32 row pitch; 16-byte chunks per row
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(stage + g * LDF + n * 8 + 2 * t) =
+        make_float2(acc[n][0] * mul[0], acc[n][1] * mul[0]);
+    *reinterpret_cast<float2*>(stage + (g + 8) * LDF + n * 8 + 2 * t) =
+        make_float2(acc[n][2] * mul[1], acc[n][3] * mul[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = (i % CPR) * 4;
+    if (row0 + r < len)
+      *reinterpret_cast<float4*>(dst + (int64_t)(row0 + r) * row_stride + c) =
+          *reinterpret_cast<const float4*>(stage + r * LDF + c);
+  }
+}
+
 // Tiles of the tensor-core kernels, 16 rows a warp (the forward's query
 // rows, dk/dv's key rows): 4 warps, 64 x 64 (see the header).
 constexpr int FWD_THREADS = 128;
@@ -635,10 +678,11 @@ constexpr int DQ_BK = 64;  // keys of a dq k-tile
 template <int D> __host__ __device__ constexpr int dkv_bq() { return D == 128 ? 32 : 64; }
 
 // forward. LO: p enters P V as hi + lo (bf16_dots = 0), else as hi alone.
+// `out` is bf16 (rounded), or float (the accumulator itself) when a.out_f32.
 template <int D, bool LO>
 __global__ void __launch_bounds__(FWD_THREADS)
 flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     const bf16* __restrict__ v, void* __restrict__ out,
                      float* __restrict__ lse, Args a) {
   constexpr int LDS = D + 8, KC = D / 16, NT = FWD_BK / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -783,9 +827,17 @@ flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t == 0 && qr < a.lq)
       lse[((int64_t)ib * a.h + ih) * a.lq + qr] = l[r] == 0.0f ? NEG_BIG : m[r] * LN2 + logf(l[r]);
   }
-  // only this warp reads its 16 rows of Qs (its ldmatrix of ik 0)
-  store_rows<D>(o, inv, Qs + warp * 16 * LDS, out + ((int64_t)ib * a.lq * a.h + ih) * D, rs,
-                q_lo + warp * 16, a.lq);
+  // only this warp reads its 16 rows of Qs (its ldmatrix of ik 0); the f32
+  // rows stage in this warp's slice of the K/V tiles, which no warp reads
+  // after the loop's last barrier. The branch is uniform, after every
+  // operation on the accumulator.
+  const int64_t obase = ((int64_t)ib * a.lq * a.h + ih) * D;
+  if (a.out_f32)
+    store_rows<D>(o, inv, reinterpret_cast<float*>(Ks) + warp * 16 * (D + 4),
+                  static_cast<float*>(out) + obase, rs, q_lo + warp * 16, a.lq);
+  else
+    store_rows<D>(o, inv, Qs + warp * 16 * LDS, static_cast<bf16*>(out) + obase, rs,
+                  q_lo + warp * 16, a.lq);
 }
 
 // dk, dv. LO: p and ds enter their dots as hi + lo (bf16_dots = 0).
@@ -1166,7 +1218,7 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* out, floa
   auto kernel = a.bf16_dots ? flash_fwd_kernel_mma<D, false> : flash_fwd_kernel_mma<D, true>;
   return launch(kernel, FWD_THREADS, fwd_mma_smem<D>(), (a.lq + FWD_BQ - 1) / FWD_BQ, a.h, b,
                 st, a, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(out), lse);
+                static_cast<const bf16*>(v), out, lse);
 }
 
 template <int D>
@@ -1197,6 +1249,7 @@ cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v, const void* 
 // first); anything else is cudaErrorInvalidValue (the wrapper raises first).
 #define FLASH_DISPATCH(FN, ...)                             \
   {                                                         \
+    if (d == 16) return (int)FN<float, 16>(__VA_ARGS__);    \
     if (d == 32) return (int)FN<float, 32>(__VA_ARGS__);    \
     if (d == 64) return (int)FN<float, 64>(__VA_ARGS__);    \
     if (d == 128) return (int)FN<float, 128>(__VA_ARGS__);  \
@@ -1207,6 +1260,7 @@ cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v, const void* 
 // tensor-core kernels); anything else is cudaErrorInvalidValue.
 #define HEAD_DIM_DISPATCH(FN, ...)                  \
   {                                                 \
+    if (d == 16) return (int)FN<16>(__VA_ARGS__);   \
     if (d == 32) return (int)FN<32>(__VA_ARGS__);   \
     if (d == 64) return (int)FN<64>(__VA_ARGS__);   \
     if (d == 128) return (int)FN<128>(__VA_ARGS__); \
@@ -1217,13 +1271,15 @@ cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v, const void* 
 
 extern "C" {
 
+// out_f32: on bf16 inputs, `out` is f32 (the unrounded accumulator); f32
+// inputs always write f32.
 int flash_fwd(int device, const void* q, const void* k, const void* v, void* out,
-              float* lse, int is_bf16, int b, int lq, int lk, int h, int d, float scale,
+              float* lse, int out_f32, int is_bf16, int b, int lq, int lk, int h, int d, float scale,
               int causal, int q_offset, int k_offset, int bf16_dots, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (b == 0 || lq == 0 || h == 0) return (int)cudaGetLastError();
-  const Args a{lq, lk, h, scale, causal, q_offset, k_offset, bf16_dots};
+  const Args a{lq, lk, h, scale, causal, q_offset, k_offset, bf16_dots, out_f32};
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) HEAD_DIM_DISPATCH(fwd_mma, q, k, v, out, lse, b, a, st)
   FLASH_DISPATCH(fwd, q, k, v, out, lse, b, a, st)
@@ -1236,7 +1292,7 @@ int flash_bwd_dq(int device, const void* q, const void* k, const void* v,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (b == 0 || lq == 0 || h == 0) return (int)cudaGetLastError();
-  const Args a{lq, lk, h, scale, causal, q_offset, k_offset, bf16_dots};
+  const Args a{lq, lk, h, scale, causal, q_offset, k_offset, bf16_dots, 0};
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) HEAD_DIM_DISPATCH(bwd_dq_mma, q, k, v, dout, lse, delta, dq, b, a, st)
   FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, b, a, st)
@@ -1249,7 +1305,7 @@ int flash_bwd_dkv(int device, const void* q, const void* k, const void* v,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (b == 0 || lk == 0 || h == 0) return (int)cudaGetLastError();
-  const Args a{lq, lk, h, scale, causal, q_offset, k_offset, bf16_dots};
+  const Args a{lq, lk, h, scale, causal, q_offset, k_offset, bf16_dots, 0};
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) HEAD_DIM_DISPATCH(bwd_dkv_mma, q, k, v, dout, lse, delta, dk, dv, b, a, st)
   FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, b, a, st)

@@ -3,8 +3,9 @@
 The port of ``kubeflow_tpu/ops/flash_attention.py``. Three hand-written
 CUDA kernels (``csrc/flash_attention.cu``) replace the Pallas ones:
 
-- ``flash_fwd`` — online-softmax attention; returns ``out`` (input dtype)
-  and the f32 log-sum-exp ``lse`` [b, h, lq];
+- ``flash_fwd`` — online-softmax attention; returns ``out`` (the input
+  dtype, or f32 from bf16 inputs with ``out_dtype=torch.float32``: the
+  kernel's accumulator unrounded) and the f32 log-sum-exp ``lse`` [b, h, lq];
 - ``flash_bwd_dq`` — dq, q-major, recomputing ``p = exp(s - lse)``;
 - ``flash_bwd_dkv`` — dk and dv, k-major; two passes and no atomics, so the
   gradients are the same bits on every run.
@@ -29,6 +30,14 @@ when the tensors lie on the CPU; on CUDA tensors it launches the kernels or
 raises. :func:`flash_attention_plain` runs the plain versions on any device,
 the comparator the kernels are held against. Each kernel launch adds one to
 ``LAUNCHES[<name>]``.
+
+Head dims: the kernels are built for ``HEAD_DIMS`` (16, 32, 64, 128). Any
+other ``d <= 128`` runs through :func:`padded_head_dim`, which zero-pads q,
+k, v (and out, dout) on the last axis to the next of these and slices the
+results back; zero columns add exact zeros to every score and gradient,
+and the scale stays the caller's (``d ** -0.5`` of the unpadded d by
+default). ``d > 128`` raises (:func:`kernel_width`); JAX's Pallas kernel
+takes any d.
 """
 
 from __future__ import annotations
@@ -36,12 +45,13 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 SOURCE = "flash_attention.cu"
 NEG_BIG = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 
 #: kernel launches per kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -106,12 +116,13 @@ def _scores(q: torch.Tensor, k: torch.Tensor, scale: float, bf16_dots: bool):
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               causal: bool, scale: float, q_offset: int = 0,
-                              k_offset: int = 0, bf16_dots: bool = False
+                              k_offset: int = 0, bf16_dots: bool = False,
+                              out_dtype: Optional[torch.dtype] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward kernel: (out [b, lq, h, d] in q's dtype,
-    lse [b, h, lq] f32). The row max and sum follow the kernel's formulas
-    (masked entries -1e30 and p zeroed there, ``l == 0`` gives zeros and
-    ``lse = -1e30``) over the whole row at once."""
+    """Plain version of the forward kernel: (out [b, lq, h, d] in
+    ``out_dtype``, q's by default, lse [b, h, lq] f32). The row max and sum
+    follow the kernel's formulas (masked entries -1e30 and p zeroed there,
+    ``l == 0`` gives zeros and ``lse = -1e30``) over the whole row at once."""
     s = _scores(q, k, scale, bf16_dots)
     mask = _visible(q.shape[1], k.shape[1], causal, q_offset, k_offset, q.device)
     if mask is not None:
@@ -125,7 +136,7 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ctx = torch.einsum("bhqk,bkhd->bhqd", _dot_operand(p, bf16_dots),
                        _dot_operand(v, bf16_dots)) / l_safe
     lse = torch.where(l == 0.0, torch.full_like(l, NEG_BIG), m + torch.log(l_safe))
-    return ctx.transpose(1, 2).to(q.dtype), lse[..., 0]
+    return ctx.transpose(1, 2).to(_out_dtype(q, out_dtype)), lse[..., 0]
 
 
 def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -157,6 +168,41 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # -- kernels -----------------------------------------------------------------
 
+def _out_dtype(q: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The forward's output dtype: q's by default, or f32."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return q.dtype
+    if out_dtype != torch.float32:
+        raise ValueError(f"flash_attention: out_dtype must be q's dtype ({q.dtype}) or "
+                         f"torch.float32, got {out_dtype}")
+    return out_dtype
+
+
+def kernel_width(d: int) -> int:
+    """The narrowest kernel head_dim in ``HEAD_DIMS`` that holds ``d``;
+    raises for ``d`` above the widest (128)."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"flash_attention: head_dim {d} is above the kernels' limit of "
+                     f"{HEAD_DIMS[-1]}")
+
+
+def padded_head_dim(fn, *tensors: torch.Tensor):
+    """``fn(*tensors)`` at a kernel width: every 4-D tensor [b, l, h, d]
+    zero-padded on its last axis to ``kernel_width(d)``, and every 4-D
+    result sliced back to ``d`` (3-D ones, lse, pass through). Zero columns
+    add exact zeros to each score, ``delta`` and gradient, so the results
+    are those at ``d``; ``fn`` must take the scale of the unpadded ``d``.
+    The kernels' path calls it; the CPU tests run it on the plain versions."""
+    d = tensors[0].shape[-1]
+    width = kernel_width(d)
+    if width == d:
+        return fn(*tensors)
+    results = fn(*(F.pad(t, (0, width - d)) if t.dim() == 4 else t for t in tensors))
+    return tuple(r[..., :d].contiguous() if r.dim() == 4 else r for r in results)
+
+
 def _check_cuda(q: torch.Tensor, *others: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError("flash_attention: tensors must lie on the CPU (plain "
@@ -167,8 +213,7 @@ def _check_cuda(q: torch.Tensor, *others: torch.Tensor) -> None:
         if t.device != q.device:
             raise ValueError(f"flash_attention: all tensors must be on {q.device}, "
                              f"got one on {t.device}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    kernel_width(q.shape[-1])
     k, v = others[:2]
     if (k.dim() != 4 or v.shape != k.shape
             or (k.shape[0], *k.shape[2:]) != (q.shape[0], *q.shape[2:])):
@@ -193,28 +238,42 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def _shape_args(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
                 q_offset: int, k_offset: int, bf16_dots: bool):
+    """The kernels' arguments after the tensors; ``d`` must be in ``HEAD_DIMS``."""
     b, lq, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernels take head_dim in {HEAD_DIMS}, "
+                         f"got {d} (flash_attention_fwd/_bwd pad it)")
     return (int(q.dtype == torch.bfloat16), b, lq, k.shape[1], h, d, float(scale),
             int(causal), int(q_offset), int(k_offset), int(bf16_dots))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, scale: float, q_offset: int = 0, k_offset: int = 0,
-                        bf16_dots: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                        bf16_dots: bool = False, out_dtype: Optional[torch.dtype] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) through ``flash_fwd``; the plain version for CPU tensors.
-    Replaces the Pallas ``_fwd_kernel`` of ``kubeflow_tpu/ops/flash_attention.py``."""
+    ``out`` is in ``out_dtype`` (q's by default, or f32). Replaces the
+    Pallas ``_fwd_kernel`` of ``kubeflow_tpu/ops/flash_attention.py``."""
     kw = dict(causal=causal, scale=scale, q_offset=q_offset, k_offset=k_offset,
               bf16_dots=bf16_dots)
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, **kw)
+        return flash_attention_fwd_plain(q, k, v, out_dtype=out_dtype, **kw)
     _check_cuda(q, k, v)
+    out_dtype = _out_dtype(q, out_dtype)
     q, k, v = q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous()
+    return padded_head_dim(lambda q, k, v: fwd_kernel(q, k, v, out_dtype, **kw), q, k, v)
+
+
+def fwd_kernel(q, k, v, out_dtype: torch.dtype, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``flash_fwd`` on contiguous CUDA tensors of one dtype and a
+    head_dim in ``HEAD_DIMS``; :func:`flash_attention_fwd` prepares them."""
     b, lq, h, _ = q.shape
     _check_aligned(q, k, v)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), *_shape_args(q, k, **kw))
+            out.data_ptr(), lse.data_ptr(), int(out_dtype == torch.float32),
+            *_shape_args(q, k, **kw))
     return out, lse
 
 
@@ -224,8 +283,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bf16_dots: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) through ``flash_bwd_dq`` then ``flash_bwd_dkv``; the
-    plain version for CPU tensors. Replaces the Pallas ``_bwd_dq_kernel``
-    and ``_bwd_dkv_kernel``."""
+    plain version for CPU tensors. ``out`` may be in any dtype (it enters
+    only ``delta``). Replaces the Pallas ``_bwd_dq_kernel`` and
+    ``_bwd_dkv_kernel``."""
     kw = dict(causal=causal, scale=scale, q_offset=q_offset, k_offset=k_offset,
               bf16_dots=bf16_dots)
     if q.device.type == "cpu":
@@ -235,13 +295,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = q.contiguous(), k.to(dt).contiguous(), v.to(dt).contiguous()
     dout = dout.to(dt).contiguous()
     lse, delta = lse.float().contiguous(), _delta(out, dout)
-    return (bwd_dq_kernel(q, k, v, dout, lse, delta, **kw),
-            *bwd_dkv_kernel(q, k, v, dout, lse, delta, **kw))
+
+    def kernels(q, k, v, dout):
+        return (bwd_dq_kernel(q, k, v, dout, lse, delta, **kw),
+                *bwd_dkv_kernel(q, k, v, dout, lse, delta, **kw))
+    return padded_head_dim(kernels, q, k, v, dout)
 
 
 def bwd_dq_kernel(q, k, v, dout, lse, delta, **kw) -> torch.Tensor:
-    """Launch ``flash_bwd_dq`` on contiguous CUDA tensors of one dtype
-    (lse, delta: [b, h, lq] f32); :func:`flash_attention_bwd` prepares them."""
+    """Launch ``flash_bwd_dq`` on contiguous CUDA tensors of one dtype and a
+    head_dim in ``HEAD_DIMS`` (lse, delta: [b, h, lq] f32);
+    :func:`flash_attention_bwd` prepares them."""
     _check_aligned(q, k, v, dout)
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -8,20 +8,23 @@ key/value blocks travel the ring of the mesh's ``seq`` group. Each of the
 N steps runs the port's flash forward (``ops.flash_attention``, the CUDA
 kernel ``flash_fwd`` on CUDA tensors, its plain version on CPU tensors) on
 the resident block with ``q_offset = idx * Lq`` and ``k_offset = src * Lk``
-for the causal mask by global position, and the blocks' outputs are merged
-by their log-sum-exp in f32. A fully masked causal block (zeros, ``lse =
--1e30``) merges to nothing. The flash forward returns ``out`` in the input
-dtype, so at bf16 each block's output is rounded to bf16 before the f32
-merge, where JAX keeps one f32 accumulator (a bf16 ULP a block, at most N
-of them).
+for the causal mask by global position. Each block's forward returns its
+``out`` in f32 (``out_dtype=torch.float32``: the kernel's accumulator, not
+rounded), the blocks are merged by their log-sum-exp in f32, and the
+global output is rounded to the input dtype once, at the end, as JAX's one
+f32 accumulator is. A fully masked causal block (zeros, ``lse = -1e30``)
+merges to nothing.
 
 The backward is one ``torch.autograd.Function`` that walks the ring again:
 each step calls ``flash_attention_bwd`` (``flash_bwd_dq`` and
-``flash_bwd_dkv``) on the resident block with the **global** ``out`` and
-``lse``, and the dk/dv accumulators (f32) travel with their blocks, home
-after N hops. The message order is fixed by this loop, not by autograd.
-Heads may be split over ``model`` (the caller's local blocks then hold
-``h / model`` heads); attention needs no collective over them.
+``flash_bwd_dkv``) on the resident block with the **global** ``lse`` and
+the global ``out`` in f32, saved before its rounding, so ``delta =
+rowsum(dout * out)`` is taken from the unrounded output, as JAX's autodiff
+through its accumulator takes it. The dk/dv accumulators (f32) travel with
+their blocks, home after N hops. The message order is fixed by this loop,
+not by autograd. Heads may be split over ``model`` (the caller's local
+blocks then hold ``h / model`` heads); attention needs no collective over
+them.
 
 :func:`full_attention` is the single-device exact attention BERT uses by
 default and ``ops.flash_attention.auto_attention`` takes on the CPU.
@@ -49,12 +52,12 @@ def ring_spec(mesh: Mesh, heads: int, axis_name: str = AXIS_SEQ) -> Spec:
 
 
 def _merge(o: torch.Tensor, lse: torch.Tensor, out_i: torch.Tensor, lse_i: torch.Tensor):
-    """Fold a block's (out [b, lq, h, d], lse [b, h, lq]) into the f32
-    running pair; a block with ``lse = -1e30`` adds nothing."""
+    """Fold a block's (out [b, lq, h, d] f32, lse [b, h, lq]) into the
+    f32 running pair; a block with ``lse = -1e30`` adds nothing."""
     new = torch.logaddexp(lse, lse_i)
     a = torch.exp(lse - new).transpose(1, 2)[..., None]
     c = torch.exp(lse_i - new).transpose(1, 2)[..., None]
-    return o * a + out_i.float() * c, new
+    return o * a + out_i * c, new
 
 
 Blocks = Iterable[Tuple[torch.Tensor, torch.Tensor]]
@@ -64,24 +67,25 @@ def ring_forward(q: torch.Tensor, blocks: Blocks, idx: int, n: int, *, causal: b
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Query block ``idx`` of a ring of ``n`` against the k/v blocks that
     ``blocks`` yields at steps 0..n-1 (block ``(idx - i) mod n`` at step
-    i): one flash forward a step, merged by log-sum-exp in f32. Returns
-    (out in q's dtype, lse f32 [b, h, lq])."""
+    i): one flash forward a step with an f32 ``out``, merged by
+    log-sum-exp in f32. Returns (out f32, not rounded, lse f32 [b, h, lq])."""
     b, lq, h, d = q.shape
     o = torch.zeros((b, lq, h, d), dtype=torch.float32, device=q.device)
     lse = torch.full((b, h, lq), NEG_BIG, dtype=torch.float32, device=q.device)
     for i, (k_cur, v_cur) in enumerate(blocks):
         src = (idx - i) % n
         out_i, lse_i = flash_attention_fwd(q, k_cur, v_cur, causal=causal, scale=scale,
-                                           q_offset=idx * lq, k_offset=src * k_cur.shape[1])
+                                           q_offset=idx * lq, k_offset=src * k_cur.shape[1],
+                                           out_dtype=torch.float32)
         o, lse = _merge(o, lse, out_i, lse_i)
-    return o.to(q.dtype), lse
+    return o, lse
 
 
 def ring_backward(q: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                   blocks: Blocks, idx: int, n: int, *, causal: bool, scale: float,
                   on_block: Callable[[int, torch.Tensor, torch.Tensor], None]) -> torch.Tensor:
-    """The backward of :func:`ring_forward` from the global ``out`` and
-    ``lse``: one flash backward a step; ``on_block(src, dk_i, dv_i)`` takes
+    """The backward of :func:`ring_forward` from the global ``out`` (f32,
+    as it returns it) and ``lse``: one flash backward a step; ``on_block(src, dk_i, dv_i)`` takes
     each step's gradient of the resident block. Returns dq (f32)."""
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for i, (k_cur, v_cur) in enumerate(blocks):
@@ -111,9 +115,10 @@ class _RingAttention(torch.autograd.Function):
         n, idx = dist.get_world_size(group), dist.get_rank(group)
         out, lse = ring_forward(q, _rotating(k, v, group, n), idx, n, causal=causal,
                                 scale=scale)
+        # the f32 out is the backward's; the caller's is rounded once, here
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.group, ctx.causal, ctx.scale = group, causal, scale
-        return out
+        return out.to(q.dtype)
 
     @staticmethod
     def backward(ctx, dout):

@@ -251,10 +251,10 @@ def autotune_gpt_quick(steps: int = 2, device: DeviceLike = "cuda") -> AutotuneR
     """The GPT sweep at toy shape (d 32, 2 layers, 2 heads, batch 2 x 32,
     SGD): remat x scan_blocks, priced by the candidate's own train step on
     meta tensors (remat's recompute shows in its FLOPs), measured with real
-    steps on ``device``. The toy's head_dim 16 is below the flash kernels'
-    smallest (32), so its attention is the plain causal attention on every
-    device; the bench sweep (``training/gpt.py`` ``autotune=True``) runs
-    the kernels.
+    steps on ``device``. The measured build is ``GptLM``'s default, the
+    causal flash attention (the kernels at head_dim 16 on the card, their
+    plain versions on the CPU), as JAX's; the priced build on meta tensors
+    takes the plain causal attention, since the kernels do not run there.
 
     In an initialized ``torch.distributed`` world of more than one rank
     (every rank calls this), the grid is :func:`gpt_quick_candidates` of
@@ -278,8 +278,7 @@ def autotune_gpt_quick(steps: int = 2, device: DeviceLike = "cuda") -> AutotuneR
         if torch.device(where).type == "meta":
             model = GptLM(cfg, device="meta", attention_fn=causal_plain_attention)
         else:
-            model = GptLM.trainable(cfg, init_params(cfg, seed=0, device=where),
-                                    attention_fn=causal_plain_attention)
+            model = GptLM.trainable(cfg, init_params(cfg, seed=0, device=where))
         ids = torch.zeros(batch, seq, dtype=torch.int64, device=where)
         opt = torch.optim.SGD(model.parameters(), lr=1e-2)
 

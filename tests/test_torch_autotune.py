@@ -138,6 +138,29 @@ def test_quick_sweeps_run_on_cpu(quick_fn, family):
             c.est_seconds for c in result.candidates)
 
 
+def test_quick_gpt_measures_through_the_flash_attention(monkeypatch):
+    """The quick GPT sweep's measured build is ``GptLM``'s default,
+    ``causal_flash_attention``, as JAX's ``GptLM(cfg)``: every layer's
+    forward reaches the flash wrapper (its plain version on CPU tensors,
+    the kernels on the card); only the priced build on meta tensors takes
+    the plain attention."""
+    from kubeflow_tpu_torch.ops import flash_attention as tfa
+
+    seen = []
+    real = tfa.flash_attention_fwd
+
+    def spy(q, *args, **kw):
+        seen.append((q.device.type, q.shape[-1]))
+        return real(q, *args, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention_fwd", spy)
+    result = autotune_gpt_quick(steps=1, device="cpu")
+    measured = [c for c in result.candidates if c.measured_seconds is not None]
+    # a warm-up and one timed step a measured candidate, 2 layers each
+    assert len(seen) >= 2 * 2 * len(measured) > 0
+    assert set(seen) == {("cpu", 16)}
+
+
 def test_quick_sweeps_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable")

@@ -42,3 +42,13 @@ def test_every_phase_trained(summary):
     assert c["loss_b"] < c["loss_a"] + 1e-3
     assert sorted(c["parity"]) == ["gpipe_eager", "gpipe_overlap", "interleaved_eager"]
     assert c["max_dloss"] <= 1e-5 * max(1.0, c["parity"]["gpipe_eager"])
+
+
+def test_bert_is_jaxs_tiny_config(summary):
+    """The dry run's BERT is ``BertConfig.tiny()`` as JAX's dry run builds
+    it: 4 heads of 16 (the flash kernels' head_dim 16 on the card)."""
+    from kubeflow_tpu.models.bert import BertConfig as JBertConfig
+
+    jcfg = JBertConfig.tiny()
+    bert = summary["bert"]
+    assert (bert["heads"], bert["head_dim"]) == (jcfg.num_heads, jcfg.head_dim) == (4, 16)

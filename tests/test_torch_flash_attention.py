@@ -15,6 +15,10 @@ to bf16 (one ULP at magnitude ~2 is 0.0156), so 2e-2 as test_bf16_inputs
 uses. ``bf16_dots=True``: every dot operand is rounded to bf16 in both;
 with a single JAX tile (L <= 128) the formulas are the same, so only f32
 sum order differs, which can move a bf16 rounding of p by one ULP: 1e-3.
+
+Head dims: the ``*_d16`` cases run the kernels' narrowest width (BERT-tiny's
+and GPT-tiny's); other widths go through ``padded_head_dim``, held against
+JAX at d 8, 24 and 80 in f32 (1e-5).
 """
 
 import functools
@@ -59,6 +63,9 @@ CASES = {
     "q_offset_all_visible": (1, 64, 64, 2, 32, True, 64, 0, 32),
     "k_offset_partly_masked": (1, 128, 128, 1, 32, True, 0, 64, 64),
     "k_offset_fully_masked": (1, 64, 64, 1, 32, True, 0, 640, 64),
+    "causal_d16": (1, 128, 128, 4, 16, True, 0, 0, 64),
+    "lq_ne_lk_d16": (2, 64, 128, 2, 16, False, 0, 0, 64),
+    "k_offset_partly_masked_d16": (1, 128, 128, 2, 16, True, 0, 64, 64),
 }
 
 
@@ -111,7 +118,9 @@ def test_fully_masked_rows_give_zeros_and_neg_big_lse():
     assert (lse[:, :, :32] == tfa.NEG_BIG).all() and (lse[:, :, 32:] > -1e3).all()
 
 
-@pytest.mark.parametrize("case", ["causal", "lq_ne_lk", "k_offset_partly_masked"])
+@pytest.mark.parametrize("case", ["causal", "lq_ne_lk", "k_offset_partly_masked",
+                                  "causal_d16", "lq_ne_lk_d16",
+                                  "k_offset_partly_masked_d16"])
 def test_raw_backward_matches_jax_bwd(case):
     b, lq, lk, h, d, causal, qo, ko, blk = CASES[case]
     (q, k, v, do), (_, _, want) = _jax_reference(case)
@@ -137,7 +146,7 @@ def _torch_grads(q, k, v, dtype, **kw):
 
 
 @pytest.mark.parametrize("case", ["causal", "lq_ne_lk", "k_offset_partly_masked",
-                                  "q_offset_all_visible"])
+                                  "q_offset_all_visible", "causal_d16", "lq_ne_lk_d16"])
 def test_gradients_through_the_function_match_jax_grad(case):
     b, lq, lk, h, d, causal, qo, ko, blk = CASES[case]
     q, k, v = _qkv(4, b, lq, lk, h, d)
@@ -202,6 +211,65 @@ def test_cpu_path_counts_no_launch_and_other_devices_are_refused():
         tfa.flash_attention_fwd(meta, meta, meta, causal=True, scale=1.0)
 
 
+@pytest.mark.parametrize("d", [8, 24, 80])
+def test_padded_head_dim_matches_jax(d):
+    """Widths the kernels are not built for run zero-padded to the next of
+    ``HEAD_DIMS`` (16, 32, 128) with the scale of the unpadded d: the
+    forward and backward through ``padded_head_dim`` (on the plain versions
+    here, on the kernels on the card) against JAX's interpret-mode kernels
+    at d itself, f32, within 1e-5."""
+    b, lq, lk, h, causal, blk = 1, 128, 128, 2, True, 64
+    q, k, v = _qkv(23, b, lq, lk, h, d)
+    do = np.random.default_rng(24).normal(size=(b, lq, h, d)).astype(np.float32)
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=0, k_offset=0)
+
+    def run(q, k, v, do):
+        out, lse = jfa._fwd(q, k, v, block_q=blk, block_k=blk, interpret=True, **kw)
+        return out, lse, jfa._bwd(q, k, v, out, lse, do, block_q=blk, block_k=blk,
+                                  interpret=True, **kw)
+    jout, jlse, want = jax.tree.map(np.asarray, jax.jit(run)(*_j(q, k, v, do)))
+
+    widths = []
+
+    def fwd(q, k, v):
+        widths.append(q.shape[-1])
+        return tfa.flash_attention_fwd_plain(q, k, v, **kw)
+
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    out, lse = tfa.padded_head_dim(fwd, tq, tk, tv)
+    grads = tfa.padded_head_dim(
+        lambda q, k, v, o, do: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+        tq, tk, tv, out, tdo)
+    assert widths == [tfa.kernel_width(d)] and out.shape == (b, lq, h, d)
+    np.testing.assert_allclose(out.numpy(), jout, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), jlse[..., 0], atol=1e-5, rtol=0)
+    for g, w, name in zip(grads, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_kernel_width_pads_up_to_128_and_refuses_wider():
+    assert [tfa.kernel_width(d) for d in (1, 8, 16, 24, 32, 48, 64, 80, 128)] == \
+        [16, 16, 16, 32, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="head_dim 160 is above the kernels' limit of 128"):
+        tfa.kernel_width(160)
+
+
+def test_f32_out_rounds_to_the_bf16_out_bit_for_bit():
+    """``out_dtype=torch.float32`` on bf16 inputs gives the unrounded output:
+    rounded to bf16 it is the default output, bit for bit; lse is the same.
+    Any other out_dtype than q's or f32 is refused."""
+    q, k, v = _t(*_qkv(25, 2, 96, 80, 2, 16), dtype=torch.bfloat16)
+    kw = dict(causal=True, scale=0.25, q_offset=16)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    out32, lse32 = tfa.flash_attention_fwd(q, k, v, out_dtype=torch.float32, **kw)
+    assert out.dtype == torch.bfloat16 and out32.dtype == torch.float32
+    assert torch.equal(out32.to(torch.bfloat16), out) and torch.equal(lse32, lse)
+    assert not torch.equal(out32, out.float())  # the f32 out is not a widened bf16 one
+    with pytest.raises(ValueError, match="out_dtype"):
+        tfa.flash_attention_fwd(q, k, v, out_dtype=torch.float16, **kw)
+
+
 def test_plain_function_matches_the_wrapper_on_the_cpu():
     q, k, v = _t(*_qkv(9, 2, 48, 80, 2, 32))
     for causal in (True, False):
@@ -222,7 +290,8 @@ def test_kernels_match_plain_on_the_card():
         for (b, lq, lk, h, d, causal, qo, ko) in [(2, 100, 100, 2, 64, True, 0, 0),
                                                   (1, 64, 200, 3, 32, False, 0, 0),
                                                   (1, 130, 70, 1, 128, True, 60, 0),
-                                                  (1, 64, 64, 2, 64, True, 0, 640)]:
+                                                  (1, 64, 64, 2, 64, True, 0, 640),
+                                                  (2, 100, 130, 4, 16, True, 0, 0)]:
             q, k, v = (x.cuda().to(dtype) for x in _t(*_qkv(10, b, lq, lk, h, d)))
             do = torch.randn(b, lq, h, d, device="cuda").to(dtype)
             kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko)
@@ -347,7 +416,7 @@ def test_hi_lo_split_is_within_two_to_the_minus_16():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16_dots", [False, True])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_tensor_core_kernels_match_plain_on_the_card(d, bf16_dots):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv on bf16 (the mma kernels)
     against their plain versions at toy shapes with ragged lengths and
@@ -448,7 +517,7 @@ def test_split_rounds_to_the_f32_answer_where_hi_alone_does_not():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_split_rounds_to_the_f32_answer_on_the_card(d):
     """The kernels themselves (out, dq, dk, dv) under the same bound:
     bf16_dots off (hi + lo) within 2% of elements off the f32 answer rounded
@@ -471,3 +540,54 @@ def test_split_rounds_to_the_f32_answer_on_the_card(d):
         for name, x, ref in (("out", out, ref_out), ("dq", dq, ref_dq), ("dk", dk, ref_dk),
                              ("dv", dv, ref_dv)):
             assert check(_share_off_bf16(x, ref)), (name, bf16_dots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 24, 80])
+def test_padded_head_dims_match_plain_on_the_card(d, dtype):
+    """d 8, 24 and 80 through the kernels at 16, 32 and 128 against the plain
+    versions at d itself (f32 1e-4, bf16 2e-2; lse 1e-3); the results keep
+    width d; one launch of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    q, k, v = (x.cuda().to(dtype) for x in _t(*_qkv(26, 2, 100, 130, 2, d)))
+    do = torch.randn(2, 100, 2, d, device="cuda").to(dtype)
+    kw = dict(causal=True, scale=d ** -0.5, q_offset=30, k_offset=0)
+    tfa.reset_launches()
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    p_out, p_lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+    p_grads = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert (out.float() - p_out.float()).abs().max() <= atol
+    assert (lse - p_lse).abs().max() <= 1e-3
+    for g, p in zip(grads, p_grads):
+        assert g.shape == p.shape and (g.float() - p.float()).abs().max() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 80])
+def test_f32_out_rounds_to_the_bf16_out_on_the_card(d):
+    """The tensor-core forward's f32 out, rounded to bf16, is its bf16 out
+    bit for bit (one accumulator), lse the same; under bf16_dots too; and it
+    is within 1e-4 of the plain f32 answer on the same bf16 values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (x.cuda().to(torch.bfloat16) for x in _t(*_qkv(27, 2, 200, 200, 3, d)))
+    for bf16_dots in (False, True):
+        kw = dict(causal=True, scale=d ** -0.5, bf16_dots=bf16_dots)
+        out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+        out32, lse32 = tfa.flash_attention_fwd(q, k, v, out_dtype=torch.float32, **kw)
+        assert out32.dtype == torch.float32
+        assert torch.equal(out32.to(torch.bfloat16), out) and torch.equal(lse32, lse)
+    ref, _ = tfa.flash_attention_fwd_plain(q.float(), k.float(), v.float(), causal=True,
+                                           scale=d ** -0.5)
+    out32, _ = tfa.flash_attention_fwd(q, k, v, causal=True, scale=d ** -0.5,
+                                       out_dtype=torch.float32)
+    assert (out32 - ref).abs().max() <= 1e-4
