@@ -170,7 +170,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              through the plain attention (no launch): finite losses, step-1
              losses within 0.02, trajectories within 0.05, falling loss; step
              ms, tokens/s, peak memory, the counted and the bench's analytic
-             FLOPs, mfu and the step breakdown;
+             FLOPs, mfu and the step breakdown; the kernel run's per-step
+             ``attribution`` row held as 22a holds the bench's;
 11. train_profile — host ms of unprofiled train steps, then one step under
              torch.profiler: device-busy share, top kernels, the flash
              kernels' share of the step (every one of their launches seen);
@@ -193,7 +194,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              launch; losses within 1e-2 at step 1 and 5e-2 over the run), and
              4 steps of the unfused model as a yardstick; step ms, images/s,
              peak memory, the counted (an unfused step) and the bench's
-             analytic FLOPs, mfu and the step breakdown;
+             analytic FLOPs, mfu and the step breakdown; the kernel run's
+             per-step ``attribution`` row held as 22a holds the bench's;
 15. resnet_profile — one ResNet-50 step under torch.profiler: device-busy
              share, top kernels, the fused-block kernels' share (all 16 of
              their launches seen, by the names of phase 12);
@@ -266,22 +268,40 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              GFLOP and TF/s (unfused blocks, no fused-block launch);
 19g. conv_experiments — the 14 convolution-ceiling probes at their full
              shapes, 4 timed calls of 8 chained steps each: TF/s;
-19h. autotune_attribution — the bench rows of ``bench.py``: ResNet-50 at
-             batch 256 with ``fused_blocks="auto"`` (both candidates
-             measured, 4 + 1 steps each: ``fused_bottleneck`` 12 and
-             ``fused_transition`` 4 a step of the fused one, none of the
-             unfused one; the choice printed beside the prediction, then 4
-             steps of the winner), GPT at ``bench_config(1024)``, b 8, with
-             ``autotune=True`` (remat off and on priced on meta tensors,
-             remat pruned, the other measured at 24 launches of each flash
-             kernel a step, then 4 steps of the choice); each run's
-             ``attribution`` row held to the report rebuilt from its clock
-             (fractions sum to 1 within 1e-6, phases rebuild the step
-             within 5%), its ``compute`` to the CUDA events around that
-             phase (within 5%) and its walk's FLOPs to the loop's counted
-             step (within 3% ResNet, 8% GPT); the fused ResNet walk at 224 x 224 covers 16/16 bottlenecks with
-             only the stem and the head unfused; then the attribution
-             driver's four checks on the card;
+19h. autotune_attribution — the attribution driver's four checks on the
+             card (the bench rows' sweeps run in 22a);
+22a. bench — ``kubeflow_tpu_torch.bench``'s five rows at full width and
+             cut depth: ``run_resnet`` (batch 256 of 224², the s2d stem,
+             ``fused_blocks="auto"``: both candidates measured, 4 + 1
+             steps each, ``fused_bottleneck`` 12 and ``fused_transition`` 4
+             a step of the fused one and none of the unfused one; the
+             choice printed beside the prediction; then a warm-up window
+             and 2 timed windows of 4 steps, each from the same restored
+             state (their last losses within 1e-4 of each other,
+             relative), launches a step of the choice) and ``run_gpt`` (b 8 x
+             1024, ``autotune=True``: remat off and on priced on meta
+             tensors, remat pruned, the other measured at 24 launches of
+             each flash kernel a step; then the counted step and 3
+             windows of 4 steps, the timed ones' last losses as ResNet's);
+             both rows go through ``training/{resnet,gpt}.py``
+             ``prepare``, the sweep and setup ``train()`` runs; each
+             ``attribution`` row held to the
+             report rebuilt from its clock (fractions sum to 1 within
+             1e-6, phases rebuild the window within 5%), its ``compute``
+             to the CUDA events around that phase (within 5%) and its
+             walk's FLOPs to the row's counted step (within 3% ResNet, 8%
+             GPT); the fused ResNet walk at 224 x 224 covers 16/16
+             bottlenecks with only the stem and the head unfused; the
+             serving row assembled by ``bench.serving_row`` from 19e's
+             four passes (no extra pass); ``run_hpo`` at 4 MNIST trials,
+             2 at once, median stopping on (a study this small prunes no
+             trial, so the pruning path is held only by the CPU tests);
+             on a one-rank NCCL world (its own process) the multichip row
+             at JAX's defaults, 2 steps, 1 window, held also by the dry
+             run's assertions (``entry.check_timed_row``). Every row
+             without ``error``, with ``bench.py``'s key set, ``value > 0``
+             and ``platform`` "gpu", is printed, then the summary line.
+             Runs after 19g, before 19h;
 19i. moe  — GPT-small with JAX's MoE fields (8 experts, top-2; seeded
              weights) served paged by the engine (8 slots) with the 8
              prompts, 32 new tokens each, admitted as one wave
@@ -374,7 +394,7 @@ distillation's flash launches, the fleet replicas' KV writes), as are
 phase 19b's fused-block launches (both of its runs), phase 19d's flash
 launches and phase 19e's KV and flash launches (BERT's, the engine
 pass's, distillation's, the spec draft's and the fleet's decode pool's)
-phase 19h's fused-block and flash launches (its sweeps' candidates and
+phase 22a's fused-block and flash launches (its sweeps' candidates and
 runs), phase 19i's KV and flash launches (its kernel runs), phase 19j's
 flash launches (the block steps' checked run and the one-rank ring),
 phase 21a's flash launches (its four paths) and
@@ -2549,10 +2569,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 8
 
 def train_phase(card: str):
     """The bench's GPT train step at full width through the kernels, then
-    through the plain attention from the same weights. Returns the flash
-    kernels' launches of the kernel run."""
+    through the plain attention from the same weights. The kernel run's
+    per-step ``attribution`` row is held by :func:`check_attribution`.
+    Returns the flash kernels' launches of the kernel run."""
     from kubeflow_tpu_torch.models.gpt import causal_plain_attention
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.training.attribution import attribute_gpt
+    from kubeflow_tpu_torch.training.flops import detect_generation
     from kubeflow_tpu_torch.training.gpt import bench_config, train
 
     cfg = bench_config(TRAIN_SEQ)
@@ -2562,9 +2585,10 @@ def train_phase(card: str):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kw = {} if attn is None else {"attention_fn": attn}
+        clock = EventClock()
         fa.reset_launches()
         res = train(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, seed=0,
-                    device="cuda", **kw)
+                    device="cuda", clock=clock, **kw)
         launches = dict(fa.LAUNCHES)
         losses = res["losses"]
         steady = float(np.median(res["step_ms"][1:]))
@@ -2587,6 +2611,9 @@ def train_phase(card: str):
             raise AssertionError(f"train {label}: launches {launches}, expected {want} each")
         if attn is None:
             kernel_launches = launches
+            gen = detect_generation("cuda")
+            check_attribution("gpt", card, res, clock, attribute_gpt(
+                cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, generation=gen), gen, phase="train")
     lk, lp = runs["kernel"]["losses"], runs["plain"]["losses"]
     first, worst = abs(lk[0] - lp[0]), max(abs(a - c) for a, c in zip(lk, lp))
     if not (first <= 0.02 and worst <= 0.05):
@@ -2870,9 +2897,12 @@ def resnet_train_phase(card: str):
     224, s2d stem, SGD-momentum), 8 steps through the kernels, then the same
     8 steps from the same weights through the kernels' plain versions, then
     4 steps of the unfused model (batch-stat BatchNorm through cuDNN; a
-    different function, timed only). Returns the kernels' launches of the
-    kernel run."""
+    different function, timed only). The kernel run's per-step
+    ``attribution`` row is held by :func:`check_attribution`. Returns the
+    kernels' launches of the kernel run."""
     from kubeflow_tpu_torch.ops import fused_bottleneck as fb
+    from kubeflow_tpu_torch.training.attribution import attribute_resnet
+    from kubeflow_tpu_torch.training.flops import detect_generation
     from kubeflow_tpu_torch.training.resnet import bench_config, train
 
     cfg = bench_config()
@@ -2883,8 +2913,9 @@ def resnet_train_phase(card: str):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        clock = EventClock()
         fb.reset_launches()
-        res = train(cfg, steps=steps, seed=0, device="cuda", **kw)
+        res = train(cfg, steps=steps, seed=0, device="cuda", clock=clock, **kw)
         launches = dict(fb.LAUNCHES)
         losses = res["losses"]
         steady = float(np.median(res["step_ms"][1:]))
@@ -2906,6 +2937,11 @@ def resnet_train_phase(card: str):
             raise AssertionError(f"resnet_train {label}: launches {launches}, expected {want}")
         if label == "kernel":
             kernel_launches = launches
+            gen = detect_generation("cuda")
+            check_attribution("resnet", card, res, clock, attribute_resnet(
+                batch=cfg.batch, image=cfg.image, num_classes=cfg.num_classes, stem=cfg.stem,
+                fused_blocks=True, stage_sizes=tuple(cfg.stage_sizes),
+                num_filters=cfg.num_filters, generation=gen), gen, phase="resnet_train")
     lk, lp = runs["kernel"]["losses"], runs["plain"]["losses"]
     first, worst = abs(lk[0] - lp[0]), max(abs(a - c) for a, c in zip(lk, lp))
     if not (lk[0] == lk[1] and first <= 1e-2 and worst <= 5e-2):
@@ -3282,20 +3318,22 @@ def serving_bench_phase(card: str, device: str = "cuda") -> dict:
     continuous and spec tokens held to the static path's (``near_tie``).
     (4) The fleet: every request "ok", one KV import a request,
     ``kv_block_update_quant_pair`` 24 a decode step on the decode pool.
-    Every row printed. Returns the kernels' launches of (1), (3) and (4)."""
+    Every row printed. Returns the kernels' launches of (1), (3) and (4),
+    and the four passes' rows (for 22a's serving row)."""
     from kubeflow_tpu_torch.e2e import serving_bench as sb
     from kubeflow_tpu_torch.models.gpt import GptConfig
     from kubeflow_tpu_torch.runtime.metrics import METRICS
 
     n_layers = GptConfig.base().n_layers
     totals: Counter = Counter()
+    passes = {}
 
     # (1) BERT-base predict over HTTP
     batches = (1, 8, 32)
     METRICS.reset()
     w = LaunchWindow()
     t0 = time.perf_counter()
-    rows = sb.bench_bert_http(batches, SB_BERT_REQUESTS, device=device)
+    rows = passes["bert"] = sb.bench_bert_http(batches, SB_BERT_REQUESTS, device=device)
     c = w.take()
     for r in rows:
         emit(phase="serving_bench", metric="bert_base_predict_http", card=card,
@@ -3312,7 +3350,7 @@ def serving_bench_phase(card: str, device: str = "cuda") -> dict:
 
     # (2) static decoding
     t0 = time.perf_counter()
-    rows = sb.bench_gpt_decode(new_tokens=SB_DECODE_NEW, device=device)
+    rows = passes["decode"] = sb.bench_gpt_decode(new_tokens=SB_DECODE_NEW, device=device)
     c = w.take()
     for r in rows:
         emit(phase="serving_bench", metric="gpt_medium_kv_decode", card=card,
@@ -3327,9 +3365,10 @@ def serving_bench_phase(card: str, device: str = "cuda") -> dict:
     w = LaunchWindow()
     seen = {}
     t0 = time.perf_counter()
-    row = sb.bench_continuous(n_requests=SB_REQUESTS, budgets=SB_BUDGETS,
-                              distill_steps=SB_DISTILL_STEPS, device=device, observe=lambda stage, info: seen.__setitem__(
-                                  stage, (info, w.take(), time.perf_counter())))
+    row = passes["continuous"] = sb.bench_continuous(
+        n_requests=SB_REQUESTS, budgets=SB_BUDGETS, distill_steps=SB_DISTILL_STEPS,
+        device=device, observe=lambda stage, info: seen.__setitem__(
+            stage, (info, w.take(), time.perf_counter())))
     emit(phase="serving_bench", metric="gpt_continuous_batching", card=card, **row)
     static, c, _ = seen["static"]
     expect_none("serving_bench_static", c)
@@ -3369,8 +3408,9 @@ def serving_bench_phase(card: str, device: str = "cuda") -> dict:
     w = LaunchWindow()
     seen = {}
     t0 = time.perf_counter()
-    row = sb.bench_disagg(n_requests=SB_DISAGG_REQUESTS, budget=SB_DISAGG_BUDGET,
-                          device=device, observe=lambda stage, info: seen.__setitem__(stage, info))
+    row = passes["disagg"] = sb.bench_disagg(
+        n_requests=SB_DISAGG_REQUESTS, budget=SB_DISAGG_BUDGET, device=device,
+        observe=lambda stage, info: seen.__setitem__(stage, info))
     c = w.take()
     emit(phase="serving_bench", metric="decode_tok_s_heterogeneous", card=card,
          value=row["decode_tok_s_heterogeneous"], **row)
@@ -3386,7 +3426,7 @@ def serving_bench_phase(card: str, device: str = "cuda") -> dict:
          requests=len(reqs), kv_imports=imports, launches=c)
     del seen, reqs
     cleanup()
-    return dict(totals)
+    return dict(totals), passes
 
 
 #: phase 19f's timed steps a tower [20]; phase 19g's timed calls a probe [20]
@@ -3431,21 +3471,55 @@ def conv_experiments_phase(card: str, device: str = "cuda") -> None:
     cleanup()
 
 
-#: phase 19h's steps of each bench run; its sweeps measure max(4, min(10, n))
-#: ResNet and max(2, min(4, n)) GPT steps a candidate, after a warm-up step
-AT_STEPS = 4
-#: the prediction phase 19h prints beside the ResNet sweep's choice: the fused
+#: phase 22a: timed steps a window and timed windows of the ResNet and GPT
+#: rows (bench.py: 50 and 3; its warm-up window is as long); the sweeps
+#: measure max(4, min(10, n)) ResNet and max(2, min(4, n)) GPT steps a
+#: candidate, after a warm-up step
+BENCH_STEPS, BENCH_REPEATS = 4, 2
+#: phase 22a: the timed windows' last losses, relative to the first's. Each
+#: window restarts from one snapshot, so they differ only by cuDNN's
+#: non-deterministic weight gradients (phase 20a saw 1.53e-5 in a ResNet-50
+#: loss of ~7 before it pinned cuDNN); 4 more steps move the loss by ~0.1
+BENCH_WINDOW_LOSS_TOL = 1e-4
+#: phase 22a: the HPO row's trials and trials at once (bench.py: 16 and 4)
+BENCH_HPO_TRIALS, BENCH_HPO_PARALLEL = 4, 2
+#: phase 22a: the multichip row's steps and windows (bench.py: 5 and 3)
+BENCH_MC_STEPS, BENCH_MC_REPEATS = 2, 1
+#: the keys of bench.py's rows (``_run_resnet``, ``_run_gpt``,
+#: ``_run_serving``, ``_run_hpo``, ``_run_multichip``), which the port's
+#: rows carry exactly
+BENCH_ROW_KEYS = {
+    "resnet": {"metric", "value", "unit", "vs_baseline", "images_per_sec_per_chip", "batch",
+               "window_mfus", "fused_blocks", "fused_calibration", "autotune",
+               "step_breakdown", "peak_hbm_bytes", "attribution", "platform"},
+    "gpt": {"metric", "value", "unit", "vs_baseline", "tokens_per_sec_per_chip", "batch", "seq",
+            "window_mfus", "scan_blocks", "remat", "fused_loss", "autotune", "step_breakdown",
+            "peak_hbm_bytes", "attribution", "platform"},
+    "serving": {"metric", "value", "unit", "vs_baseline", "bert_http_p50_ms_b8",
+                "bert_http_rows", "decode_rows", "continuous_batching", "ttft_p50", "ttft_p99",
+                "queue_wait_p99", "spec_accept_rate", "disagg", "decode_tok_s_heterogeneous",
+                "kv_handoff_p99_s", "platform"},
+    "hpo": {"metric", "value", "unit", "vs_baseline", "trials", "trials_succeeded",
+            "trials_pruned", "elapsed_seconds", "best_accuracy", "platform"},
+    "multichip": {"metric", "value", "unit", "vs_baseline", "scaling_efficiency",
+                  "tokens_per_sec_1chip", "n_devices", "mesh", "virtual_stages", "gather_mode",
+                  "num_micro", "microbatch", "bubble_fraction", "bubble_fraction_gpipe",
+                  "comm_bytes_per_step", "loss", "step_breakdown", "peak_hbm_bytes",
+                  "attribution", "platform"},
+}
+#: the prediction phase 22a prints beside the ResNet sweep's choice: the fused
 #: step 385.2 ms against 246.9 ms unfused (PERF.md §5; H100 80GB HBM3, 700 W)
 AT_PREDICTED = {"fused_blocks": False}
-#: phase 19h: a run's clocked ``compute`` (host, ending at the synchronize)
-#: against CUDA events recorded at its two ends, per step on average
+#: phases 22a, train and resnet_train: a row's clocked ``compute`` (host,
+#: ending at the synchronize) against CUDA events recorded at its two ends,
+#: per clock record (a window, a step) on average
 AT_EVENT_TOL = 0.05
-#: phase 19h: the attribution walk's train-step FLOPs against the loop's
+#: phases 22a, train and resnet_train: the attribution walk's train-step FLOPs against the row's
 #: counted ``flops_per_step``. On meta tensors at the bench shapes the walk
-#: is 1.0126x the loop's count for ResNet-50 (3 x the forward against the
-#: real backward, which skips the stem's input gradient) and 1.0576x for
-#: GPT (the walk's plain attention prices the full L x L dots, the loop
-#: the causal 3.5 of them a layer)
+#: is 1.0126x the count for ResNet-50 (3 x the forward against the real
+#: backward, which skips the stem's input gradient) and 1.0576x for GPT
+#: (the walk's plain attention prices the full L x L dots, the count the
+#: causal 3.5 of them a layer)
 AT_FLOPS_TOL = {"resnet": 0.03, "gpt": 0.08}
 
 
@@ -3485,13 +3559,14 @@ class EventClock:
 
 class LaunchDeltas:
     """Launches of one kernel family between ``observe`` events: each swept
-    candidate's, then the rest of the run's (``take``)."""
+    candidate's, then the rest of the run's (``take``); the sweep's result
+    and the bench's raw ``run`` result."""
 
     def __init__(self, launches: dict) -> None:
         self.launches = launches
         self.base = dict(launches)
         self.candidates = []
-        self.sweep = None
+        self.sweep = self.result = None
 
     def take(self) -> dict:
         now = dict(self.launches)
@@ -3504,17 +3579,22 @@ class LaunchDeltas:
             self.candidates.append({**info, "launches": self.take()})
         elif stage == "sweep":
             self.sweep = info["result"]
+        elif stage == "run":
+            self.result = info["result"]
 
 
-def check_attribution(label: str, card: str, out: dict, clock, costs, generation: str):
-    """The bench row's ``attribution`` against the report rebuilt from the
-    loop's clock (the row's rounded fractions equal; fractions summing to 1
-    within 1e-6 and the measured phases rebuilding the step within 5%,
-    which the clock's ``other`` makes so by construction), then against two
-    measurements made apart from it: the report's ``compute`` seconds
-    against the CUDA events of ``clock`` (an :class:`EventClock`) within
-    ``AT_EVENT_TOL``, and the walk's FLOPs (``costs``) against the loop's
-    counted ``flops_per_step`` within ``AT_FLOPS_TOL``."""
+def check_attribution(label: str, card: str, out: dict, clock, costs, generation: str,
+                      phase: str = "bench"):
+    """A bench row's ``attribution`` (or ``train()``'s, one record a step)
+    against the report rebuilt from the row's clock (the row's rounded
+    fractions equal;
+    fractions summing to 1 within 1e-6 and the measured phases rebuilding
+    the window within 5%, which the clock's ``other`` makes so by
+    construction), then against two measurements made apart from it: the
+    report's ``compute`` seconds against the CUDA events of ``clock`` (an
+    :class:`EventClock`) within ``AT_EVENT_TOL``, and the walk's FLOPs
+    (``costs``) against the row's counted ``flops_per_step`` (``out``: the
+    bench's raw result) within ``AT_FLOPS_TOL``."""
     from kubeflow_tpu_torch.training.attribution import attribution_report
 
     report = attribution_report(costs, clock=clock, generation=generation)
@@ -3524,7 +3604,7 @@ def check_attribution(label: str, card: str, out: dict, clock, costs, generation
     walk = sum(m.flops for m in costs)
     flops_ratio = walk / out["flops_per_step"]
     row = out["attribution"]
-    emit(phase="autotune_attribution", bench=label, card=card, generation=generation,
+    emit(phase=phase, row=label, card=card, generation=generation,
          fractions=report.fractions, measured=report.measured,
          step_seconds=report.step_seconds, fraction_sum=frac, rebuilt_s=rebuilt,
          event_compute_s=event_s, walk_flops=walk, loop_flops=out["flops_per_step"],
@@ -3532,36 +3612,79 @@ def check_attribution(label: str, card: str, out: dict, clock, costs, generation
          top_unfused=[m.name for m in report.top_sinks(5, fused=False)],
          top_fused=[m.name for m in report.top_sinks(5, fused=True)])
     if "error" in row or row["fractions"] != report.to_dict()["fractions"]:
-        raise AssertionError(f"autotune_attribution {label}: attribution row {row}")
+        raise AssertionError(f"{phase} {label}: attribution row {row}")
     if abs(frac - 1.0) > 1e-6 or abs(rebuilt - report.step_seconds) > 0.05 * report.step_seconds:
-        raise AssertionError(f"autotune_attribution {label}: fractions sum {frac}, phases "
+        raise AssertionError(f"{phase} {label}: fractions sum {frac}, phases "
                              f"{rebuilt} s against the step's {report.step_seconds} s")
     compute_s = report.measured["compute"]
     if abs(compute_s - event_s) > AT_EVENT_TOL * event_s:
-        raise AssertionError(f"autotune_attribution {label}: clocked compute {compute_s} s "
+        raise AssertionError(f"{phase} {label}: clocked compute {compute_s} s "
                              f"against the events' {event_s} s")
     if abs(flops_ratio - 1.0) > AT_FLOPS_TOL[label]:
-        raise AssertionError(f"autotune_attribution {label}: walk {walk} FLOP against the "
+        raise AssertionError(f"{phase} {label}: walk {walk} FLOP against the "
                              f"loop's {out['flops_per_step']} ({flops_ratio:.4f}x)")
     return report
 
 
-def autotune_attribution_phase(card: str, device: str = "cuda") -> dict:
-    """Phase 19h: the bench rows of ``bench.py``'s ``_bench`` and
-    ``_bench_gpt``. (1) ResNet-50 at batch 256 with ``fused_blocks="auto"``:
-    both candidates measured (``fused_bottleneck`` 12 and
-    ``fused_transition`` 4 a step of the fused one, none of the unfused
-    one), the choice printed beside the prediction ``AT_PREDICTED``, then
-    ``AT_STEPS`` steps of the winner; its ``attribution`` row held by
-    :func:`check_attribution`; the fused walk at 224 x 224 covers 16/16
-    bottlenecks and leaves only the stem and the head unfused. (2) GPT at
-    ``bench_config(1024)``, b 8, ``autotune=True``: remat off and on priced
-    on meta tensors, remat pruned by price, the other measured (24
-    launches of each flash kernel a step), then the chosen run (24 more for
-    its counted step); its ``attribution`` row held the same way. (3) ``e2e.attribution_driver.run(device)``: its four
-    checks. Returns the fused-block and flash kernels' launches."""
+def autotune_attribution_phase(card: str, device: str = "cuda") -> None:
+    """Phase 19h: ``e2e.attribution_driver.run(device)`` on the card: its
+    four checks (the bench sweeps that were this phase's are 22a's)."""
     from kubeflow_tpu_torch.e2e import attribution_driver
     from kubeflow_tpu_torch.gpu import profiling as prof
+
+    t0 = time.perf_counter()
+    report = attribution_driver.run(device=device)
+    prof._PROFILE_CLOCKS.pop("train", None)
+    emit(phase="autotune_attribution", bench="attribution_driver", card=card, report=report,
+         seconds=time.perf_counter() - t0)
+    if report.get("ok") is not True:
+        raise AssertionError(f"autotune_attribution: driver {report}")
+
+
+def check_window_losses(name: str, losses: list) -> None:
+    """Every timed window restarts from the restored snapshot: the windows'
+    last losses agree within ``BENCH_WINDOW_LOSS_TOL`` of the first's (a
+    window that went on from the one before would have trained
+    ``BENCH_STEPS`` more steps)."""
+    gap = max(abs(v - losses[0]) for v in losses) / abs(losses[0])
+    if len(losses) != BENCH_REPEATS or not gap <= BENCH_WINDOW_LOSS_TOL:
+        raise AssertionError(f"bench {name}: window losses {losses} (relative gap {gap})")
+
+
+def check_row(name: str, row: dict) -> None:
+    """A bench row on the card: no ``error``, bench.py's keys, ``value >
+    0``, ``platform`` "gpu"."""
+    if (row.get("error") or set(row) != BENCH_ROW_KEYS[name] or not row["value"] > 0
+            or row["platform"] != "gpu"):
+        raise AssertionError(f"bench {name}: row {row} (keys expected "
+                             f"{sorted(BENCH_ROW_KEYS[name])})")
+
+
+def bench_phase(card: str, serving: dict, device: str = "cuda") -> dict:
+    """Phase 22a: the port's ``bench`` rows. (1) ``run_resnet`` at batch 256
+    with ``fused_blocks="auto"``: both candidates measured
+    (``fused_bottleneck`` 12 and ``fused_transition`` 4 a step of the fused
+    one, none of the unfused one), the choice printed beside
+    ``AT_PREDICTED``, then the warm-up window and ``BENCH_REPEATS``
+    windows of ``BENCH_STEPS`` steps of the choice (its launches a step),
+    whose last losses agree (:func:`check_window_losses`); its
+    ``attribution`` row held by :func:`check_attribution`; the fused walk at
+    224 x 224 covers 16/16 bottlenecks and leaves only the stem and the head
+    unfused. (2) ``run_gpt`` at b 8 x 1024 with ``autotune=True``: remat off
+    and on priced on meta tensors, remat pruned by price, the other
+    measured (24 launches of each flash kernel a step), then the counted
+    step and the windows (24 a step); its window losses and ``attribution``
+    row held the same way. Both rows set up through ``training/resnet.py``
+    and ``training/gpt.py`` ``prepare``, which ``train()`` runs too. (3)
+    The serving row from 19e's four passes (``serving``). (4) ``run_hpo``
+    at ``BENCH_HPO_TRIALS`` trials, ``BENCH_HPO_PARALLEL`` at once, median
+    stopping on; a study this small prunes no trial (nor do 6 or 8 at 2 at
+    once on the CPU), so the pruning path is left to the CPU tests. (5)
+    ``run_multichip`` on one NCCL rank at JAX's defaults. Each row held by
+    :func:`check_row` (the multichip row also by the dry run's
+    ``entry.check_timed_row``) and printed, then the summary line. Returns
+    the fused-block and flash kernels' launches."""
+    from kubeflow_tpu_torch import bench, entry
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.ops import fused_bottleneck as fb
     from kubeflow_tpu_torch.training import gpt, resnet
@@ -3571,39 +3694,43 @@ def autotune_attribution_phase(card: str, device: str = "cuda") -> dict:
 
     gen = detect_generation(device)
     totals: Counter = Counter()
-    seconds = {}
+    rows, seconds = {}, {}
+    windows = BENCH_STEPS * (1 + BENCH_REPEATS)  # the warm-up window and the timed ones
 
-    # (1) the ResNet bench sweep
+    # (1) ResNet-50
     t0 = time.perf_counter()
     cfg = resnet.bench_config()
     fb.reset_launches()
     deltas = LaunchDeltas(fb.LAUNCHES)
     clock = EventClock()
-    out = resnet.train(cfg, steps=AT_STEPS, seed=0, device=device, fused_blocks="auto",
-                       observe=deltas, clock=clock)
+    row = bench.run_resnet(timed_steps=BENCH_STEPS, repeats=BENCH_REPEATS, clock=clock,
+                           observe=deltas, device=device)
     final = deltas.take()
+    emit(phase="bench", row="resnet", card=card, timed_steps=BENCH_STEPS,
+         repeats=BENCH_REPEATS, result=row)
+    check_row("resnet", row)
+    out = deltas.result
     for c in deltas.candidates:
         n = c["steps"] if c["knobs"]["fused_blocks"] else 0
         want = {"fused_bottleneck": 12 * n, "fused_transition": 4 * n}
-        emit(phase="autotune_attribution", bench="resnet", card=card, candidate=c["knobs"],
+        emit(phase="bench", row="resnet", card=card, candidate=c["knobs"],
              measured_ms=c["seconds"] * 1e3, steps=c["steps"], launches=c["launches"])
         if c["launches"] != want:
-            raise AssertionError(f"autotune_attribution resnet {c['knobs']}: launches "
-                                 f"{c['launches']}, expected {want}")
+            raise AssertionError(f"bench resnet {c['knobs']}: launches {c['launches']}, "
+                                 f"expected {want}")
         totals.update(c["launches"])
-    n = AT_STEPS if out["fused_blocks"] else 0
+    n = windows if out["fused_blocks"] else 0
     want = {"fused_bottleneck": 12 * n, "fused_transition": 4 * n}
-    emit(phase="autotune_attribution", bench="resnet", card=card, batch=cfg.batch,
-         chosen=out["autotune"]["chosen"], predicted=AT_PREDICTED,
-         as_predicted=out["autotune"]["chosen"] == AT_PREDICTED, autotune=out["autotune"],
-         fused_calibration=out["fused_calibration"], sweep=deltas.sweep.to_dict(),
-         step_ms=out["step_ms"], losses=out["losses"], step_breakdown=out["step_breakdown"],
-         peak_mem_gib=out["peak_hbm_bytes"] / 2**30, launches=final)
-    if (len(deltas.candidates) != 2 or out["autotune"]["measured"] != 2 or final != want
-            or not all(np.isfinite(out["losses"]))):
-        raise AssertionError(f"autotune_attribution resnet: {len(deltas.candidates)} "
-                             f"candidates measured, run launches {final} (expected {want}), "
-                             f"losses {out['losses']}")
+    emit(phase="bench", row="resnet", card=card, batch=out["batch"],
+         chosen=row["autotune"]["chosen"], predicted=AT_PREDICTED,
+         as_predicted=row["autotune"]["chosen"] == AT_PREDICTED, sweep=deltas.sweep.to_dict(),
+         step_ms=out["step_seconds"] * 1e3, window_losses=out["window_losses"],
+         flops_per_step=out["flops_per_step"], peak_mem_gib=out["peak_hbm_bytes"] / 2**30,
+         launches=final)
+    if len(deltas.candidates) != 2 or row["autotune"]["measured"] != 2 or final != want:
+        raise AssertionError(f"bench resnet: {len(deltas.candidates)} candidates measured, "
+                             f"run launches {final} (expected {want})")
+    check_window_losses("resnet", out["window_losses"])
     totals.update(final)
     shape = dict(batch=cfg.batch, image=cfg.image, num_classes=cfg.num_classes, stem=cfg.stem,
                  stage_sizes=tuple(cfg.stage_sizes), num_filters=cfg.num_filters,
@@ -3613,68 +3740,98 @@ def autotune_attribution_phase(card: str, device: str = "cuda") -> dict:
     fused_walk = attribution_report(attribute_resnet(fused_blocks=True, **shape),
                                     clock=clock, generation=gen)
     unfused = {m.name for m in fused_walk.top_sinks(6, fused=False)}
-    emit(phase="autotune_attribution", bench="resnet_fused_walk", card=card,
-         coverage=fused_walk.coverage(), top_unfused=sorted(unfused),
-         fractions=fused_walk.fractions)
+    emit(phase="bench", row="resnet_fused_walk", card=card, coverage=fused_walk.coverage(),
+         top_unfused=sorted(unfused), fractions=fused_walk.fractions)
     if fused_walk.coverage() != {"fused": 16, "total": 16} \
             or unfused != {"stem", "classifier_head"}:
-        raise AssertionError(f"autotune_attribution: fused walk coverage "
-                             f"{fused_walk.coverage()}, unfused {unfused}")
-    del out
+        raise AssertionError(f"bench: fused walk coverage {fused_walk.coverage()}, "
+                             f"unfused {unfused}")
+    rows["resnet"] = row
+    del out, deltas
     cleanup()
     seconds["resnet"] = time.perf_counter() - t0
 
-    # (2) the GPT bench sweep
+    # (2) GPT
     t0 = time.perf_counter()
     gcfg = gpt.bench_config(TRAIN_SEQ)
     fa.reset_launches()
     deltas = LaunchDeltas(fa.LAUNCHES)
     clock = EventClock()
-    out = gpt.train(gcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=AT_STEPS, seed=0,
-                    device=device, autotune=True, observe=deltas, clock=clock)
+    row = bench.run_gpt(batch=TRAIN_BATCH, seq=TRAIN_SEQ, timed_steps=BENCH_STEPS,
+                        repeats=BENCH_REPEATS, clock=clock, observe=deltas, device=device)
     final = deltas.take()
+    emit(phase="bench", row="gpt", card=card, timed_steps=BENCH_STEPS, repeats=BENCH_REPEATS,
+         result=row)
+    check_row("gpt", row)
+    out = deltas.result
     table = deltas.sweep.to_dict()
     for c in deltas.candidates:
         fwd = gcfg.n_layers * c["steps"] * (2 if c["knobs"]["remat"] else 1)
         want = {"flash_fwd": fwd, "flash_bwd_dq": gcfg.n_layers * c["steps"],
                 "flash_bwd_dkv": gcfg.n_layers * c["steps"]}
-        emit(phase="autotune_attribution", bench="gpt", card=card, candidate=c["knobs"],
+        emit(phase="bench", row="gpt", card=card, candidate=c["knobs"],
              measured_ms=c["seconds"] * 1e3, steps=c["steps"], launches=c["launches"])
         if c["launches"] != want:
-            raise AssertionError(f"autotune_attribution gpt {c['knobs']}: launches "
-                                 f"{c['launches']}, expected {want}")
+            raise AssertionError(f"bench gpt {c['knobs']}: launches {c['launches']}, "
+                                 f"expected {want}")
         totals.update(c["launches"])
-    steps = AT_STEPS * (2 if out["remat"] else 1) + 1  # + the counted step
-    want = {"flash_fwd": gcfg.n_layers * steps, "flash_bwd_dq": gcfg.n_layers * (AT_STEPS + 1),
-            "flash_bwd_dkv": gcfg.n_layers * (AT_STEPS + 1)}
+    fwd = gcfg.n_layers * (windows * (2 if out["remat"] else 1) + 1)  # + the counted step
+    bwd = gcfg.n_layers * (windows + 1)
+    want = {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
     remat = next(c for c in table["candidates"] if c["knobs"]["remat"])
-    emit(phase="autotune_attribution", bench="gpt", card=card, batch=TRAIN_BATCH,
-         seq=TRAIN_SEQ, chosen=out["autotune"]["chosen"], autotune=out["autotune"],
-         sweep=table, remat_pruned=remat["pruned"], step_ms=out["step_ms"],
-         losses=out["losses"], step_breakdown=out["step_breakdown"],
-         peak_mem_gib=out["peak_hbm_bytes"] / 2**30, launches=final)
-    row = out["autotune"]
-    if (row["swept"] != 2 or row["measured"] != 1 or row["pruned"] != 1 or row["errors"]
-            or final != want or not all(np.isfinite(out["losses"]))):
-        raise AssertionError(f"autotune_attribution gpt: sweep {row}, run launches {final} "
-                             f"(expected {want}), losses {out['losses']}")
+    emit(phase="bench", row="gpt", card=card, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         chosen=row["autotune"]["chosen"], sweep=table, remat_pruned=remat["pruned"],
+         step_ms=out["step_seconds"] * 1e3, window_losses=out["window_losses"],
+         flops_per_step=out["flops_per_step"], peak_mem_gib=out["peak_hbm_bytes"] / 2**30,
+         launches=final)
+    a = row["autotune"]
+    if (a["swept"] != 2 or a["measured"] != 1 or a["pruned"] != 1 or a["errors"]
+            or final != want):
+        raise AssertionError(f"bench gpt: sweep {a}, run launches {final} (expected {want})")
+    check_window_losses("gpt", out["window_losses"])
     totals.update(final)
     gcfg = dataclasses.replace(gcfg, scan_blocks=out["scan_blocks"], remat=out["remat"])
     check_attribution("gpt", card, out, clock, attribute_gpt(
         gcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, generation=gen), gen)
-    del out
+    rows["gpt"] = row
+    del out, deltas
     cleanup()
     seconds["gpt"] = time.perf_counter() - t0
 
-    # (3) the attribution driver on the card
+    # (3) the serving row from 19e's passes
+    rows["serving"] = bench.serving_row(serving["bert"], serving["decode"],
+                                        serving["continuous"], serving["disagg"], "gpu")
+    emit(phase="bench", row="serving", card=card, depth="19e", result=rows["serving"])
+    check_row("serving", rows["serving"])
+
+    # (4) the HPO study
     t0 = time.perf_counter()
-    report = attribution_driver.run(device=device)
-    prof._PROFILE_CLOCKS.pop("train", None)
-    seconds["driver"] = time.perf_counter() - t0
-    emit(phase="autotune_attribution", bench="attribution_driver", card=card, report=report,
-         seconds=seconds)
-    if report.get("ok") is not True:
-        raise AssertionError(f"autotune_attribution: driver {report}")
+    rows["hpo"] = bench.run_hpo(trials=BENCH_HPO_TRIALS, parallel=BENCH_HPO_PARALLEL,
+                                device=device)
+    seconds["hpo"] = time.perf_counter() - t0
+    emit(phase="bench", row="hpo", card=card, result=rows["hpo"])
+    check_row("hpo", rows["hpo"])
+    h = rows["hpo"]
+    if h["trials_succeeded"] + h["trials_pruned"] != BENCH_HPO_TRIALS \
+            or not 0.0 <= h["best_accuracy"] <= 1.0:
+        raise AssertionError(f"bench hpo: {h}")
+    cleanup()
+
+    # (5) the composite step on one NCCL rank, held also by the dry run's
+    # assertions on its timed row (the same code at the dry run's shapes runs
+    # in the CPU tests)
+    t0 = time.perf_counter()
+    rows["multichip"] = bench.run_multichip(1, timed_steps=BENCH_MC_STEPS,
+                                            repeats=BENCH_MC_REPEATS, device=device)
+    seconds["multichip"] = time.perf_counter() - t0
+    emit(phase="bench", row="multichip", card=card, result=rows["multichip"])
+    check_row("multichip", entry.check_timed_row(rows["multichip"]))
+    m = rows["multichip"]
+    if m["n_devices"] != 1 or not m["scaling_efficiency"] > 0 or not np.isfinite(m["loss"]):
+        raise AssertionError(f"bench multichip: {m}")
+
+    emit(phase="bench", row="summary", card=card, seconds=seconds,
+         summary=bench.summary_row(rows, "gpu"))
     return dict(totals)
 
 
@@ -4546,12 +4703,14 @@ def main() -> int:
         timed("mnist_trial", mnist_trial_phase)
         for name, n in timed("profile_clock", profile_clock_phase).items():
             launches[name] += n
-        for name, n in timed("serving_bench", serving_bench_phase).items():
+        sb_launches, serving_rows = timed("serving_bench", serving_bench_phase)
+        for name, n in sb_launches.items():
             launches[name] += n
         timed("stage_profile", stage_profile_phase)
         timed("conv_experiments", conv_experiments_phase)
-        for name, n in timed("autotune_attribution", autotune_attribution_phase).items():
+        for name, n in timed("bench", lambda c: bench_phase(c, serving_rows)).items():
             launches[name] += n
+        timed("autotune_attribution", autotune_attribution_phase)
         # after every phase that reads the profiler: these start threads and
         # servers, and read no profiler window
         timed("serve_chunked+obs", lambda c: serve_chunked_phase(c, prompts, short_tokens))

@@ -25,15 +25,20 @@ devices, at tiny shapes:
    restored through the port's ``Checkpointer`` at another factorization
    (tp folded into dp), whose step must not lose the progress;
 6. gpipe / interleaved / overlapped-gather parity of that step, and the
-   interleaved schedule's smaller bubble.
+   interleaved schedule's smaller bubble;
 
-JAX's timed ``bench._run_multichip`` row is the benchmark's and is left
-out. Rank 0's summary is returned and printed as one line.
+then, as JAX's dry run ends, the timed multichip row
+(``bench.run_multichip`` over ``n`` ranks in a world of its own) at the
+dry run's tiny shapes (:data:`DRYRUN_MULTICHIP`): no ``error``, and
+``value``, ``bubble_fraction``, ``comm_bytes_per_step`` and
+``scaling_efficiency`` present. Rank 0's summary, with the row under
+``"multichip"``, is returned and printed as one line; the row as another.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import shutil
 import tempfile
@@ -347,6 +352,32 @@ def _dryrun_rank(rank: int, world: int, workdir: str) -> Dict[str, Any]:
     return out
 
 
+#: the timed row's shapes in the dry run (JAX's ``BENCH_MC_*`` defaults there)
+DRYRUN_MULTICHIP = {"d_model": 32, "d_ff": 64, "n_layers": 8, "seq": 32, "vocab": 128,
+                    "timed_steps": 3, "repeats": 2}
+
+
+def check_timed_row(row: Dict[str, Any]) -> Dict[str, Any]:
+    """JAX's dry run's assertions on its timed multichip row, raised as
+    ``AssertionError`` without ``assert`` so that ``python -O`` keeps them."""
+    if row.get("error"):
+        raise AssertionError(f"multichip bench failed: {row['error']}")
+    for name in ("value", "bubble_fraction", "comm_bytes_per_step", "scaling_efficiency"):
+        if row.get(name) is None:
+            raise AssertionError(f"multichip row missing {name}")
+    return row
+
+
+def dryrun_multichip_row(n_devices: int, device: DeviceLike = "cuda",
+                         timeout: float = 300.0) -> Dict[str, Any]:
+    """The dry run's timed multichip row over ``n_devices`` ranks, held by
+    :func:`check_timed_row`."""
+    from .bench import run_multichip
+
+    return check_timed_row(run_multichip(n_devices, timeout=timeout, device=device,
+                                         **DRYRUN_MULTICHIP))
+
+
 def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda",
                      timeout: float = 300.0) -> Dict[str, Any]:
     """One sharded train step of each parallel path over ``n_devices``
@@ -358,10 +389,11 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda",
         raise ValueError(f"need {n_devices} cards, have {torch.cuda.device_count()}")
     workdir = tempfile.mkdtemp(prefix="dryrun-")
     try:
-        summary = run_world(f"{__name__}:_dryrun_rank", n_devices, workdir, timeout=timeout,
-                            device=dev.type)[0]
+        summary = run_world(f"{__package__}.entry:_dryrun_rank", n_devices, workdir,
+                            timeout=timeout, device=dev.type)[0]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    summary["multichip"] = dryrun_multichip_row(n_devices, dev, timeout)
     c = summary["composite"]
     print(f"dryrun_multichip OK: {n_devices} ranks ({summary['device']}) | "
           f"resnet dp={summary['resnet']['dp']} fsdp={summary['resnet']['fsdp']} "
@@ -372,6 +404,7 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda",
           f"loss={summary['moe']['loss']:.4f} | composed4d {c['a']} loss={c['loss_a']:.4f} "
           f"-> resharded {c['b']} loss={c['loss_b']:.4f} | schedule/gather parity "
           f"{sorted(c['parity'])} max_dloss={c['max_dloss']:.2e}", flush=True)
+    print(json.dumps(summary["multichip"]), flush=True)
     return summary
 
 

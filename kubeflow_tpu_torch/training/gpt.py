@@ -32,7 +32,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -186,35 +186,37 @@ def sweep_knobs(cfg: GptConfig, params: Params, ids: torch.Tensor, *, calib_step
                  strict=True)
 
 
-def train(cfg: GptConfig, *, batch: int, seq: int, steps: int, seed: int = 0,
-          device: DeviceLike = "cuda", attention_fn: AttentionFn = causal_flash_attention,
-          autotune: bool = False,
-          on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
-          observe: Optional[Observer] = None,
-          clock: Optional[StepClock] = None) -> Dict[str, Any]:
-    """``steps`` AdamW steps from seeded weights on one seeded batch.
+@dataclasses.dataclass
+class Prepared:
+    """What :func:`prepare` hands a training loop: the config with the
+    chosen ``remat``, the device and its generation
+    (:func:`attribution.loop_generation`), the seeded ids, the ``autotune``
+    row, the step's counted FLOPs, and the model and its AdamW."""
+    cfg: GptConfig
+    device: torch.device
+    generation: str
+    ids: torch.Tensor
+    autotune: Dict[str, Any]
+    flops_per_step: float
+    model: GptLM
+    opt: torch.optim.AdamW
 
-    ``autotune=True`` first runs :func:`sweep_knobs` at ``calib_steps =
-    max(2, min(4, steps))`` and trains with the chosen ``remat``, as
-    ``bench.py`` does; otherwise the config's are pinned (the ``autotune``
-    row says so).
 
-    Each step runs under a :class:`StepClock`: ``compute`` around the step
-    and a device synchronize (``bench.py``'s ``block_until_ready``),
-    ``fetch`` around the host read of its loss; the kernels' first-use
-    build is charged to ``compile``. Returns the per-step losses and step
-    times, the parameter count, the step's counted FLOPs
-    (:func:`counted_flops_per_step`) beside the bench's analytic count,
-    ``mfu`` of the median step after the first (on the card; None on the
-    CPU, which has no catalog peak), the ``step_breakdown``,
-    ``peak_hbm_bytes`` of the training loop (None on the CPU; also
-    published as ``training_step_peak_hbm_bytes``), the ``autotune`` row
-    and the ``attribution`` row (``attribute_gpt`` over the clock; the
-    price and the row use :func:`attribution.loop_generation`).
-    ``on_step`` gets each step's record; ``observe`` each swept
-    candidate's and then ``("sweep", {"result": AutotuneResult})``.
-    ``clock``, if given, is the loop's clock (to register at
-    ``/debug/profile`` or read after)."""
+def prepare(cfg: GptConfig, *, batch: int, seq: int, steps: int, clock: StepClock,
+            seed: int = 0, device: DeviceLike = "cuda",
+            attention_fn: AttentionFn = causal_flash_attention, autotune: bool = False,
+            pinned: str = "config", observe: Optional[Observer] = None) -> Prepared:
+    """Everything a training loop of ``steps`` steps needs before its first
+    step, shared by :func:`train` and the bench's timed windows.
+
+    ``autotune=True`` runs :func:`sweep_knobs` at ``calib_steps = max(2,
+    min(4, steps))`` and keeps the chosen ``remat``, as ``bench.py`` does;
+    ``observe`` gets each measured candidate's stage and then ``("sweep",
+    {"result": AutotuneResult})``. Otherwise the config's ``remat`` is
+    kept and the ``autotune`` row names ``pinned`` as its source. The
+    kernels' first-use build is charged to ``clock.compile``. The step's
+    FLOPs are :func:`counted_flops_per_step`; the device's peak memory
+    counter is reset before the model is built."""
     if seq > cfg.max_seq:
         raise ValueError(f"seq {seq} exceeds max_seq {cfg.max_seq}")
     dev = resolve_device(device)
@@ -222,7 +224,6 @@ def train(cfg: GptConfig, *, batch: int, seq: int, steps: int, seed: int = 0,
     ids_np = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq))
     ids = torch.as_tensor(ids_np, dtype=torch.int64, device=dev)
     params = init_params(cfg, seed=seed, device=dev)
-    clock = clock if clock is not None else StepClock(tracer=TRACER)
     if dev.type == "cuda":
         with clock.compile():
             _build.load("flash_attention.cu")
@@ -235,22 +236,65 @@ def train(cfg: GptConfig, *, batch: int, seq: int, steps: int, seed: int = 0,
         if observe is not None:
             observe("sweep", {"result": result})
     else:
-        autotune_row = {"family": "gpt",
-                        "chosen": {"remat": cfg.remat},
-                        "pinned": "config"}
+        autotune_row = {"family": "gpt", "chosen": {"remat": cfg.remat}, "pinned": pinned}
     counted = counted_flops_per_step(cfg, params, ids, attention_fn)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     model = GptLM.trainable(cfg, params, attention_fn=attention_fn)
     del params
-    opt = make_optimizer(model.parameters())
+    return Prepared(cfg, dev, gen, ids, autotune_row, counted, model,
+                    make_optimizer(model.parameters()))
+
+
+def finish(p: Prepared, clock: StepClock, steps_per_record: int = 1,
+           fused_loss: bool = True, attribution: bool = True
+           ) -> Tuple[Optional[Dict[str, int]], Optional[Dict[str, Any]]]:
+    """After the loop: the device's peak memory since :func:`prepare`
+    (None on the CPU; also published as ``training_step_peak_hbm_bytes``)
+    and, with ``attribution``, the ``attribution`` row (``attribute_gpt``
+    over ``clock``, one clock record ``steps_per_record`` steps)."""
+    mem = flops.memory_stats(p.device)
+    record_step_peak_hbm(mem)
+    if not attribution:
+        return mem, None
+    batch, seq = p.ids.shape
+    return mem, attribution_row(
+        lambda: attribute_gpt(p.cfg, batch=batch, seq=seq, fused_loss=fused_loss,
+                              generation=p.generation, device=p.device),
+        clock, steps_per_record, generation=p.generation, device=p.device)
+
+
+def train(cfg: GptConfig, *, batch: int, seq: int, steps: int, seed: int = 0,
+          device: DeviceLike = "cuda", attention_fn: AttentionFn = causal_flash_attention,
+          autotune: bool = False,
+          on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
+          observe: Optional[Observer] = None,
+          clock: Optional[StepClock] = None) -> Dict[str, Any]:
+    """``steps`` AdamW steps from seeded weights on one seeded batch, after
+    :func:`prepare` (``autotune`` and ``observe`` are its; without
+    ``autotune`` the config's ``remat`` is pinned).
+
+    Each step runs under a :class:`StepClock`: ``compute`` around the step
+    and a device synchronize (``bench.py``'s ``block_until_ready``),
+    ``fetch`` around the host read of its loss. Returns the per-step losses
+    and step times, the parameter count, the step's counted FLOPs beside
+    the bench's analytic count, ``mfu`` of the median step after the first
+    (on the card; None on the CPU, which has no catalog peak), the
+    ``step_breakdown``, ``peak_hbm_bytes`` of the training loop and the
+    ``attribution`` row (:func:`finish`), and the ``autotune`` row.
+    ``on_step`` gets each step's record. ``clock``, if given, is the loop's
+    clock (to register at ``/debug/profile`` or read after)."""
+    clock = clock if clock is not None else StepClock(tracer=TRACER)
+    p = prepare(cfg, batch=batch, seq=seq, steps=steps, clock=clock, seed=seed,
+                device=device, attention_fn=attention_fn, autotune=autotune,
+                observe=observe)
     losses: List[float] = []
     step_ms: List[float] = []
     clock.mark()
     for step in range(steps):
         with clock.compute():
-            loss_t = train_step(model, opt, ids)
-            synchronize(dev)
+            loss_t = train_step(p.model, p.opt, p.ids)
+            synchronize(p.device)
         with clock.fetch():
             loss = float(loss_t)
         ms = clock.end_step()["total"] * 1e3
@@ -259,22 +303,18 @@ def train(cfg: GptConfig, *, batch: int, seq: int, steps: int, seed: int = 0,
         if on_step is not None:
             on_step({"step": step + 1, "loss": loss, "step_ms": ms,
                      "tokens_per_s": batch * seq / ms * 1e3})
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(q.numel() for q in p.model.parameters())
     steady_s = float(np.median(step_ms[1:] or step_ms)) / 1e3
-    mem = flops.memory_stats(dev)
-    record_step_peak_hbm(mem)
-    out = {"losses": losses, "step_ms": step_ms, "n_params": n_params,
-           "tokens_per_step": batch * seq, "flops_per_step": counted,
-           "analytic_flops_per_step": flops_per_step(cfg, n_params, batch, seq),
-           "mfu": flops.mfu(counted, steady_s, generation=gen) if dev.type == "cuda" else None,
-           "step_breakdown": step_breakdown(clock),
-           "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
-           "scan_blocks": cfg.scan_blocks, "remat": cfg.remat, "autotune": autotune_row}
-    out["attribution"] = attribution_row(
-        lambda: attribute_gpt(cfg, batch=batch, seq=seq, fused_loss=True,
-                              generation=gen, device=dev),
-        clock, generation=gen, device=dev)
-    return out
+    mem, attr = finish(p, clock)
+    return {"losses": losses, "step_ms": step_ms, "n_params": n_params,
+            "tokens_per_step": batch * seq, "flops_per_step": p.flops_per_step,
+            "analytic_flops_per_step": flops_per_step(p.cfg, n_params, batch, seq),
+            "mfu": (flops.mfu(p.flops_per_step, steady_s, generation=p.generation)
+                    if p.device.type == "cuda" else None),
+            "step_breakdown": step_breakdown(clock),
+            "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
+            "scan_blocks": p.cfg.scan_blocks, "remat": p.cfg.remat, "autotune": p.autotune,
+            "attribution": attr}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

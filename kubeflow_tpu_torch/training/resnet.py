@@ -155,40 +155,46 @@ def sweep_fused(cfg: ResNetBenchConfig, images: torch.Tensor, labels: torch.Tens
     return sweep("resnet", FUSED_CANDIDATES, measure=measure, strict=True)
 
 
-def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLike = "cuda",
-          fused_blocks: Union[None, bool, str] = None, plain_kernels: bool = False,
-          on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
-          observe: Optional[Observer] = None,
-          clock: Optional[StepClock] = None) -> Dict[str, Any]:
-    """``steps`` SGD steps from seeded weights on one seeded batch.
+@dataclass
+class Prepared:
+    """What :func:`prepare` hands a training loop: the device and its
+    generation (:func:`attribution.loop_generation`), the seeded batch, the
+    fused choice with its ``autotune`` row (and ``calibration``, the
+    sweep's seconds a step, after a sweep), the step's counted FLOPs, and
+    the model, its task and the task's initial state."""
+    cfg: ResNetBenchConfig
+    device: torch.device
+    generation: str
+    images: torch.Tensor
+    labels: torch.Tensor
+    fused: bool
+    autotune: Dict[str, Any]
+    calibration: Optional[Dict[str, float]]
+    flops_per_step: float
+    model: ResNet
+    task: ClassifierTask
+    state: Any
+
+
+def prepare(cfg: ResNetBenchConfig, *, steps: int, clock: StepClock, seed: int = 0,
+            device: DeviceLike = "cuda", fused_blocks: Union[None, bool, str] = None,
+            plain_kernels: bool = False, observe: Optional[Observer] = None) -> Prepared:
+    """Everything a training loop of ``steps`` steps needs before its first
+    step, shared by :func:`train` and the bench's timed windows.
 
     ``fused_blocks``: None takes the config's, True/False pins it (the
     ``autotune`` row says so), ``"auto"`` measures both first
     (:func:`sweep_fused` at ``calib_steps = max(4, min(10, steps))``) and
-    trains with the faster, as ``bench.py``'s ``BENCH_FUSED=auto``.
-
-    Each step runs under a :class:`StepClock`: ``compute`` around the step
-    and a device synchronize (``bench.py``'s ``block_until_ready``),
-    ``fetch`` around the host read of its loss; the kernels' first-use
-    build is charged to ``compile``. Returns the per-step losses,
-    accuracies and step times, the images per step, the step's counted
-    FLOPs (:func:`counted_flops_per_step`) beside the bench's analytic
-    count, ``mfu`` of the median step after the first (on the card; None
-    on the CPU, which has no catalog peak), the ``step_breakdown``,
-    ``peak_hbm_bytes`` of the training loop (None on the CPU; also
-    published as ``training_step_peak_hbm_bytes``), the ``autotune`` row
-    (and ``fused_calibration`` after a sweep) and the ``attribution`` row
-    (``attribute_resnet`` over the clock, priced for
-    :func:`attribution.loop_generation`). ``on_step``
-    gets each step's record; ``observe`` each swept candidate's and then
-    ``("sweep", {"result": AutotuneResult})``. ``clock``, if given, is the
-    loop's clock (to register at ``/debug/profile`` or read after)."""
+    keeps the faster, as ``bench.py``'s ``BENCH_FUSED=auto``; ``observe``
+    gets each swept candidate's stage and then ``("sweep", {"result":
+    AutotuneResult})``. The kernels' first-use build is charged to
+    ``clock.compile``. The step's FLOPs are :func:`counted_flops_per_step`;
+    the device's peak memory counter is reset before the model is built."""
     if fused_blocks not in (None, True, False, "auto"):
         raise ValueError(f"fused_blocks must be None, True, False or 'auto', "
                          f"got {fused_blocks!r}")
     dev = resolve_device(device)
     images, labels = make_batch(cfg, seed, dev)
-    clock = clock if clock is not None else StepClock(tracer=TRACER)
     if fused_blocks == "auto" or (cfg.fused_blocks if fused_blocks is None else fused_blocks):
         if dev.type == "cuda" and not plain_kernels:
             with clock.compile():
@@ -202,10 +208,8 @@ def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLi
         if observe is not None:
             observe("sweep", {"result": result})
         # bench.py's legacy row, kept for comparisons with its history
-        calibration = {}
-        for c in result.candidates:
-            key = "fused" if c.knobs["fused_blocks"] else "unfused"
-            calibration[key] = round(c.measured_seconds, 6)
+        calibration = {("fused" if c.knobs["fused_blocks"] else "unfused"):
+                       round(c.measured_seconds, 6) for c in result.candidates}
     else:
         fused = cfg.fused_blocks if fused_blocks is None else fused_blocks
         autotune_row = {"family": "resnet", "chosen": {"fused_blocks": fused},
@@ -216,15 +220,61 @@ def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLi
     model = make_model(cfg, seed=seed, device=dev, fused_blocks=fused,
                        plain_kernels=plain_kernels)
     task = make_task(cfg, model)
-    state = task.init()
+    return Prepared(cfg, dev, loop_generation(dev), images, labels, fused, autotune_row,
+                    calibration, counted, model, task, task.init())
+
+
+def finish(p: Prepared, clock: StepClock, steps_per_record: int = 1,
+           attribution: bool = True) -> Tuple[Optional[Dict[str, int]], Optional[Dict[str, Any]]]:
+    """After the loop: the device's peak memory since :func:`prepare`
+    (None on the CPU; also published as ``training_step_peak_hbm_bytes``)
+    and, with ``attribution``, the ``attribution`` row (``attribute_resnet``
+    over ``clock``, one clock record ``steps_per_record`` steps)."""
+    mem = flops.memory_stats(p.device)
+    record_step_peak_hbm(mem)
+    if not attribution:
+        return mem, None
+    cfg = p.cfg
+    return mem, attribution_row(
+        lambda: attribute_resnet(batch=cfg.batch, image=cfg.image,
+                                 num_classes=cfg.num_classes, stem=cfg.stem,
+                                 fused_blocks=p.fused, generation=p.generation,
+                                 stage_sizes=tuple(cfg.stage_sizes),
+                                 num_filters=cfg.num_filters, device=p.device),
+        clock, steps_per_record, generation=p.generation, device=p.device)
+
+
+def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLike = "cuda",
+          fused_blocks: Union[None, bool, str] = None, plain_kernels: bool = False,
+          on_step: Optional[Callable[[Dict[str, Any]], None]] = None,
+          observe: Optional[Observer] = None,
+          clock: Optional[StepClock] = None) -> Dict[str, Any]:
+    """``steps`` SGD steps from seeded weights on one seeded batch, after
+    :func:`prepare` (``fused_blocks`` and ``observe`` are its).
+
+    Each step runs under a :class:`StepClock`: ``compute`` around the step
+    and a device synchronize (``bench.py``'s ``block_until_ready``),
+    ``fetch`` around the host read of its loss. Returns the per-step
+    losses, accuracies and step times, the images per step, the step's
+    counted FLOPs beside the bench's analytic count, ``mfu`` of the median
+    step after the first (on the card; None on the CPU, which has no
+    catalog peak), the ``step_breakdown``, ``peak_hbm_bytes`` of the
+    training loop and the ``attribution`` row (:func:`finish`), the
+    ``autotune`` row (and ``fused_calibration`` after a sweep). ``on_step``
+    gets each step's record. ``clock``, if given, is the loop's clock (to
+    register at ``/debug/profile`` or read after)."""
+    clock = clock if clock is not None else StepClock(tracer=TRACER)
+    p = prepare(cfg, steps=steps, clock=clock, seed=seed, device=device,
+                fused_blocks=fused_blocks, plain_kernels=plain_kernels, observe=observe)
+    state = p.state
     losses: List[float] = []
     accuracy: List[float] = []
     step_ms: List[float] = []
     clock.mark()
     for step in range(steps):
         with clock.compute():
-            state, metrics = task.train_step(state, images, labels)
-            synchronize(dev)
+            state, metrics = p.task.train_step(state, p.images, p.labels)
+            synchronize(p.device)
         with clock.fetch():
             loss = float(metrics["loss"])
         ms = clock.end_step()["total"] * 1e3
@@ -235,26 +285,19 @@ def train(cfg: ResNetBenchConfig, *, steps: int, seed: int = 0, device: DeviceLi
             on_step({"step": step + 1, "loss": loss, "accuracy": accuracy[-1],
                      "step_ms": ms, "images_per_s": cfg.batch / ms * 1e3})
     steady_s = float(np.median(step_ms[1:] or step_ms)) / 1e3
-    mem = flops.memory_stats(dev)
-    record_step_peak_hbm(mem)
-    gen = loop_generation(dev)
+    mem, attr = finish(p, clock)
     out = {"losses": losses, "accuracy": accuracy, "step_ms": step_ms,
-           "images_per_step": cfg.batch, "flops_per_step": counted,
+           "images_per_step": cfg.batch, "flops_per_step": p.flops_per_step,
            "analytic_flops_per_step": flops_per_step(cfg.batch),
-           "mfu": flops.mfu(counted, steady_s, generation=gen) if dev.type == "cuda" else None,
+           "mfu": (flops.mfu(p.flops_per_step, steady_s, generation=p.generation)
+                   if p.device.type == "cuda" else None),
            "step_breakdown": step_breakdown(clock),
            "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
-           "n_params": sum(p.numel() for p in model.parameters()),
-           "fused_blocks": fused, "autotune": autotune_row}
-    if calibration is not None:
-        out["fused_calibration"] = calibration
-    out["attribution"] = attribution_row(
-        lambda: attribute_resnet(batch=cfg.batch, image=cfg.image,
-                                 num_classes=cfg.num_classes, stem=cfg.stem,
-                                 fused_blocks=fused, generation=gen,
-                                 stage_sizes=tuple(cfg.stage_sizes),
-                                 num_filters=cfg.num_filters, device=dev),
-        clock, generation=gen, device=dev)
+           "n_params": sum(q.numel() for q in p.model.parameters()),
+           "fused_blocks": p.fused, "autotune": p.autotune}
+    if p.calibration is not None:
+        out["fused_calibration"] = p.calibration
+    out["attribution"] = attr
     return out
 
 

@@ -1,7 +1,8 @@
 """kubeflow_tpu_torch/entry.py ``dryrun_multichip`` against __graft_entry__.dryrun_multichip.
 
-The dry run runs in worlds of 8 and 4 gloo ranks (~13 s each), one sharded
-train step of each parallel path; it asserts itself what JAX's asserts
+The dry run runs in worlds of 8 and 4 gloo ranks (~15-19 s each), one sharded
+train step of each parallel path, then JAX's timed multichip row in a world
+of its own; it asserts itself what JAX's asserts
 (finite losses, no progress lost across the composite restore at another
 factorization, gpipe / interleaved / overlap parity within 1e-5, the
 interleaved bubble smaller) and more: BERT's tp x sp loss within 1e-4 of
@@ -52,3 +53,33 @@ def test_bert_is_jaxs_tiny_config(summary):
     jcfg = JBertConfig.tiny()
     bert = summary["bert"]
     assert (bert["heads"], bert["head_dim"]) == (jcfg.num_heads, jcfg.head_dim) == (4, 16)
+
+
+def test_timed_multichip_row_is_jaxs(summary):
+    """The dry run ends with JAX's timed row over the same ranks, at the dry
+    run's shapes, held as JAX's dry run holds it."""
+    from kubeflow_tpu_torch.entry import DRYRUN_MULTICHIP
+
+    row, n = summary["multichip"], summary["n"]
+    assert "error" not in row
+    assert row["metric"] == f"multichip_composite_tokens_per_sec_per_chip_{n}dev"
+    for name in ("value", "bubble_fraction", "comm_bytes_per_step", "scaling_efficiency"):
+        assert row[name] is not None, name
+    assert row["n_devices"] == n and row["platform"] == "cpu"
+    assert (DRYRUN_MULTICHIP["timed_steps"], DRYRUN_MULTICHIP["repeats"]) == (3, 2)
+    assert row["value"] > 0 and row["scaling_efficiency"] > 0
+
+
+@pytest.mark.parametrize("fault", [{"error": "boom"}, {"value": None},
+                                   {"bubble_fraction": None}, {"comm_bytes_per_step": None},
+                                   {"scaling_efficiency": None}])
+def test_timed_row_check_raises_without_assert(fault):
+    """``check_timed_row`` raises ``AssertionError`` itself, so that
+    ``python -O`` (which drops ``assert``) keeps the dry run's checks."""
+    from kubeflow_tpu_torch.entry import check_timed_row
+
+    row = {"value": 1.0, "bubble_fraction": 0.1, "comm_bytes_per_step": {"total": 1},
+           "scaling_efficiency": 0.9}
+    assert check_timed_row(row) is row
+    with pytest.raises(AssertionError):
+        check_timed_row({**row, **fault})
