@@ -113,8 +113,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 5g. fleet  — GPT-small served by ``EngineFleet``s sharing the card and one
              set of weights: (a) ``gpt_served_model(replicas=2)``
              (``max_replicas`` 3) over HTTP, the 8 prompts spread over both
-             replicas, then again: tokens held to phase 3's (``near_tie``),
-             the second pass routed by prefix (8 hits),
+             replicas, then the first 4 again: tokens held to phase 3's
+             (``near_tie``), the second pass routed by prefix (4 hits),
              ``kv_block_update_pair`` 12 a decode step of either replica
              and no other write, ``/debug/fleet`` naming both; (b) 24
              requests on two replicas, then ``scale_to(1)``: every one
@@ -333,7 +333,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              (JAX's ``FsdpConfig`` defaults, batch 8) in both, 3 SGD steps
              each: falling losses, ``eager`` and ``overlap`` the same bits
              in both steps, ``amortized`` within 1e-5 of ``eager``; step ms.
-             Phases 19i-19k run after 5g, before kv_probe;
+             Phases 19i-19k run after 23a, before kv_probe;
+23a. serving_drivers — the serving fleet under faults, each run with the
+             counts reset just before and read just after: the overload
+             driver at GPT-small (``overload_driver.run(tiny=False)``: 3
+             replicas of 2 slots on the card, the flood at 2.22x the
+             batch capacity, ``client_abandon``, the ``slow_replica``
+             breaker cycle and ``crash_replica_mid_decode`` fired by the
+             port's ``ChaosMonkey``; the card's allocated bytes, cuBLAS's
+             workspaces cleared, back within 16 MiB of before once it
+             returns); the Pod-path fleet at
+             GPT-small (two replicas with ``client=PodClient()``,
+             unroutable until ``bind_pending`` binds each; both serve two of
+             phase 3's prompts with its paged tokens and each other's; a
+             deleted Pod drains its replica with reason ``preempted`` and
+             comes back as a new Pod that serves the same tokens after its
+             bind; ``fleet_replica_cold_start_seconds`` counts 3); the
+             fleet, observability and serving drivers at JAX's defaults
+             (GPT-tiny, BERT-tiny). Every driver must return ``ok``; each
+             GPT run ``kv_block_update_pair`` one a layer a decode step
+             (12 at GPT-small) and no other KV write, the serving driver's
+             BERT one ``flash_fwd`` a layer a forward. Runs after 5g;
 21a. tiny_paths — the entry points that run the flash kernels at head_dim
              16, each with the counts reset just before and read just
              after: ``GptConfig.tiny()`` trained 3 AdamW steps through the
@@ -397,7 +417,8 @@ pass's, distillation's, the spec draft's and the fleet's decode pool's)
 phase 22a's fused-block and flash launches (its sweeps' candidates and
 runs), phase 19i's KV and flash launches (its kernel runs), phase 19j's
 flash launches (the block steps' checked run and the one-rank ring),
-phase 21a's flash launches (its four paths) and
+phase 21a's flash launches (its four paths),
+phase 23a's KV and flash launches (its drivers' and the Pod fleet's) and
 phase 20a's fused-block launches (its mesh run):
 that line's count is
 then a sum over several runs, and each path's own count is on its run's
@@ -1829,6 +1850,8 @@ def disagg_phase(card: str, prompts) -> dict:
 
 # -- phase 5g: the serving fleet ------------------------------------------------
 
+#: (a)'s second pass: the first prompts again, routed by prefix
+FLEET_SECOND_PASS = 4
 #: the fleet phase's autoscaler: scale on TTFT alone, one step up, then hold
 FLEET_BURSTS = 4
 #: requests a burst (the first prompts, 8 new tokens each)
@@ -1855,9 +1878,9 @@ def fleet_phase(card: str, prompts, short_tokens: dict) -> dict:
     ``EngineFleet``s on the one card. (a) ``gpt_served_model(replicas=2)``
     (``max_replicas`` 3) behind ``ModelServer``: the 8 prompts at 32 new
     tokens (each posted once the one before has a slot, so they spread over
-    both replicas), then the same 8 again at once; tokens held to the phase
-    3 paged run,
-    the second pass routed by prefix (8 hits), ``kv_block_update_pair`` 12
+    both replicas), then the first ``FLEET_SECOND_PASS`` again at once;
+    tokens held to the phase 3 paged run,
+    the second pass routed by prefix (one hit a request), ``kv_block_update_pair`` 12
     a decode step and no other KV write, ``/debug/fleet`` naming both
     replicas. (b) Drain: 3 copies of each prompt on a 2-replica fleet
     (prefix affinity puts each prompt's copies on one replica, beyond its 8
@@ -1912,7 +1935,8 @@ def fleet_phase(card: str, prompts, short_tokens: dict) -> dict:
                         for sp in TRACER.finished_spans("serving.request"))
         hits0 = METRICS.value("fleet_prefix_hits_total")
         t0 = time.perf_counter()
-        second = generated("fleet_http", prompts, post_all(httpd.port, prompts, "fleet_http"),
+        again = prompts[:FLEET_SECOND_PASS]
+        second = generated("fleet_http", again, post_all(httpd.port, again, "fleet_http"),
                            cfg.vocab_size)
         wall2 = time.perf_counter() - t0
         counts = dict(kc.LAUNCHES)
@@ -1925,22 +1949,23 @@ def fleet_phase(card: str, prompts, short_tokens: dict) -> dict:
         del model, server
         cleanup()
     differ = hold_tokens("fleet_http", card, cfg, params, prompts, first, short_tokens["paged"])
-    if second != first:
+    if second != first[:FLEET_SECOND_PASS]:
         raise AssertionError("fleet_http: the second pass's tokens differ from the first's")
-    if hits < len(prompts):
+    if hits < FLEET_SECOND_PASS:
         raise AssertionError(f"fleet_http: the second pass made {hits} prefix hits, "
-                             f"expected {len(prompts)}")
+                             f"expected {FLEET_SECOND_PASS}")
     expect_pair("fleet_http", counts, "kv_block_update_pair", steps, cfg.n_layers)
     ids = {r["id"] for r in snap["replicas"]}
     if ids != {"gpt-0", "gpt-1"} or snap["max_replicas"] != 3:
         raise AssertionError(f"fleet_http: /debug/fleet shows {ids}, max {snap['max_replicas']}")
     ttft_p50 = float(np.median(ttft1))
-    emit(phase="fleet_http", card=card, replicas=2, requests=2 * len(prompts),
+    emit(phase="fleet_http", card=card, replicas=2,
+         requests=len(prompts) + FLEET_SECOND_PASS,
          requests_by_replica=dict(split), equal_to_single_engine=len(prompts) - differ,
          near_tie_differences=differ, prefix_hits_second_pass=hits,
          routed=snap["router"]["routed"], wall_s=[wall1, wall2],
          tokens_per_s=len(prompts) * MAX_NEW / wall1,
-         tokens_per_s_second_pass=len(prompts) * MAX_NEW / wall2, ttft_ms_p50=ttft_p50,
+         tokens_per_s_second_pass=FLEET_SECOND_PASS * MAX_NEW / wall2, ttft_ms_p50=ttft_p50,
          decode_steps=steps, launches=counts)
     for k in pairs:
         totals[k] += counts[k]
@@ -2071,6 +2096,172 @@ def fleet_phase(card: str, prompts, short_tokens: dict) -> dict:
     del params_b
     cleanup()
     return {k: totals[k] for k in pairs}
+
+
+def driver_run(label: str, card: str, run, n_layers: int, forwards: int = 0) -> dict:
+    """One serving driver's run with the KV and flash counts reset just
+    before and read just after: it must report ``ok`` (or, for the serving
+    driver, its three predictions), launch ``kv_block_update_pair`` once a
+    layer a decode step and no other KV write (a GPT driver), or
+    ``flash_fwd`` once a layer a forward (``forwards``, the BERT driver).
+    Prints the report, the seconds and the counts; returns the counts."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import kv_cache as kc
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    fa.reset_launches()
+    METRICS.reset()
+    t0 = time.perf_counter()
+    report = run()
+    seconds = time.perf_counter() - t0
+    counts = {**kc.LAUNCHES, **fa.LAUNCHES}
+    steps = int(METRICS.value("serving_decode_steps_total"))
+    emit(phase=label, card=card, seconds=seconds, decode_steps=steps, launches=counts,
+         report=report)
+    if forwards:
+        if report != {"predictions": 3, "model": "bert"}:
+            raise AssertionError(f"{label}: {report}")
+        if counts["flash_fwd"] != n_layers * forwards or any(
+                counts[k] for k in kc.LAUNCHES):
+            raise AssertionError(f"{label}: {counts}; expected {n_layers * forwards} "
+                                 "flash_fwd and no KV write")
+    else:
+        if report.get("ok") is not True:
+            raise AssertionError(f"{label}: {report}")
+        expect_pair(label, counts, "kv_block_update_pair", steps, n_layers)
+    return counts
+
+
+def pod_fleet_run(card: str, prompts, short_tokens: dict) -> dict:
+    """23a's Pod-path fleet at GPT-small on the drivers' in-memory cluster;
+    returns its KV launches."""
+    from kubeflow_tpu_torch.e2e.elastic_cluster import NAMESPACE, PodClient, add_nodes, bind_pending
+    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.ops import kv_cache as kc
+    from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.serving.errors import FleetSaturated
+    from kubeflow_tpu_torch.serving.fleet import EngineFleet
+
+    cfg = GptConfig.small()
+    params = init_params(cfg, seed=0, device="cuda")
+    two = prompts[:2]
+    client = PodClient()
+    add_nodes(client, ["gpu-node-0"], 8)
+    torch.cuda.synchronize()
+    kc.reset_launches()
+    METRICS.reset()
+    t0 = time.perf_counter()
+    fleet = EngineFleet(cfg, params, replicas=2, max_replicas=2, name="pods", client=client,
+                        replica_chips=1, poll_interval=0.05, register_debug=False,
+                        device="cuda")
+    try:
+        def serve_on(handle):
+            return [f.result(timeout=600)
+                    for f in [handle.engine.submit(p, MAX_NEW) for p in two]]
+
+        pods = [h.pod_name for h in fleet.live_handles()]
+        if pods != ["pods-0", "pods-1"] or fleet.wait_ready(1, timeout=0.5):
+            raise AssertionError(f"pod_fleet: pods {pods} routable before any bind")
+        try:
+            fleet.submit(two[0], MAX_NEW)
+            raise AssertionError("pod_fleet: an unbound fleet took a request")
+        except FleetSaturated:
+            pass
+        for pod in pods:
+            if bind_pending(client, pod) != [pod]:
+                raise AssertionError(f"pod_fleet: {pod} did not bind")
+        if not fleet.wait_ready(2, timeout=30):
+            raise AssertionError("pod_fleet: the bound replicas never became routable")
+        nodes = [h.node for h in fleet.live_handles()]
+        got = [serve_on(h) for h in fleet.live_handles()]
+        via_fleet = fleet.submit(two[0], MAX_NEW).result(timeout=600)
+
+        client.delete_opt("v1", "Pod", "pods-0", NAMESPACE)  # a preemption
+        deadline = time.monotonic() + 60
+        while ([h.pod_name for h in fleet.live_handles()] != ["pods-1", "pods-2"]
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        drains = fleet.debug_snapshot()["drains"]
+        if ([h.pod_name for h in fleet.live_handles()] != ["pods-1", "pods-2"]
+                or [(d["replica"], d["reason"]) for d in drains] != [("pods-0", "preempted")]):
+            raise AssertionError(f"pod_fleet: after the delete {fleet.debug_snapshot()}")
+        if fleet.wait_ready(2, timeout=0.5):
+            raise AssertionError("pod_fleet: the replacement was routable before its bind")
+        if bind_pending(client, "pods-2") != ["pods-2"]:
+            raise AssertionError("pod_fleet: the replacement did not bind")
+        if not fleet.wait_ready(2, timeout=30):
+            raise AssertionError("pod_fleet: the replacement never became routable")
+        replacement = next(h for h in fleet.live_handles() if h.pod_name == "pods-2")
+        got.append(serve_on(replacement))
+        counts = dict(kc.LAUNCHES)
+        steps = int(METRICS.value("serving_decode_steps_total"))
+        cold = METRICS.histogram("fleet_replica_cold_start_seconds")
+        cold_n, cold_s = cold.total, cold.sum
+    finally:
+        fleet.close()
+    seconds = time.perf_counter() - t0
+    left = [pod for pod in ("pods-0", "pods-1", "pods-2")
+            if client.get_opt("v1", "Pod", pod, NAMESPACE) is not None]
+    del fleet
+    cleanup()
+    if got[1] != got[0] or got[2] != got[0] or via_fleet != got[0][0]:
+        raise AssertionError("pod_fleet: the replicas' greedy tokens differ")
+    differ = hold_tokens("pod_fleet", card, cfg, params, two, got[0],
+                         short_tokens["paged"][:2])
+    del params
+    cleanup()
+    if cold_n != 3 or left:
+        raise AssertionError(f"pod_fleet: {cold_n} cold starts, pods left {left}")
+    expect_pair("pod_fleet", counts, "kv_block_update_pair", steps, cfg.n_layers)
+    emit(phase="pod_fleet", card=card, seconds=seconds, nodes=nodes, drains=drains,
+         cold_starts=cold_n, cold_start_s=cold_s, equal_to_phase3=len(two) - differ,
+         near_tie_differences=differ, decode_steps=steps, launches=counts)
+    return counts
+
+
+def serving_drivers_phase(card: str, prompts, short_tokens: dict) -> dict:
+    """Phase 23a: the overload driver and the Pod-path fleet at GPT-small,
+    the fleet, observability and serving drivers at JAX's defaults. Returns
+    the KV and flash launches of all five runs."""
+    from kubeflow_tpu_torch.e2e import (fleet_driver, observability_driver, overload_driver,
+                                        serving_driver)
+    from kubeflow_tpu_torch.models.bert import BertConfig
+    from kubeflow_tpu_torch.models.gpt import GptConfig
+
+    def allocated() -> int:
+        # without the cuBLAS workspaces the replicas' threads leave behind
+        # (32 MiB each): what is left is tensors
+        cleanup()
+        torch._C._cuda_clearCublasWorkspaces()
+        return torch.cuda.memory_allocated()
+
+    small, tiny = GptConfig.small().n_layers, GptConfig.tiny().n_layers
+    totals: Counter = Counter()
+    before = allocated()
+    totals.update(driver_run("overload_driver", card,
+                             lambda: overload_driver.run(device="cuda", tiny=False), small))
+    after = allocated()
+    emit(phase="overload_driver_memory", card=card, allocated_before=before,
+         allocated_after=after)
+    # one replica's arena is 144 MiB, the weights ~500 MB
+    if after - before > 16 * 2**20:
+        raise AssertionError(f"overload_driver: {after - before} bytes still allocated after "
+                             "it returned")
+    totals.update(pod_fleet_run(card, prompts, short_tokens))
+    totals.update(driver_run("fleet_driver", card, lambda: fleet_driver.run(device="cuda"), tiny))
+    cleanup()
+    totals.update(driver_run("observability_driver", card,
+                             lambda: observability_driver.run(device="cuda"), tiny))
+    cleanup()
+    # the serving driver's three BERT forwards: the direct predict, the
+    # three-instance request and the one-instance request
+    totals.update(driver_run("serving_driver", card,
+                             lambda: serving_driver.run_serving_e2e(device="cuda"),
+                             BertConfig.tiny().num_layers, forwards=3))
+    cleanup()
+    return {k: totals[k] for k in ("kv_block_update_pair", "flash_fwd")}
 
 
 def ref_phase(card: str) -> None:
@@ -4723,6 +4914,9 @@ def main() -> int:
         for name, n in timed("disagg", lambda c: disagg_phase(c, prompts)).items():
             launches[name] += n
         for name, n in timed("fleet", lambda c: fleet_phase(c, prompts, short_tokens)).items():
+            launches[name] += n
+        for name, n in timed("serving_drivers",
+                             lambda c: serving_drivers_phase(c, prompts, short_tokens)).items():
             launches[name] += n
         for name, n in timed("moe", lambda c: moe_phase(c, prompts)).items():
             launches[name] += n

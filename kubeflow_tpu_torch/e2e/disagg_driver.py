@@ -38,7 +38,7 @@ import threading
 from typing import Any, Dict
 
 from ..device import DeviceLike
-from .paged_kv_driver import _get, _metric_value, _post
+from ._http import get, metric_value, post
 
 POOLS = {"prefill": 1, "decode": 2}
 SLOTS = 4
@@ -113,11 +113,11 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
             w.result(timeout=600)
 
         # -- (1) per-model greedy parity through the quantized wire ---------
-        handoffs0 = _metric_value(_get(f"{base}/metrics").decode(), "serving_kv_handoff_total")
+        handoffs0 = metric_value(get(f"{base}/metrics").decode(), "serving_kv_handoff_total")
         n_http = 0
         for mid in params:
             for p in chatty_prompts:
-                status, out = _post(url, {"instances": [p], "model": mid})
+                status, _h, out = post(url, {"instances": [p], "model": mid}, timeout=300.0)
                 assert status == 200, f"{mid} got {status}: {out}"
                 assert out["predictions"][0] == oracle(mid, p), \
                     f"model {mid}: moved+quantized decode diverged from its oracle"
@@ -128,9 +128,9 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
         report["parity"] = {"requests": n_http, "models": sorted(params)}
 
         # -- (2) every exported KV frame was adopted ------------------------
-        text = _get(f"{base}/metrics").decode()
-        handoffs = _metric_value(text, "serving_kv_handoff_total")
-        imports = _metric_value(text, "serving_kv_import_total")
+        text = get(f"{base}/metrics").decode()
+        handoffs = metric_value(text, "serving_kv_handoff_total")
+        imports = metric_value(text, "serving_kv_import_total")
         assert handoffs - handoffs0 >= n_http, \
             f"expected >= {n_http} handoffs, counter moved {handoffs - handoffs0}"
         assert imports == handoffs, \
@@ -179,7 +179,7 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
             eng = ContinuousBatcher(acct_cfg, acct_params, slots=2, kv_dtype=dt,
                                     engine_id=f"acct-{dt}", device=device)
             try:
-                blocks[dt] = _metric_value(_get(f"{base}/metrics").decode(),
+                blocks[dt] = metric_value(get(f"{base}/metrics").decode(),
                                            "serving_kv_blocks_free", replica=f"acct-{dt}")
                 arena_bytes[dt] = sum(
                     leaf.nbytes for blk in eng.cache.values()
@@ -200,7 +200,7 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
         def client(i: int) -> None:
             mid = "alpha" if i % 2 == 0 else "beta"
             p = chatty_prompts[i % CHATTY]
-            outs[i] = (mid, p, _post(url, {"instances": [p], "model": mid}))
+            outs[i] = (mid, p, post(url, {"instances": [p], "model": mid}, timeout=300.0))
 
         threads = [threading.Thread(target=client, args=(i,)) for i in range(6)]
         for t in threads:
@@ -211,7 +211,7 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
         for t in threads:
             t.join(timeout=600)
         assert not any(t.is_alive() for t in threads), "client threads hung"
-        for i, (mid, p, (status, out)) in enumerate(outs):
+        for i, (mid, p, (status, _h, out)) in enumerate(outs):
             assert status == 200, f"drain burst [{i}] got {status}: {out}"
             assert out["predictions"][0] == oracle(mid, p), \
                 f"drain burst [{i}] diverged — a request was dropped or moved wrong"

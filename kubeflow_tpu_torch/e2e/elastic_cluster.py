@@ -5,11 +5,14 @@ its in-process apiserver, scheduler and chaos harness; the port has no
 control plane (as its other drivers), so these three script the same
 protocol on a :class:`PodClient`, a small in-memory client with the
 methods the port's ``PreemptionHandler`` and ``StragglerDetector`` call
-(``get_opt``, ``patch``, ``list``, ``emit_event``) and the ones the
-drivers use (``create``, ``delete_opt``):
+(``get_opt``, ``patch``, ``list``, ``emit_event``), the ones the drivers
+use (``create``, ``delete_opt``) and the serving fleet's Pod path
+(``create_or_get``, ``get_opt``, ``delete_opt``):
 
 - :func:`place_gang` binds a gang's pods to nodes with room that are not
   quarantined (chips as a per-node capacity), Running at once;
+- :func:`bind_pending` binds, the same way, the pods of a gang that a
+  workload created and left unbound (a serving fleet replica's);
 - :func:`preempt_gang` is the scheduler's drain signal: a drain-deadline
   annotation on every live pod of the gang;
 - :func:`evict` deletes a gang's pods, and says which had acked
@@ -31,6 +34,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..gpu.topology import RESOURCE_GPU
 from ..scheduler.gang import (DRAIN_ACK_ANNOTATION, DRAIN_DEADLINE_ANNOTATION,
                               DRAIN_GRACE_ANNOTATION, POD_GROUP_LABEL, POD_GROUP_SIZE_ANNOTATION,
                               annotations_of, is_quarantined, labels_of, name_of)
@@ -64,6 +68,15 @@ class PodClient:
                 raise ValueError(f"{key} already exists")
             self._objects[key] = copy.deepcopy(obj)
         return copy.deepcopy(obj)
+
+    def create_or_get(self, obj: Dict[str, Any]) -> Dict[str, Any]:
+        """Create ``obj``, or return the object of its name that exists."""
+        try:
+            return self.create(obj)
+        except ValueError:
+            meta = obj["metadata"]
+            return self.get_opt(obj.get("apiVersion", "v1"), obj["kind"], meta["name"],
+                                meta.get("namespace"))
 
     def get_opt(self, api: str, kind: str, name: str,
                 namespace: Optional[str] = None) -> Optional[Dict[str, Any]]:
@@ -114,14 +127,36 @@ def add_nodes(client: PodClient, names: Sequence[str], chips: int) -> None:
                        "status": {"capacity": {"chips": chips}}})
 
 
+def pod_chips(pod: Dict[str, Any]) -> int:
+    """The cards a pod holds: its ``spec.chips`` (the drivers' own pods), or
+    the ``nvidia.com/gpu`` limits of its containers."""
+    spec = pod.get("spec") or {}
+    if "chips" in spec:
+        return int(spec["chips"])
+    return sum(int(((c.get("resources") or {}).get("limits") or {}).get(RESOURCE_GPU, 0))
+               for c in spec.get("containers") or ())
+
+
 def _free_chips(client: PodClient) -> Dict[str, int]:
     free = {name_of(n): int(n["status"]["capacity"]["chips"])
             for n in client.list("v1", "Node") if not is_quarantined(n)}
     for pod in client.list("v1", "Pod"):
         node = (pod.get("spec") or {}).get("nodeName")
         if node in free:
-            free[node] -= int(pod["spec"]["chips"])
+            free[node] -= pod_chips(pod)
     return free
+
+
+def _first_fit(client: PodClient, chips: List[int]) -> Optional[List[str]]:
+    free = _free_chips(client)
+    nodes = []
+    for want in chips:
+        fit = next((n for n in sorted(free) if free[n] >= want), None)
+        if fit is None:
+            return None
+        free[fit] -= want
+        nodes.append(fit)
+    return nodes
 
 
 def place_gang(client: PodClient, gang: str, pods: int, chips: int,
@@ -129,14 +164,9 @@ def place_gang(client: PodClient, gang: str, pods: int, chips: int,
     """Bind ``pods`` pods of ``chips`` each, all or none, first fit over the
     nodes that are not quarantined; the pod names, or None if it does not
     fit now."""
-    free = _free_chips(client)
-    nodes = []
-    for _ in range(pods):
-        fit = next((n for n in sorted(free) if free[n] >= chips), None)
-        if fit is None:
-            return None
-        free[fit] -= chips
-        nodes.append(fit)
+    nodes = _first_fit(client, [chips] * pods)
+    if nodes is None:
+        return None
     names = [f"{gang}-{i}" for i in range(pods)]
     annotations = {POD_GROUP_SIZE_ANNOTATION: str(pods)}
     if grace is not None:
@@ -149,6 +179,22 @@ def place_gang(client: PodClient, gang: str, pods: int, chips: int,
                        "spec": {"nodeName": node, "chips": chips},
                        "status": {"phase": "Running"}})
     return names
+
+
+def bind_pending(client: PodClient, gang: str) -> Optional[List[str]]:
+    """Bind the gang's existing unbound pods with their own cards, all or
+    none, first fit as :func:`place_gang`; their names (empty if none
+    waits), or None if they do not fit now."""
+    waiting = [p for p in client.list("v1", "Pod", NAMESPACE,
+                                      label_selector={POD_GROUP_LABEL: gang})
+               if not (p.get("spec") or {}).get("nodeName")]
+    nodes = _first_fit(client, [pod_chips(p) for p in waiting])
+    if nodes is None:
+        return None
+    for pod, node in zip(waiting, nodes):
+        client.patch("v1", "Pod", name_of(pod),
+                     {"spec": {"nodeName": node}, "status": {"phase": "Running"}}, NAMESPACE)
+    return [name_of(p) for p in waiting]
 
 
 def preempt_gang(client: PodClient, pods: Sequence[str], grace: float) -> None:

@@ -36,11 +36,10 @@ import json
 import sys
 import threading
 import time
-import urllib.error
-import urllib.request
 from typing import Any, Dict
 
 from ..device import DeviceLike
+from ._http import get, metric_value, poll, post
 
 REPLICAS = 2
 SLOTS = 4
@@ -49,53 +48,6 @@ PREFILL_CHUNK = 64
 SPEC_K = 4
 LONG_PROMPT = 300  # past PREFILL_BUCKETS[-1] = 256 -> must chunk
 CHATTY = 6
-
-
-def _get(url: str) -> bytes:
-    with urllib.request.urlopen(url, timeout=60) as resp:
-        return resp.read()
-
-
-def _post(url: str, body: dict, timeout: float = 300.0) -> tuple:
-    """POST returning ``(status, parsed_body)``: 4xx/5xx are observations,
-    not exceptions."""
-    req = urllib.request.Request(
-        url, json.dumps(body).encode(), {"content-type": "application/json"})
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return resp.status, json.loads(resp.read())
-    except urllib.error.HTTPError as e:
-        raw = e.read()
-        try:
-            parsed = json.loads(raw)
-        except ValueError:
-            parsed = {"raw": raw.decode(errors="replace")}
-        return e.code, parsed
-
-
-def _poll(fn, timeout: float = 30.0, interval: float = 0.05, desc: str = "condition"):
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        value = fn()
-        if value:
-            return value
-        time.sleep(interval)
-    raise AssertionError(f"timed out after {timeout}s waiting for {desc}")
-
-
-def _metric_value(text: str, name: str, **labels) -> float:
-    """The sum of every sample of ``name`` whose labels include ``labels``
-    in an exposition text."""
-    total = 0.0
-    for line in text.splitlines():
-        if not line.startswith(name):
-            continue
-        rest = line[len(name):]
-        if rest[:1] not in ("{", " "):
-            continue
-        if all(f'{k}="{v}"' in rest for k, v in labels.items()):
-            total += float(line.split(" # ")[0].rsplit(" ", 1)[1])
-    return total
 
 
 class _FirstChunkGate:
@@ -166,23 +118,23 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
         # -- (1) greedy parity + determinism on short prompts ---------------
         short_ref = oracle(chatty_prompts[0])
         for _ in range(3):
-            status, out = _post(url, {"instances": [chatty_prompts[0]]})
+            status, _h, out = post(url, {"instances": [chatty_prompts[0]]}, timeout=300.0)
             assert status == 200, f"warmup got {status}: {out}"
             assert out["predictions"][0] == short_ref, \
                 "paged+spec greedy decode must match the static oracle"
 
         # -- (2) over-bucket prompt serves through chunked prefill ----------
         long_ref = oracle(long_prompt)
-        chunks_before = _metric_value(
-            _get(f"{base}/metrics").decode(), "serving_prefill_chunks_total")
+        chunks_before = metric_value(
+            get(f"{base}/metrics").decode(), "serving_prefill_chunks_total")
         t0 = time.monotonic()
-        status, out = _post(url, {"instances": [long_prompt]})
+        status, _h, out = post(url, {"instances": [long_prompt]}, timeout=300.0)
         solo_long_s = time.monotonic() - t0
         assert status == 200, f"over-bucket prompt got {status}: {out}"
         assert out["predictions"][0] == long_ref, \
             "chunked prefill must be bit-identical to the static oracle"
-        chunks_after = _metric_value(
-            _get(f"{base}/metrics").decode(), "serving_prefill_chunks_total")
+        chunks_after = metric_value(
+            get(f"{base}/metrics").decode(), "serving_prefill_chunks_total")
         min_chunks = LONG_PROMPT // PREFILL_CHUNK
         assert chunks_after - chunks_before >= min_chunks, \
             f"expected >= {min_chunks} prefill chunks, " \
@@ -197,11 +149,12 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
 
         def long_client() -> None:
             t = time.monotonic()
-            long_wall[0] = (_post(url, {"instances": [long_prompt]}), time.monotonic() - t)
+            long_wall[0] = (post(url, {"instances": [long_prompt]}, timeout=300.0),
+                            time.monotonic() - t)
 
         def chatty_client(i: int) -> None:
             t = time.monotonic()
-            chatty_out[i] = (_post(url, {"instances": [chatty_prompts[i]]}),
+            chatty_out[i] = (post(url, {"instances": [chatty_prompts[i]]}, timeout=300.0),
                              time.monotonic() - t)
 
         lt = threading.Thread(target=long_client)
@@ -214,11 +167,11 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
         for t in cts:
             t.join(timeout=300)
         assert not lt.is_alive() and not any(t.is_alive() for t in cts), "client threads hung"
-        (l_status, l_out), l_seconds = long_wall[0]
+        (l_status, _h, l_out), l_seconds = long_wall[0]
         assert l_status == 200, f"long prompt under load got {l_status}"
         assert l_out["predictions"][0] == long_ref
         chatty_seconds = []
-        for i, ((status, out), seconds) in enumerate(chatty_out):
+        for i, ((status, _h, out), seconds) in enumerate(chatty_out):
             assert status == 200, f"chatty[{i}] got {status}: {out}"
             assert out["predictions"][0] == chatty_refs[i], \
                 f"chatty[{i}] diverged from the static oracle under load"
@@ -259,9 +212,9 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
                                       for r in chatty_reqs), 3)}
 
         # -- (4) speculation actually ran -----------------------------------
-        text = _get(f"{base}/metrics").decode()
-        drafted = _metric_value(text, "serving_spec_tokens_drafted_total")
-        accepted = _metric_value(text, "serving_spec_tokens_accepted_total")
+        text = get(f"{base}/metrics").decode()
+        drafted = metric_value(text, "serving_spec_tokens_drafted_total")
+        accepted = metric_value(text, "serving_spec_tokens_accepted_total")
         assert drafted > 0, "draft model never proposed a token"
         assert 0 < accepted <= drafted, f"accepted={accepted} drafted={drafted}"
         report["spec"] = {"drafted": drafted, "accepted": accepted,
@@ -269,11 +222,11 @@ def run(device: DeviceLike = "cuda") -> Dict[str, Any]:
 
         # -- (5) every KV block reclaimed after the burst -------------------
         def blocks_reclaimed():
-            t = _get(f"{base}/metrics").decode()
-            return _metric_value(t, "serving_kv_blocks_used") == 0.0
+            t = get(f"{base}/metrics").decode()
+            return metric_value(t, "serving_kv_blocks_used") == 0.0
 
-        _poll(blocks_reclaimed, timeout=30.0, desc="serving_kv_blocks_used to drain to zero")
-        free = _metric_value(_get(f"{base}/metrics").decode(), "serving_kv_blocks_free")
+        poll(blocks_reclaimed, timeout=30.0, interval=0.05, desc="serving_kv_blocks_used to drain to zero")
+        free = metric_value(get(f"{base}/metrics").decode(), "serving_kv_blocks_free")
         assert free > 0, "serving_kv_blocks_free gauge missing"
         report["kv_blocks_free_after_drain"] = free
         return report

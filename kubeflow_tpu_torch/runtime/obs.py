@@ -54,6 +54,13 @@ def register_debug_source(name: str, handler: Callable[[Request], Any]) -> None:
     _DEBUG_SOURCES[name] = handler
 
 
+def unregister_debug_source(name: str, handler: Callable[[Request], Any]) -> None:
+    """Remove ``name``'s registration if it is still ``handler`` (a later
+    registration of the name stays)."""
+    if _DEBUG_SOURCES.get(name) is handler:
+        _DEBUG_SOURCES.pop(name, None)
+
+
 # -- /debug/stacks: all-thread stack dumps -------------------------------------
 
 #: bounded history of captured dumps, newest last

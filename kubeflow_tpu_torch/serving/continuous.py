@@ -784,6 +784,19 @@ class ContinuousBatcher:
                 # worker to reap and fail it
                 req.result(timeout=max(0.0, deadline - time.monotonic()) + 5.0)
 
+    @property
+    def closed(self) -> bool:
+        """The engine refuses work: closed, drained, or failed a step."""
+        return self._closed
+
+    def poke(self) -> None:
+        """Wake an idle worker for one iteration (an empty wave), so a
+        ``fail_next_step`` set while idle fires now, not on the next
+        request, which it would fail."""
+        with self._lock:
+            if not self._closed:
+                self._queue.put([])
+
     def close(self) -> None:
         with self._lock:
             self._closed = True

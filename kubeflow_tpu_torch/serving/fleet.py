@@ -33,10 +33,15 @@ sends it to the least-loaded decode replica of the same model through
 several models over the same pools; ``model_slo`` maps a model to its
 default admission class.
 
-Left out: the JAX fleet's Pod path (``client=``: a Pod per replica through
-the gang scheduler, and a watcher that drains preempted replicas). It
-drives the JAX control plane, which is not compute (ROADMAP.md queue A,
-not ported by design).
+Pods: with ``client`` set (a duck type with JAX's ``create_or_get``,
+``get_opt`` and ``delete_opt``), each replica also gets a Pod of a gang of
+one asking for ``replica_chips`` ``nvidia.com/gpu`` cards at
+``priority_class``. The replica starts ``pending`` and becomes routable
+when the Pod binds to a node (its cold start ends there); a watcher thread
+turns a deleted, ``Failed`` or ``Succeeded`` Pod into a drain (reason
+``preempted``) and re-creates a replica up to the last ``scale_to``
+target, so it re-enters the scheduler's queue. Drains and ``close`` delete
+the Pod.
 """
 
 from __future__ import annotations
@@ -50,9 +55,11 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..device import DeviceLike, resolve_device
+from ..gpu.topology import RESOURCE_GPU
 from ..runtime.metrics import METRICS
-from ..runtime.obs import register_debug_source
+from ..runtime.obs import register_debug_source, unregister_debug_source
 from ..runtime.tracing import TRACER
+from ..scheduler.gang import POD_GROUP_LABEL, POD_GROUP_SIZE_ANNOTATION
 from .errors import DeadlineExceeded, FleetSaturated
 from .router import PrefixRouter
 
@@ -64,6 +71,12 @@ COLD_START_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120
 
 #: how long a bridge waits on the survivor for a request with NO deadline
 BRIDGE_TIMEOUT_S = 600.0
+
+#: ceiling for the Pod watcher's crash-restart backoff
+WATCHER_BACKOFF_CAP_S = 5.0
+
+#: the client methods the Pod path calls
+POD_CLIENT_METHODS = ("create_or_get", "get_opt", "delete_opt")
 
 #: breaker gauge encoding for ``fleet_breaker_state{replica}``
 BREAKER_STATE_CODES = {"closed": 0, "open": 1, "half_open": 2}
@@ -176,13 +189,15 @@ class ReplicaHandle:
     id: str
     engine: Any
     gauge_id: str  # the engine's ``replica`` gauge label
-    state: str = "ready"  # ready | draining | stopped
+    state: str = "pending"  # pending | ready | draining | stopped
     role: str = "unified"  # unified | prefill | decode
     model_id: str = ""  # the multiplexed model it serves ("" = the only one)
     #: LRU of prefix keys routed here (contents owned by PrefixRouter)
     prefixes: "collections.OrderedDict" = field(default_factory=collections.OrderedDict)
     started_at: float = field(default_factory=time.monotonic)
     breaker: ReplicaBreaker = field(default_factory=ReplicaBreaker)
+    pod_name: Optional[str] = None
+    node: Optional[str] = None
 
 
 class EngineFleet:
@@ -192,8 +207,9 @@ class EngineFleet:
     defaults to building a :class:`ContinuousBatcher` on ``device`` from
     ``cfg``/``params`` (or ``models[model_id]``) with ``slots``, ``chunk``,
     ``pipeline`` and ``engine_kwargs``; tests inject fakes (a factory that
-    takes only the engine id builds unified, single-model fleets). Every
-    replica is routable as soon as its engine is built.
+    takes only the engine id builds unified, single-model fleets). Without
+    ``client`` every replica is routable as soon as its engine is built;
+    with one, once its Pod binds (the module's docstring).
     """
 
     #: attempts per submit (first + retries); each retry also needs a
@@ -211,14 +227,15 @@ class EngineFleet:
                  models: Optional[Dict[str, Tuple[Any, Any]]] = None,
                  model_slo: Optional[Dict[str, str]] = None,
                  client: Any = None, namespace: str = "default",
-                 register_debug: bool = True,
+                 replica_chips: int = 0, priority_class: str = "default",
+                 poll_interval: float = 0.2, register_debug: bool = True,
                  breaker_factory: Optional[Callable[[], ReplicaBreaker]] = None,
                  retry_budget: Optional[RetryBudget] = None,
                  device: DeviceLike = "cuda"):
         if client is not None:
-            raise NotImplementedError(
-                "EngineFleet(client=...): the Pod-per-replica path drives the JAX "
-                "control plane and is not ported (ROADMAP.md queue A, not ported by design)")
+            missing = [m for m in POD_CLIENT_METHODS if not callable(getattr(client, m, None))]
+            if missing:
+                raise TypeError(f"EngineFleet(client=...): the client lacks {missing}")
         self.device = resolve_device(device)
         self.name = name
         self._breaker_factory = breaker_factory or ReplicaBreaker
@@ -226,7 +243,11 @@ class EngineFleet:
         self.min_replicas = max(1, int(min_replicas))
         self.max_replicas = max(self.min_replicas, int(max_replicas))
         self.router = router or PrefixRouter()
+        self._client = client
         self._namespace = namespace
+        self._replica_chips = int(replica_chips)
+        self._priority_class = priority_class
+        self._poll_interval = poll_interval
         if pools is not None:
             if (set(pools) != {"prefill", "decode"}
                     or any(int(n) < 1 for n in pools.values())):
@@ -272,6 +293,9 @@ class EngineFleet:
         #: recent drains and scale actions for /debug/fleet
         self._drains: "collections.deque" = collections.deque(maxlen=32)
         self._scale_log: "collections.deque" = collections.deque(maxlen=32)
+        #: the last scale_to target a (role, model): the watcher restores a
+        #: preempted replica's pool to it
+        self._targets: Dict[Tuple[str, str], int] = {}
         if self._pools_cfg:
             # each pool keeps >= 1 replica per model: a fleet without a
             # prefill (or a decode) replica can serve nothing
@@ -284,18 +308,29 @@ class EngineFleet:
             self._pool_max = {"unified": self.max_replicas}
             self.scale_to(max(self.min_replicas, min(int(replicas), self.max_replicas)),
                           reason="initial")
+        self._watcher: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        if client is not None:
+            self._watcher = threading.Thread(target=self._watch_pods,
+                                             name=f"{name}-pod-watcher", daemon=True)
+            self._watcher.start()
+        #: the /debug/fleet handler, unregistered by close(): the registry is
+        #: process-global, and a closed fleet it held would keep its engines'
+        #: weights alive
+        self._debug_handler: Optional[Callable[[Any], Dict[str, Any]]] = None
         if register_debug:
-            register_debug_source("fleet", lambda query: self.debug_snapshot())
+            self._debug_handler = lambda query: self.debug_snapshot()
+            register_debug_source("fleet", self._debug_handler)
 
     # -- sizing --------------------------------------------------------------
     @property
     def desired_replicas(self) -> int:
         with self._lock:
-            return sum(1 for h in self._replicas.values() if h.state == "ready")
+            return sum(1 for h in self._replicas.values() if h.state in ("pending", "ready"))
 
     def live_handles(self) -> List[ReplicaHandle]:
         with self._lock:
-            return [h for h in self._replicas.values() if h.state == "ready"]
+            return [h for h in self._replicas.values() if h.state in ("pending", "ready")]
 
     @property
     def pools(self) -> Optional[Dict[str, int]]:
@@ -310,7 +345,8 @@ class EngineFleet:
     def _pool_handles(self, role: str, model_id: str) -> List[ReplicaHandle]:
         """Caller holds the lock."""
         return [h for h in self._replicas.values()
-                if h.role == role and h.model_id == model_id and h.state == "ready"]
+                if h.role == role and h.model_id == model_id
+                and h.state in ("pending", "ready")]
 
     def pool_size(self, pool: Optional[str] = None) -> int:
         """Live replicas in ``pool``, per model (every model keeps the same
@@ -334,6 +370,7 @@ class EngineFleet:
             if self._closed:
                 return
             for mid in self._model_ids:
+                self._targets[(role, mid)] = n
                 handles = self._pool_handles(role, mid)
                 current = len(handles)
                 while current < n:
@@ -367,10 +404,20 @@ class EngineFleet:
                                model_id=model_id, started_at=created_at,
                                breaker=self._breaker_factory())
         METRICS.gauge("fleet_breaker_state", replica=gauge_id).set(handle.breaker.state_code)
-        METRICS.histogram("fleet_replica_cold_start_seconds", buckets=COLD_START_BUCKETS
-                          ).observe(time.monotonic() - created_at)
+        if self._client is not None:
+            handle.pod_name = gauge_id
+            self._client.create_or_get(self._pod_body(handle))
+            handle.state = "pending"  # routable once its Pod binds
+        else:
+            handle.state = "ready"
+            self._observe_cold_start(handle)
         self._replicas[rid] = handle
         return handle
+
+    @staticmethod
+    def _observe_cold_start(handle: ReplicaHandle) -> None:
+        METRICS.histogram("fleet_replica_cold_start_seconds", buckets=COLD_START_BUCKETS
+                          ).observe(time.monotonic() - handle.started_at)
 
     def _set_replica_gauge(self) -> None:
         METRICS.gauge("fleet_replicas").set(self.desired_replicas)
@@ -378,8 +425,91 @@ class EngineFleet:
             with self._lock:
                 for role in self._pools_cfg:
                     n = sum(1 for h in self._replicas.values()
-                            if h.role == role and h.state == "ready")
+                            if h.role == role and h.state in ("pending", "ready"))
                     METRICS.gauge("fleet_pool_replicas", pool=role).set(n)
+
+    # -- Pods ------------------------------------------------------------------
+    def _pod_body(self, handle: ReplicaHandle) -> Dict[str, Any]:
+        """JAX's replica Pod, field for field, asking for ``nvidia.com/gpu``
+        cards where JAX asks for ``google.com/tpu`` chips; it takes no
+        ``metrics_url``, so it carries none of JAX's scrape annotations
+        (nothing in the port scrapes)."""
+        container: Dict[str, Any] = {"name": "engine", "image": "kubeflow-tpu/model-server"}
+        if self._replica_chips > 0:
+            container["resources"] = {"limits": {RESOURCE_GPU: str(self._replica_chips)}}
+        meta: Dict[str, Any] = {"name": handle.pod_name}
+        if self._namespace is not None:
+            meta["namespace"] = self._namespace
+        meta["labels"] = {POD_GROUP_LABEL: handle.pod_name, "app": "serving-fleet",
+                          "fleet": self.name}
+        meta["annotations"] = {POD_GROUP_SIZE_ANNOTATION: "1"}
+        return {"apiVersion": "v1", "kind": "Pod", "metadata": meta,
+                "spec": {"priorityClassName": self._priority_class,
+                         "containers": [container]}}
+
+    def _watch_pods(self) -> None:
+        """Thread target: the poll loop, restarted with exponential backoff
+        (and counted) when it raises, so the one thread that notices
+        preempted replicas never dies silently."""
+        backoff = max(self._poll_interval, 0.01)
+        while not self._stop.is_set():
+            try:
+                self._watch_pods_loop()
+                return  # _stop set: clean shutdown
+            except Exception:
+                LOG.exception("fleet %s: pod watcher crashed; restarting in %.2fs",
+                              self.name, backoff)
+                METRICS.counter("fleet_watcher_restarts_total").inc()
+                if self._stop.wait(backoff):
+                    return
+                backoff = min(backoff * 2, WATCHER_BACKOFF_CAP_S)
+
+    def _watch_pods_loop(self) -> None:
+        """Poll the replicas' Pods: a bind promotes pending → ready; a
+        deleted or finished Pod drains the replica and re-creates one up to
+        the pool's last target."""
+        while not self._stop.wait(self._poll_interval):
+            with self._lock:
+                handles = list(self._replicas.values())
+            for h in handles:
+                if h.pod_name is None or h.state in ("draining", "stopped"):
+                    continue
+                try:
+                    pod = self._client.get_opt("v1", "Pod", h.pod_name, self._namespace)
+                except Exception:
+                    continue  # an apiserver hiccup: keep the last known state
+                phase = ((pod or {}).get("status") or {}).get("phase")
+                if pod is None or phase in ("Failed", "Succeeded"):
+                    self.drain_replica(h.id, reason="preempted")
+                    with self._lock:
+                        tgt = self._targets.get((h.role, h.model_id), 0)
+                        if (not self._closed
+                                and len(self._pool_handles(h.role, h.model_id)) < tgt):
+                            self._add_replica(role=h.role, model_id=h.model_id)
+                    self._set_replica_gauge()
+                    continue
+                node = (pod.get("spec") or {}).get("nodeName")
+                if h.state == "pending" and node:
+                    promoted = False
+                    with self._lock:
+                        if h.state == "pending":
+                            h.state = "ready"
+                            h.node = node
+                            promoted = True
+                    if promoted:
+                        self._observe_cold_start(h)
+
+    def wait_ready(self, n: Optional[int] = None, timeout: float = 30.0) -> bool:
+        """Block until ``n`` (default: every live one) replicas are routable."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._lock:
+                ready = sum(1 for h in self._replicas.values() if h.state == "ready")
+                want = n if n is not None else self.desired_replicas
+            if ready >= want:
+                return True
+            time.sleep(0.02)
+        return False
 
     # -- request path --------------------------------------------------------
     def _record_outcome(self, handle: ReplicaHandle, ok: bool) -> None:
@@ -526,6 +656,11 @@ class EngineFleet:
             handle.state = "stopped"
             handle.prefixes.clear()  # its KV is gone with it
             self._replicas.pop(rid, None)
+        if handle.pod_name is not None:
+            try:
+                self._client.delete_opt("v1", "Pod", handle.pod_name, self._namespace)
+            except Exception:  # a preemption may have deleted it already
+                LOG.exception("fleet %s: delete of pod %s failed", self.name, handle.pod_name)
         self._drains.append({"replica": handle.gauge_id, "reason": reason,
                              "seconds": round(drain_s, 4), "requeued": requeued,
                              "at": time.time()})
@@ -627,11 +762,21 @@ class EngineFleet:
             self._closed = True
             handles = list(self._replicas.values())
             self._replicas.clear()
+        self._stop.set()
+        if self._watcher is not None:
+            self._watcher.join(timeout=10)
+        if self._debug_handler is not None:
+            unregister_debug_source("fleet", self._debug_handler)
         for h in handles:
             try:
                 h.engine.close()
             except Exception:  # one replica's close must not leave the others running
                 LOG.exception("fleet %s: close of replica %s failed", self.name, h.gauge_id)
+            if h.pod_name is not None:
+                try:
+                    self._client.delete_opt("v1", "Pod", h.pod_name, self._namespace)
+                except Exception:
+                    LOG.exception("fleet %s: delete of pod %s failed", self.name, h.pod_name)
         self._set_replica_gauge()
 
     # -- debug surface -------------------------------------------------------
@@ -649,9 +794,8 @@ class EngineFleet:
                 "slot_occupancy": reg.value("serving_slot_occupancy", replica=h.gauge_id),
                 "warm_prefixes": len(h.prefixes),
                 "breaker": h.breaker.state,
-                # the JAX fleet's Pod fields; the port runs no Pods
-                "pod": None,
-                "node": None,
+                "pod": h.pod_name,
+                "node": h.node,
             } for h in self._replicas.values()]
             scale_log = list(self._scale_log)
             drains = list(self._drains)

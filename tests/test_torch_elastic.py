@@ -217,7 +217,10 @@ def _wait(pred, timeout=15.0, desc="condition"):
 def test_handler_speaks_the_scheduler_drain_protocol():
     """A notebook gang preempts a drain-graced trial gang: JAX's scheduler
     stamps the deadline, the port's handler sees it and acks, and the
-    scheduler evicts at once (long before the 30 s grace)."""
+    scheduler evicts at once (long before the 30 s grace) and counts an
+    acked drain. It deletes the victims before it counts the drain
+    (``kubeflow_tpu/scheduler/core.py:543-553``), so the count is awaited as
+    a difference from the count before, not read at the deletion."""
     from kubeflow_tpu.controllers.builtin import PodletReconciler, make_tpu_node
     from kubeflow_tpu.runtime.manager import Manager
     from kubeflow_tpu.runtime.metrics import METRICS as J_METRICS
@@ -229,6 +232,11 @@ def test_handler_speaks_the_scheduler_drain_protocol():
     client = mgr.client
     client.create(make_tpu_node("tpu-node-0", "v5e", "2x4", 4))
     client.create(make_tpu_node("tpu-node-1", "v5e", "2x4", 4))
+
+    def acked_drains():
+        return J_METRICS.value("scheduler_drains_completed_total", outcome="acked")
+
+    acked_before = acked_drains()
     mgr.start()
     try:
         names = [f"trial-{i}" for i in range(2)]
@@ -247,7 +255,7 @@ def test_handler_speaks_the_scheduler_drain_protocol():
         _wait(lambda: client.get_opt("v1", "Pod", "trial-0", "default") is None,
               desc="victims evicted after the ack")
         assert time.monotonic() - t0 < 15.0
-        assert J_METRICS.value("scheduler_drains_completed_total", outcome="acked") >= 1
+        _wait(lambda: acked_drains() >= acked_before + 1, desc="the acked drain counted")
     finally:
         mgr.stop()
 

@@ -11,7 +11,9 @@ replica's queued imports are imported again (not prefilled again),
 ``scale_to`` grows and shrinks pools with their gauges, ``debug_snapshot``
 has the JAX fleet's keys, a replica poisoned by ``fail_next_step`` opens
 its breaker (as on the JAX fleet) and later requests land on the survivor,
-and replicas share one set of weight tensors.
+a crash the port's ``ChaosMonkey`` fires at an idle replica closes it at
+once and the others serve every request after it, and replicas share one
+set of weight tensors.
 """
 
 import threading
@@ -306,3 +308,55 @@ def test_a_poisoned_replica_opens_its_breaker_as_on_the_jax_fleet(weights):
     assert got[2:5] == ["open", "closed", 1.0]
     assert got[5] == [_want(cfg, tp[0], p) for p in _prompts([(11, 6), (12, 9), (13, 17)])]
     assert got[6] == [1, 3] and got[7] is True
+
+
+def test_a_crash_fired_at_an_idle_replica_closes_it_at_once(weights):
+    """JAX's injector leaves an idle replica's poison for the next request
+    routed there, which it fails (a 503 through the server); the port's
+    pokes the engine, so the replica is closed before any request and the
+    fleet routes every one around it."""
+    from kubeflow_tpu_torch.runtime.chaos import ChaosMonkey, ChaosSchedule, Fault
+
+    _, _, cfg, tp = weights
+    fleet = EngineFleet(cfg, tp[0], replicas=2, name="cx", device="cpu", **FLEET)
+    try:
+        h0, h1 = fleet.live_handles()
+        ChaosMonkey(ChaosSchedule([]), fleet=fleet).inject(
+            Fault(at=0.0, kind="crash_replica_mid_decode", target=h0.gauge_id))
+        _wait_for(lambda: h0.engine.closed, timeout=15, desc="the crashed replica to close")
+        assert not h1.engine.closed
+        futs = [fleet.submit(p, BUDGET) for p in _prompts()]
+        assert [[int(t) for t in f.result(timeout=120)] for f in futs] == [
+            _want(cfg, tp[0], p) for p in _prompts()]
+        assert [h.gauge_id for h in fleet.live_handles()] == [h1.gauge_id]
+    finally:
+        fleet.close()
+
+
+def test_close_releases_the_fleet_from_the_debug_registry():
+    """``/debug/fleet``'s process-global registration held a closed fleet,
+    and through its engine factory the weights (on the card: GPT-small's
+    ~500 MB after the overload driver returned). ``close`` unregisters its
+    own handler only: a later fleet's registration stays."""
+    import gc
+    import weakref
+
+    from kubeflow_tpu_torch.runtime import obs
+
+    first = EngineFleet(replicas=1, name="one", engine_factory=_Fake, device="cpu")
+    second = EngineFleet(replicas=1, name="two", engine_factory=_Fake, device="cpu")
+    try:
+        assert obs._DEBUG_SOURCES["fleet"](None)["fleet"] == "two"
+        first.close()
+        assert obs._DEBUG_SOURCES["fleet"](None)["fleet"] == "two"
+        gone = weakref.ref(first)
+        del first
+        gc.collect()
+        assert gone() is None
+    finally:
+        second.close()
+    assert "fleet" not in obs._DEBUG_SOURCES
+    gone = weakref.ref(second)
+    del second
+    gc.collect()
+    assert gone() is None

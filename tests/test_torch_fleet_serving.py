@@ -9,6 +9,8 @@ gets none and when a plain one gets one, on both packages alike;
 503 with the JAX server's ``Retry-After``. ``GenerativeModel`` builds a
 fleet exactly when JAX's ``_wants_fleet`` does, and
 ``python -m kubeflow_tpu_torch.serving.server --replicas 2`` serves one.
+At GPT-tiny (bf16) with JAX's weights converted, a 3-replica fleet serves
+the JAX fleet's tokens for the fleet driver's prompt.
 """
 
 import json
@@ -261,3 +263,33 @@ def test_main_serves_a_fleet_of_two():
         proc.wait(timeout=30)
         proc.stdout.close()
         proc.stderr.close()
+
+
+def test_gpt_tiny_fleet_equals_the_jax_fleet():
+    """The fleet driver's servable (GPT-tiny, bf16, 3 replicas of 2 slots,
+    24 new tokens) with JAX's seeded weights converted: the port's fleet
+    serves the JAX fleet's tokens for the driver's prompt, exactly."""
+    from kubeflow_tpu.serving.server import gpt_served_model as jax_gpt_served
+    from kubeflow_tpu_torch.e2e import fleet_driver
+
+    jm = jax_gpt_served(name="gen", tiny=True, max_new_tokens=fleet_driver.BUDGET,
+                        replicas=fleet_driver.REPLICAS)
+    jm.slots = fleet_driver.SLOTS
+    cfg = GptConfig.tiny()
+    tm = GenerativeModel(name="gen", apply_fn=None,
+                         params=params_from_flax(jax.tree_util.tree_map(np.asarray, jm.params),
+                                                 cfg),
+                         cfg=cfg, max_new_tokens=fleet_driver.BUDGET,
+                         replicas=fleet_driver.REPLICAS, slots=fleet_driver.SLOTS,
+                         device="cpu")
+    jserved, served = Served(jm, JServer), Served(tm, ModelServer)
+    try:
+        body = {"instances": [list(range(1, 9))]}
+        js, jbody, _ = jserved.post(body)
+        status, out, _ = served.post(body)
+        assert (status, js) == (200, 200)
+        assert out["predictions"] == jbody["predictions"]
+        assert len(out["predictions"][0]) == 8 + fleet_driver.BUDGET
+    finally:
+        jserved.close()
+        served.close()

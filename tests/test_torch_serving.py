@@ -245,7 +245,12 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 92
+    assert len(mods) >= 98
+    assert {"kubeflow_tpu_torch.runtime.chaos", "kubeflow_tpu_torch.e2e._http",
+            "kubeflow_tpu_torch.e2e.serving_driver",
+            "kubeflow_tpu_torch.e2e.observability_driver",
+            "kubeflow_tpu_torch.e2e.fleet_driver",
+            "kubeflow_tpu_torch.e2e.overload_driver"} <= set(mods)
     assert {"kubeflow_tpu_torch.training.attribution", "kubeflow_tpu_torch.training.autotune",
             "kubeflow_tpu_torch.e2e.attribution_driver", "kubeflow_tpu_torch.gpu.env",
             "kubeflow_tpu_torch.training.elastic", "kubeflow_tpu_torch.training.heartbeat",
