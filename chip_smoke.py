@@ -49,7 +49,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              ``kv_block_update_quant`` never): tokens identical to the int8
              plain run; agreement with the bf16 tokens is printed;
 5a. serve_chunked — in each layout (paged bf16, contiguous, int8), kernels
-             on, the default chunk 256: ``prewarm(16)``, then the 8 prompts
+             on, the default chunk 256: ``prewarm(16)`` (the paged engine's
+             alone, before the three), then the 8 prompts
              and a 1,500-token one (6 chunks) at once, 32 new tokens each:
              the pair kernel 12 launches a decode step and the one-array
              wrapper none, 6 prefill chunks, the 8 outputs equal to that
@@ -333,7 +334,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              (JAX's ``FsdpConfig`` defaults, batch 8) in both, 3 SGD steps
              each: falling losses, ``eager`` and ``overlap`` the same bits
              in both steps, ``amortized`` within 1e-5 of ``eager``; step ms.
-             Phases 19i-19k run after 23a, before kv_probe;
+             Phases 19i-19k run after 24a, before kv_probe;
 23a. serving_drivers — the serving fleet under faults, each run with the
              counts reset just before and read just after: the overload
              driver at GPT-small (``overload_driver.run(tiny=False)``: 3
@@ -354,6 +355,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              GPT run ``kv_block_update_pair`` one a layer a decode step
              (12 at GPT-small) and no other KV write, the serving driver's
              BERT one ``flash_fwd`` a layer a forward. Runs after 5g;
+24a. monitoring — the port's monitoring driver at GPT-small
+             (``monitoring_driver.run(tiny=False)``), the counts reset just
+             before and read just after: a 2-replica Pod-path fleet whose
+             Pods carry ``metrics_url``'s scrape annotations, and two ops
+             processes of the port's metrics, scraped by one
+             ``MonitoringPlane`` (three targets up, ``/federate`` parsed);
+             a slowed fleet fires the ``TtftBurn`` burn-rate alert (ONE
+             deduplicated Warning Event, count >= 2) and
+             ``SLOAutoscaler(source=FederatedWindowSource(plane.tsdb))``
+             scales it 2 → 3; fast traffic resolves the alert (one Normal
+             ``TtftBurnResolved``); the platform overview reads the three
+             targets and a federated TTFT p99; ``kv_block_update_pair`` 12
+             a decode step and no other KV write. Prints the fire and
+             resolve ticks, the Event count, the scale-up's cold start and
+             the fast and slowed TTFT p50. Runs after 23a;
 21a. tiny_paths — the entry points that run the flash kernels at head_dim
              16, each with the counts reset just before and read just
              after: ``GptConfig.tiny()`` trained 3 AdamW steps through the
@@ -418,7 +434,8 @@ phase 22a's fused-block and flash launches (its sweeps' candidates and
 runs), phase 19i's KV and flash launches (its kernel runs), phase 19j's
 flash launches (the block steps' checked run and the one-rank ring),
 phase 21a's flash launches (its four paths),
-phase 23a's KV and flash launches (its drivers' and the Pod fleet's) and
+phase 23a's KV and flash launches (its drivers' and the Pod fleet's),
+phase 24a's KV launches (the monitoring driver's fleet) and
 phase 20a's fused-block launches (its mesh run):
 that line's count is
 then a sum over several runs, and each path's own count is on its run's
@@ -429,8 +446,11 @@ the largest over the shapes. Every device time read from torch.profiler
 comes from a window that kept the records it is read from: a window that
 lost some (a launch call with no kernel record) is taken again, and the
 line ``profiler_windows`` before the kernels line lists every window's
-launch calls and lost records. Every phase runs on every call;
-the last line is ``{"ok": true, "device": {...}}``.
+launch calls and lost records. GPT-small's seeded weights are drawn once
+a seed (``small_params``) and shared, read-only, by every phase that
+serves or probes GPT-small, and ``generate()``'s reference tokens for a
+long prompt once a prompt (``generate_ref``). Every phase runs on every
+call; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1003,6 +1023,36 @@ def top2_gap(cfg, params, prompt, path, step: int) -> float:
     return float(top2[0] - top2[1])
 
 
+#: GPT-small's seeded weights on the card, by seed (``small_params``)
+_SMALL_PARAMS: dict = {}
+#: generate()'s greedy tokens, by (weights, prompt bytes) (``generate_ref``)
+_GENERATED: dict = {}
+
+
+def small_params(seed: int = 0):
+    """GPT-small's seeded weights on the card, drawn once a seed and shared,
+    read-only, by every phase that serves or probes GPT-small (each phase
+    used to draw its own: the same bits, drawn on the host again)."""
+    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+
+    if seed not in _SMALL_PARAMS:
+        _SMALL_PARAMS[seed] = init_params(GptConfig.small(), seed=seed, device="cuda")
+    return _SMALL_PARAMS[seed]
+
+
+def generate_ref(cfg, params, prompt) -> list:
+    """The port's ``generate()`` greedy tokens (``MAX_NEW``) for ``prompt``,
+    run once a (weights, prompt): the long prompts of phases 3-5a are held
+    to the same reference in several layouts."""
+    from kubeflow_tpu_torch.models.gpt import generate
+
+    key = (id(params), np.asarray(prompt).tobytes())
+    if key not in _GENERATED:
+        _GENERATED[key] = generate(cfg, params, prompt[None], MAX_NEW,
+                                   device="cuda")[0, len(prompt):].tolist()
+    return _GENERATED[key]
+
+
 def hold_to_generate(label: str, cfg, params, prompt, toks, card: str,
                      exact: bool = False) -> dict:
     """``toks`` (a served request's generated tokens) against the port's
@@ -1012,9 +1062,7 @@ def hold_to_generate(label: str, cfg, params, prompt, toks, card: str,
     generate()'s one prefill), the first differing step is found and
     generate()'s own logits there are read, step by step as it ran: the
     request passes only if their top-2 gap is under ``NEAR_TIE``."""
-    from kubeflow_tpu_torch.models.gpt import generate
-
-    want = generate(cfg, params, prompt[None], MAX_NEW, device="cuda")[0, len(prompt):].tolist()
+    want = generate_ref(cfg, params, prompt)
     if exact and toks != want:
         raise AssertionError(f"{label}: the static route's tokens differ from generate()")
     held = near_tie(label, cfg, params, prompt, toks, want, card)
@@ -1058,7 +1106,7 @@ def serve(prompts, card: str, label: str, long_prompt=None, draft=None, **kw):
 
     vocab = GptConfig.small().vocab_size
     model = gpt_served_model(name="gpt", tiny=False, max_new_tokens=MAX_NEW,
-                             device="cuda", seed=0, **kw)
+                             device="cuda", seed=0, params=small_params(), **kw)
     if draft is not None:
         model = dataclasses.replace(model, spec_draft=draft(model.cfg, model.params),
                                     spec_k=SPEC_K)
@@ -1187,9 +1235,10 @@ def obs_phase(card: str, port: int, long_len: int, chunks: int) -> None:
          rss_gib=vars_["resident_memory_bytes"] / 2**30, debug_sources=vars_["debug_sources"])
 
 
-def serve_chunked(card: str, layout: str, prompts, short_want, **kw) -> None:
+def serve_chunked(card: str, layout: str, prompts, short_want, prewarm: bool = False,
+                  **kw) -> None:
     """GPT-small behind ModelServer in one KV layout, kernels on, the default
-    chunk (256): ``prewarm(16)``, then the 8 prompts and one of
+    chunk (256): ``prewarm(16)`` where ``prewarm``, then the 8 prompts and one of
     ``CHUNKED_PROMPT`` tokens (6 chunks) posted at once, 32 new tokens each,
     with every count reset just before and read just after. The pair kernel
     launches 12 times a decode step and the one-array wrapper never; 6
@@ -1213,16 +1262,18 @@ def serve_chunked(card: str, layout: str, prompts, short_want, **kw) -> None:
     long_p, long2 = (rng.integers(0, cfg.vocab_size, CHUNKED_PROMPT).astype(np.int32)
                      for _ in range(2))
     model = gpt_served_model(name="gpt", tiny=False, max_new_tokens=MAX_NEW,
-                             device="cuda", seed=0, **kw)
+                             device="cuda", seed=0, params=small_params(), **kw)
     server = ModelServer().add(model)
     httpd = server.serve(0)
     try:
         torch.cuda.reset_peak_memory_stats()
         eng = model.engine()
-        t0 = time.perf_counter()
-        eng.prewarm(16)
-        torch.cuda.synchronize()
-        prewarm_s = time.perf_counter() - t0
+        prewarm_s = None
+        if prewarm:
+            t0 = time.perf_counter()
+            eng.prewarm(16)
+            torch.cuda.synchronize()
+            prewarm_s = time.perf_counter() - t0
         kc.reset_launches()
         METRICS.reset()
         TRACER.reset()
@@ -1292,10 +1343,15 @@ def serve_chunked(card: str, layout: str, prompts, short_want, **kw) -> None:
 
 def serve_chunked_phase(card: str, prompts, short_tokens: dict) -> None:
     """Chunked prefill in the three layouts (``serve_chunked``); the
-    observability routes are read on the paged bf16 server."""
-    for layout, kw in (("paged", {}), ("contiguous", dict(paged=False)),
-                       ("int8", dict(kv_dtype="int8"))):
-        serve_chunked(card, layout, prompts, short_tokens[layout], **kw)
+    observability routes are read on the paged bf16 server. One prewarm
+    serves the three: the paged engine's brings the process's caching
+    allocator up for these shapes (a prewarm is ~18 s of waves on an H100,
+    most of it decode chunks dispatched ahead of each first token), and
+    each later engine's worker makes its own cuBLAS handle at its first
+    step."""
+    for i, (layout, kw) in enumerate((("paged", {}), ("contiguous", dict(paged=False)),
+                                      ("int8", dict(kv_dtype="int8")))):
+        serve_chunked(card, layout, prompts, short_tokens[layout], prewarm=i == 0, **kw)
 
 
 # -- phase 5c: BERT-base behind the DynamicBatcher ---------------------------------------
@@ -1551,10 +1607,9 @@ def spec_serve_phase(card: str, prompts, short_tokens: dict, serve_stats: dict) 
     commit several tokens are held to the plain run too; the accept rate,
     rounds, tokens/s and TTFT p50 beside the non-speculative run's.
     Returns the ``kv_row_update_pair`` launches of each run by label."""
-    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.models.gpt import GptConfig
 
     cfg = GptConfig.small()
-    params = None
     launches = {}
     runs = [(layout, kw, self_draft, DRAFT_LAYERS)
             for layout, kw in (("paged", {}), ("contiguous", dict(paged=False)),
@@ -1568,8 +1623,7 @@ def spec_serve_phase(card: str, prompts, short_tokens: dict, serve_stats: dict) 
         expect_spec(label, counts, st["rounds"], st["steps"], draft_layers)
         differ = 0
         if gen != short_tokens[layout]:
-            params = params or init_params(cfg, seed=0, device="cuda")
-            differ = sum(not near_tie(label, cfg, params, p, toks, want, card)["equal"]
+            differ = sum(not near_tie(label, cfg, small_params(), p, toks, want, card)["equal"]
                          for p, toks, want in zip(prompts, gen, short_tokens[layout]))
         base = serve_stats[layout]
         accept = st["accepted"] / st["drafted"]
@@ -1679,14 +1733,14 @@ def distill_phase(card: str) -> dict:
     histograms) and the bytes on disk. Returns the flash kernels'
     launches."""
     from kubeflow_tpu_torch.models.convert import params_from_flax
-    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.models.gpt import GptConfig
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.runtime.metrics import METRICS
     from kubeflow_tpu_torch.training import distill
     from kubeflow_tpu_torch.training.checkpoint import Checkpointer
 
     cfg = GptConfig.small()
-    params = init_params(cfg, seed=0, device="cuda")
+    params = small_params()
     dcfg = distill.draft_config(cfg)
     self_accept = distill.measure_accept_rate(cfg, params, dcfg,
                                               distill.init_from_target(dcfg, params))
@@ -1767,13 +1821,13 @@ def disagg_phase(card: str, prompts) -> dict:
     engine's arena blocks ``torch.equal`` to the never-moved unified
     engine's. Blob bytes a request, ``serving_kv_handoff_seconds`` p50 and
     p99. Returns the KV kernels' launches on the decode side."""
-    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.models.gpt import GptConfig
     from kubeflow_tpu_torch.ops import kv_cache as kc
     from kubeflow_tpu_torch.runtime.metrics import METRICS
     from kubeflow_tpu_torch.serving.continuous import ContinuousBatcher
 
     cfg = GptConfig.small()
-    params = init_params(cfg, seed=0, device="cuda")
+    params = small_params()
     long_p = np.random.default_rng(7).integers(0, cfg.vocab_size, CHUNKED_PROMPT).astype(np.int32)
     jobs = list(prompts) + [long_p]
     spec = dict(spec_draft=self_draft(cfg, params), spec_k=SPEC_K)
@@ -1915,7 +1969,7 @@ def fleet_phase(card: str, prompts, short_tokens: dict) -> dict:
     # (a) two replicas behind the HTTP server, the 8 prompts twice
     model = dataclasses.replace(
         gpt_served_model(name="gpt", tiny=False, max_new_tokens=MAX_NEW, device="cuda",
-                         seed=0, replicas=2), max_replicas=3)
+                         seed=0, replicas=2, params=small_params()), max_replicas=3)
     params = model.params
     server = ModelServer().add(model)
     httpd = server.serve(0)
@@ -2098,13 +2152,14 @@ def fleet_phase(card: str, prompts, short_tokens: dict) -> dict:
     return {k: totals[k] for k in pairs}
 
 
-def driver_run(label: str, card: str, run, n_layers: int, forwards: int = 0) -> dict:
+def driver_run(label: str, card: str, run, n_layers: int, forwards: int = 0) -> tuple:
     """One serving driver's run with the KV and flash counts reset just
     before and read just after: it must report ``ok`` (or, for the serving
     driver, its three predictions), launch ``kv_block_update_pair`` once a
     layer a decode step and no other KV write (a GPT driver), or
     ``flash_fwd`` once a layer a forward (``forwards``, the BERT driver).
-    Prints the report, the seconds and the counts; returns the counts."""
+    Prints the report, the seconds and the counts; returns the counts and
+    the report."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.ops import kv_cache as kc
     from kubeflow_tpu_torch.runtime.metrics import METRICS
@@ -2131,21 +2186,21 @@ def driver_run(label: str, card: str, run, n_layers: int, forwards: int = 0) -> 
         if report.get("ok") is not True:
             raise AssertionError(f"{label}: {report}")
         expect_pair(label, counts, "kv_block_update_pair", steps, n_layers)
-    return counts
+    return counts, report
 
 
 def pod_fleet_run(card: str, prompts, short_tokens: dict) -> dict:
     """23a's Pod-path fleet at GPT-small on the drivers' in-memory cluster;
     returns its KV launches."""
     from kubeflow_tpu_torch.e2e.elastic_cluster import NAMESPACE, PodClient, add_nodes, bind_pending
-    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.models.gpt import GptConfig
     from kubeflow_tpu_torch.ops import kv_cache as kc
     from kubeflow_tpu_torch.runtime.metrics import METRICS
     from kubeflow_tpu_torch.serving.errors import FleetSaturated
     from kubeflow_tpu_torch.serving.fleet import EngineFleet
 
     cfg = GptConfig.small()
-    params = init_params(cfg, seed=0, device="cuda")
+    params = small_params()
     two = prompts[:2]
     client = PodClient()
     add_nodes(client, ["gpu-node-0"], 8)
@@ -2241,7 +2296,8 @@ def serving_drivers_phase(card: str, prompts, short_tokens: dict) -> dict:
     totals: Counter = Counter()
     before = allocated()
     totals.update(driver_run("overload_driver", card,
-                             lambda: overload_driver.run(device="cuda", tiny=False), small))
+                             lambda: overload_driver.run(device="cuda", tiny=False,
+                                                         params=small_params()), small)[0])
     after = allocated()
     emit(phase="overload_driver_memory", card=card, allocated_before=before,
          allocated_after=after)
@@ -2250,18 +2306,50 @@ def serving_drivers_phase(card: str, prompts, short_tokens: dict) -> dict:
         raise AssertionError(f"overload_driver: {after - before} bytes still allocated after "
                              "it returned")
     totals.update(pod_fleet_run(card, prompts, short_tokens))
-    totals.update(driver_run("fleet_driver", card, lambda: fleet_driver.run(device="cuda"), tiny))
+    totals.update(driver_run("fleet_driver", card, lambda: fleet_driver.run(device="cuda"),
+                             tiny)[0])
     cleanup()
     totals.update(driver_run("observability_driver", card,
-                             lambda: observability_driver.run(device="cuda"), tiny))
+                             lambda: observability_driver.run(device="cuda"), tiny)[0])
     cleanup()
     # the serving driver's three BERT forwards: the direct predict, the
     # three-instance request and the one-instance request
     totals.update(driver_run("serving_driver", card,
                              lambda: serving_driver.run_serving_e2e(device="cuda"),
-                             BertConfig.tiny().num_layers, forwards=3))
+                             BertConfig.tiny().num_layers, forwards=3)[0])
     cleanup()
     return {k: totals[k] for k in ("kv_block_update_pair", "flash_fwd")}
+
+
+def monitoring_phase(card: str) -> dict:
+    """Phase 24a: the port's monitoring driver at GPT-small
+    (``monitoring_driver.run(tiny=False)``: a 2-replica Pod-path fleet whose
+    Pods carry ``metrics_url`` and two ops processes, scraped by one
+    ``MonitoringPlane``), with the counts reset just before and read just
+    after: it must report ``ok`` with three federated targets, the
+    ``TtftBurn`` alert fired and then resolved, ONE Warning Event of count
+    >= 2, the fleet scaled 2 → 3 by the federated source, and a federated
+    TTFT p99; ``kv_block_update_pair`` one a layer a decode step and no
+    other KV write. Prints the driver's seconds, the fire and resolve
+    ticks, the Event count, the scale-up's cold start and the fast and
+    slowed TTFT p50. Returns the KV launches."""
+    from kubeflow_tpu_torch.e2e import monitoring_driver
+    from kubeflow_tpu_torch.models.gpt import GptConfig
+
+    counts, r = driver_run("monitoring_driver", card, lambda: monitoring_driver.run(
+        device="cuda", tiny=False, params=small_params()), GptConfig.small().n_layers)
+    if (len(r["federated_targets"]) != 3 or r["event_count"] < 2 or r["autoscaled_to"] != 3
+            or r["autoscaler_source"] != "federated" or r["resolved"] is not True
+            or r["platform_ttft_p99"] is None or not r["fire_tick"] < r["resolve_tick"]):
+        raise AssertionError(f"monitoring_driver: {r}")
+    emit(phase="monitoring", card=card, seconds=r["seconds"], fire_tick=r["fire_tick"],
+         resolve_tick=r["resolve_tick"], fired_after_s=r["fired_after_s"],
+         resolved_after_s=r["resolved_after_s"], event_count=r["event_count"],
+         scale_up_cold_start_s=r["scale_up_cold_start_s"],
+         ttft_fast_p50_s=r["ttft_fast_p50_s"], ttft_slow_p50_s=r["ttft_slow_p50_s"],
+         ttft_threshold_s=monitoring_driver.TTFT_THRESHOLD_S,
+         step_delay_s=monitoring_driver.STEP_DELAY_S)
+    return {"kv_block_update_pair": counts["kv_block_update_pair"]}
 
 
 def ref_phase(card: str) -> None:
@@ -2302,10 +2390,10 @@ def profile_phase(card: str) -> None:
     wall time (after a warm-up cycle of 8), and the top kernels by device
     time; the KV writes' launches, device ms and host ms (timed around the
     pair calls over 32 more steps) per step."""
-    from kubeflow_tpu_torch.models.gpt import GptConfig, init_params
+    from kubeflow_tpu_torch.models.gpt import GptConfig
 
     cfg = GptConfig.small()
-    params = init_params(cfg, seed=0, device="cuda")
+    params = small_params()
     for paged, pair in ((True, "kv_block_update_pair"), (False, "kv_row_update_pair")):
         profile_layout(card, cfg, params, paged, pair)
     del params
@@ -4917,6 +5005,8 @@ def main() -> int:
             launches[name] += n
         for name, n in timed("serving_drivers",
                              lambda c: serving_drivers_phase(c, prompts, short_tokens)).items():
+            launches[name] += n
+        for name, n in timed("monitoring", monitoring_phase).items():
             launches[name] += n
         for name, n in timed("moe", lambda c: moe_phase(c, prompts)).items():
             launches[name] += n

@@ -6,8 +6,12 @@ control plane (as its other drivers), so these three script the same
 protocol on a :class:`PodClient`, a small in-memory client with the
 methods the port's ``PreemptionHandler`` and ``StragglerDetector`` call
 (``get_opt``, ``patch``, ``list``, ``emit_event``), the ones the drivers
-use (``create``, ``delete_opt``) and the serving fleet's Pod path
-(``create_or_get``, ``get_opt``, ``delete_opt``):
+use (``create``, ``delete_opt``), the serving fleet's Pod path
+(``create_or_get``, ``get_opt``, ``delete_opt``) and the monitoring
+plane's (``list("v1", "Pod")`` for scrape discovery, ``events`` for the
+rule engine). Events go through one ``runtime.events.EventRecorder`` a
+client, as on JAX's ``Client``, so duplicates aggregate into one Event
+object with a ``count``:
 
 - :func:`place_gang` binds a gang's pods to nodes with room that are not
   quarantined (chips as a per-node capacity), Running at once;
@@ -32,9 +36,11 @@ import shutil
 import tempfile
 import threading
 import time
+import uuid
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..gpu.topology import RESOURCE_GPU
+from ..runtime.events import EventRecorder
 from ..scheduler.gang import (DRAIN_ACK_ANNOTATION, DRAIN_DEADLINE_ANNOTATION,
                               DRAIN_GRACE_ANNOTATION, POD_GROUP_LABEL, POD_GROUP_SIZE_ANNOTATION,
                               annotations_of, is_quarantined, labels_of, name_of)
@@ -58,16 +64,25 @@ class PodClient:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._objects: Dict[Key, Dict[str, Any]] = {}
-        self.events: List[Dict[str, Any]] = []
+        #: the client's EventRecorder (``emit_event`` goes through it)
+        self.events = EventRecorder(self)
 
     def create(self, obj: Dict[str, Any]) -> Dict[str, Any]:
+        """Store ``obj``; an empty name with ``metadata.generateName`` gets
+        that prefix and six hex digits, as an apiserver mints it."""
+        obj = copy.deepcopy(obj)
         meta = obj.setdefault("metadata", {})
-        key = (obj["kind"], meta.get("namespace"), meta["name"])
         with self._lock:
+            if not meta.get("name") and meta.get("generateName"):
+                while True:
+                    meta["name"] = meta["generateName"] + uuid.uuid4().hex[:6]
+                    if (obj["kind"], meta.get("namespace"), meta["name"]) not in self._objects:
+                        break
+            key = (obj["kind"], meta.get("namespace"), meta["name"])
             if key in self._objects:
                 raise ValueError(f"{key} already exists")
             self._objects[key] = copy.deepcopy(obj)
-        return copy.deepcopy(obj)
+        return obj
 
     def create_or_get(self, obj: Dict[str, Any]) -> Dict[str, Any]:
         """Create ``obj``, or return the object of its name that exists."""
@@ -100,10 +115,6 @@ class PodClient:
 
     def list(self, api: str, kind: str, namespace: Optional[str] = None,
              label_selector: Optional[Dict[str, str]] = None) -> List[Dict[str, Any]]:
-        if kind == "Event":
-            with self._lock:
-                return [copy.deepcopy(e) for e in self.events
-                        if namespace is None or e["namespace"] == namespace]
         with self._lock:
             objs = [copy.deepcopy(o) for (k, ns, _n), o in sorted(self._objects.items())
                     if k == kind and (namespace is None or ns == namespace)]
@@ -111,13 +122,13 @@ class PodClient:
         return [o for o in objs if all(labels_of(o).get(k) == v for k, v in sel.items())]
 
     def emit_event(self, obj: Dict[str, Any], reason: str, message: str, *,
-                   type_: str = "Normal", component: str = "") -> None:
-        meta = obj.get("metadata", {})
-        with self._lock:
-            self.events.append({"reason": reason, "message": message, "type": type_,
-                                "component": component, "kind": obj.get("kind"),
-                                "name": meta.get("name"),
-                                "namespace": meta.get("namespace") or NAMESPACE})
+                   type_: str = "Normal",
+                   component: str = "kubeflow-tpu") -> Optional[Dict[str, Any]]:
+        """A v1 Event against ``obj`` through the recorder: a duplicate
+        (same object, reason, component, type) bumps the stored Event's
+        ``count``. Returns the Event, or None when the spam filter dropped
+        it."""
+        return self.events.emit(obj, reason, message, type_=type_, component=component)
 
 
 def add_nodes(client: PodClient, names: Sequence[str], chips: int) -> None:

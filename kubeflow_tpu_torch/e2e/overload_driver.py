@@ -29,7 +29,8 @@ past saturation and through faults fired by the port's ``ChaosMonkey``:
 Every replica is prewarmed before step 1 (the engines' first device use
 is outside the timed steps, as JAX's engines compile before them).
 ``run(device=..., tiny=True)`` returns the report (JAX's keys); ``tiny`` is
-JAX's GPT-tiny, ``tiny=False`` GPT-small. ``main`` prints the report as
+JAX's GPT-tiny, ``tiny=False`` GPT-small; ``params`` serves weights the
+caller built (``init_params`` of that config). ``main`` prints the report as
 one JSON line and exits 0, or prints ``{"ok": false, "error": ...}`` and
 exits 1. On the card: ``python -m kubeflow_tpu_torch.e2e.overload_driver``.
 """
@@ -62,14 +63,15 @@ FLOOD = 40
 INTERACTIVE_CLIENTS = 4
 
 
-def run(device: DeviceLike = "cuda", tiny: bool = True) -> Dict[str, Any]:
+def run(device: DeviceLike = "cuda", tiny: bool = True, params=None) -> Dict[str, Any]:
     from ..runtime.chaos import ChaosMonkey, ChaosSchedule, Fault
     from ..serving.continuous import ContinuousBatcher
     from ..serving.fleet import EngineFleet, ReplicaBreaker
     from ..serving.router import PrefixRouter
     from ..serving.server import ModelServer, gpt_served_model
 
-    model = gpt_served_model(name="gpt", tiny=tiny, max_new_tokens=BUDGET, device=device)
+    model = gpt_served_model(name="gpt", tiny=tiny, max_new_tokens=BUDGET, device=device,
+                             params=params)
 
     def engine_factory(engine_id: str):
         return ContinuousBatcher(model.cfg, model.params, slots=SLOTS, chunk=8, pipeline=2,

@@ -190,6 +190,11 @@ def _rank_main(rank: int, world: int, workdir: str) -> Optional[Dict[str, Any]]:
                      desc="slow worker flagged")
                 chaos["straggler_detect_seconds"] = time.time() - t_slow
                 chaos["slow_worker"] = slow_w
+                # the score while the slow fault is still applied (the
+                # contract's moment): the wedge and the drain after it move
+                # the gang median, and with it later windows
+                chaos["straggler_score"] = METRICS.value("training_straggler_score",
+                                                         worker=slow_w)
 
                 t_wedge = time.time()
                 siblings[wedge_w].wedge()
@@ -296,7 +301,7 @@ def _check(report, ref_losses, chaos, requester, client, httpd) -> Dict[str, Any
     # -- events, scores, the beacon view --------------------------------------
     reasons = {e["reason"] for e in client.list("v1", "Event", NAMESPACE)}
     assert {"WorkerStraggling", "WorkerHung", "NodeQuarantined"} <= reasons, reasons
-    assert METRICS.value("training_straggler_score", worker=chaos["slow_worker"]) >= K / N
+    assert chaos["straggler_score"] >= K / N, chaos
     assert METRICS.value("training_hangs_detected_total", worker=chaos["wedge_worker"]) == 1
     walls = RegistrySource(METRICS).latest("training_worker_step_wall_seconds")
     assert len({labels["worker"] for labels, _ts, _v in walls}) >= PODS

@@ -1,5 +1,11 @@
-"""The port's training-side monitoring: trimmed copies of
-``kubeflow_tpu/monitoring/goodput.py`` (the goodput ledger, ``goodput``)
-and ``kubeflow_tpu/monitoring/stragglers.py`` (the straggler and hang
-detector, ``stragglers``). The JAX package's monitoring plane (scrapes,
-TSDB, rules, dashboards) is control plane and not ported."""
+"""The port's monitoring: trimmed copies of ``kubeflow_tpu/monitoring/``.
+
+- ``tsdb``, ``scrape``, ``rules``, ``plane`` and ``traces`` — the monitoring
+  plane: a bounded TSDB, the strict OpenMetrics parser and the scraper
+  (static targets and Pods annotated for scraping), recording rules and
+  SLO burn-rate alerts written as deduplicated Events, ``MonitoringPlane``
+  with ``/federate`` and ``/debug/alerts``, and the trace collector;
+- ``goodput`` — the goodput ledger, the tenant chip meter and the goodput
+  recording rule;
+- ``stragglers`` — the straggler and hang detector and its rules.
+"""

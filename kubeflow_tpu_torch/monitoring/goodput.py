@@ -26,11 +26,12 @@ Surfaces, JAX's: ``training_badput_seconds_total{bucket}`` /
 ``training_goodput_seconds_total`` counters, the
 ``training_goodput_fraction{workload}`` gauge (refreshed at every render by
 a ``goodput:<workload>`` collector), ``GET /debug/goodput`` on every app
-that mounts the port's observability, and :func:`serving_goodput_view`
-over the serving waste counters. Not ported, by design (control plane):
-``TenantChipMeter`` (fed by the scheduler ledger's binds, so
-``/debug/goodput`` has no ``tenants`` section) and
-``goodput_recording_rules`` (the monitoring plane's TSDB).
+that mounts the port's observability, :func:`serving_goodput_view` over
+the serving waste counters, :class:`TenantChipMeter`
+(``tenant_chip_seconds_total{namespace}`` from bind/unbind calls; the
+process-wide ``TENANT_METER``, whose bound chips ``/debug/goodput`` shows
+under ``tenants``) and :func:`goodput_recording_rules` (the monitoring
+plane's ``platform:training_goodput_fraction``).
 """
 
 from __future__ import annotations
@@ -38,10 +39,11 @@ from __future__ import annotations
 import math
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Tuple
 
 from ..runtime.metrics import METRICS, MetricsRegistry
 from ..runtime.obs import register_debug_source
+from .rules import RecordingRule
 
 #: badput buckets in display order; ``other`` is always the computed
 #: residual (wallclock minus everything measured), never written directly
@@ -290,6 +292,95 @@ class GoodputLedger:
         ).set(round(snap["goodputFraction"], 6))
 
 
+# -- per-tenant chip metering --------------------------------------------------
+
+
+class TenantChipMeter:
+    """``tenant_chip_seconds_total{namespace}`` from bind/unbind lifecycle.
+
+    JAX's scheduler ledger calls ``on_bind`` for every record it puts and
+    ``on_unbind`` for every record it drops (the port has no scheduler: a
+    caller that binds pods calls them); an interval stays open while the
+    pod is bound. Replay-idempotent: the informer echo of a bind
+    the scheduler already assumed carries an identical (namespace, chips)
+    record and must NOT restart the interval. ``flush`` (registered as a
+    metrics collector, so it runs at every scrape) settles open intervals
+    incrementally — the counter tracks live binds within one scrape
+    interval instead of only materializing at unbind.
+
+    Counter increments happen after the internal lock is released, so the
+    meter imposes no lock order against the metrics registry.
+    """
+
+    def __init__(self, *, registry: MetricsRegistry = METRICS,
+                 clock: Callable[[], float] = time.monotonic,
+                 collector_key: Optional[str] = "tenant-chip-meter") -> None:
+        self._registry = registry
+        self._clock = clock
+        self._lock = threading.Lock()
+        #: key -> [namespace, chips, interval anchor (last settle)]
+        self._open: Dict[Hashable, List[Any]] = {}
+        if collector_key is not None:
+            registry.register_collector(collector_key, self.flush)
+
+    def on_bind(self, key: Hashable, namespace: Optional[str],
+                chips: int) -> None:
+        ns = namespace or "default"
+        chips = int(chips)
+        now = self._clock()
+        settled: List[Tuple[str, float]] = []
+        with self._lock:
+            cur = self._open.get(key)
+            if cur is not None:
+                if cur[0] == ns and cur[1] == chips:
+                    return  # informer echo of an assumed bind: same interval
+                settled.append(self._settle_locked(cur, now))
+            self._open[key] = [ns, chips, now]
+        self._emit(settled)
+
+    def on_unbind(self, key: Hashable) -> None:
+        now = self._clock()
+        settled: List[Tuple[str, float]] = []
+        with self._lock:
+            cur = self._open.pop(key, None)
+            if cur is not None:
+                settled.append(self._settle_locked(cur, now))
+        self._emit(settled)
+
+    def flush(self) -> None:
+        """Settle every open interval up to now (scrape-time collector)."""
+        now = self._clock()
+        with self._lock:
+            settled = [self._settle_locked(cur, now)
+                       for cur in self._open.values()]
+        self._emit(settled)
+
+    def open_intervals(self) -> Dict[str, int]:
+        """namespace -> currently-bound chips (for /debug/goodput)."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            for ns, chips, _anchor in self._open.values():
+                out[ns] = out.get(ns, 0) + chips
+        return out
+
+    def _settle_locked(self, cur: List[Any], now: float) -> Tuple[str, float]:
+        ns, chips, anchor = cur
+        dt = max(0.0, now - anchor)
+        cur[2] = now
+        return ns, chips * dt
+
+    def _emit(self, settled: Iterable[Tuple[str, float]]) -> None:
+        for ns, chip_seconds in settled:
+            if chip_seconds > 0.0:
+                self._registry.counter(
+                    "tenant_chip_seconds_total", namespace=ns
+                ).inc(chip_seconds)
+
+
+#: the process-wide meter (``/debug/goodput``'s ``tenants``)
+TENANT_METER = TenantChipMeter()
+
+
 # -- serving goodput view ------------------------------------------------------
 
 
@@ -334,15 +425,37 @@ def get_ledger(workload: str = "training") -> GoodputLedger:
 
 
 def debug_goodput(_req: Any = None) -> Dict[str, Any]:
-    """``GET /debug/goodput``: every workload ledger's decomposition and the
-    serving token-goodput view (JAX's ``tenants`` section is the tenant
-    meter's, not ported)."""
+    """``GET /debug/goodput``: every workload ledger's decomposition, the
+    serving token-goodput view, and the live per-tenant bound-chip set."""
     with _LEDGERS_LOCK:
         ledgers = list(_LEDGERS.values())
     return {
         "workloads": {led.workload: led.snapshot() for led in ledgers},
         "serving": serving_goodput_view(),
+        "tenants": {"boundChips": TENANT_METER.open_intervals()},
     }
 
 
 register_debug_source("goodput", debug_goodput)
+
+
+def goodput_recording_rules() -> List[RecordingRule]:
+    """Recording rules for the monitoring plane's RuleEngine.
+
+    ``platform:training_goodput_fraction`` recomputes the measured goodput
+    share TSDB-side from the scraped second counters — the federation-level
+    cross-check of the in-process ``training_goodput_fraction`` gauge. (The
+    counters carry only MEASURED seconds, so this is the measured share;
+    the unmeasured ``other`` residual is visible in /debug/goodput and the
+    gauge, which divide by true wallclock.)"""
+
+    def _measured_fraction(tsdb: Any, _now: float):
+        good = sum(v for _l, _t, v in
+                   tsdb.latest("training_goodput_seconds_total"))
+        bad = sum(v for _l, _t, v in
+                  tsdb.latest("training_badput_seconds_total"))
+        if good + bad > 0.0:
+            yield {}, good / (good + bad)
+
+    return [RecordingRule(record="platform:training_goodput_fraction",
+                          fn=_measured_fraction)]

@@ -18,10 +18,11 @@ action before the next. A disaggregated fleet (``fleet.pools``) runs one
 such state machine per pool: prefill on the TTFT quantile, decode on the
 inter-token one.
 
-The JAX module's ``FederatedWindowSource`` (it quantiles the monitoring
-plane's TSDB, which the port does not have) is not ported (ROADMAP.md
-queue A, not ported by design); the source is pluggable (``source=``),
-and ``RegistryWindowSource`` is the default.
+The source is pluggable (``source=``): ``RegistryWindowSource`` (the
+default) windows the in-process registry; ``FederatedWindowSource``
+windows the fleet-wide histograms the monitoring plane scraped into its
+TSDB (``monitoring/tsdb.py``), and reports a scrape gap as stale, which
+holds the fleet.
 """
 
 from __future__ import annotations
@@ -87,6 +88,70 @@ class RegistryWindowSource:
         if dtotal <= 0:
             return _Window(None, 0)
         return _Window(quantile_from_counts(buckets, dcounts, dtotal, q), dtotal)
+
+
+class FederatedWindowSource:
+    """Scrape-backed source: quantile the FLEET-WIDE histograms out of the
+    monitoring plane's TSDB instead of whatever registry happens to share
+    the autoscaler's process. Sums the latest fresh ``<metric>_bucket``
+    value per ``le`` across instances and windows the delta between ticks.
+
+    Staleness is first-class: when the scraper stopped delivering (no fresh
+    series, or the newest sample timestamp did not advance since the last
+    tick), the window reports ``stale=True`` and the autoscaler HOLDS — a
+    scrape gap must never read as "the fleet went idle" (the no-flap
+    regression)."""
+
+    name = "federated"
+
+    def __init__(self, tsdb, matchers: Optional[Dict] = None):
+        self.tsdb = tsdb
+        self.matchers = matchers
+        #: metric → (per-le cumulative sums, newest sample ts)
+        self._prev: Dict[str, Tuple[Dict[float, float], float]] = {}
+
+    def _cumulative(self, metric: str) -> Tuple[Dict[float, float], Optional[float]]:
+        per_le: Dict[float, float] = {}
+        newest: Optional[float] = None
+        for labels, ts, value in self.tsdb.latest(f"{metric}_bucket", self.matchers):
+            le_raw = labels.get("le")
+            if le_raw is None:
+                continue
+            le = float("inf") if le_raw in ("+Inf", "inf") else float(le_raw)
+            per_le[le] = per_le.get(le, 0.0) + value
+            newest = ts if newest is None else max(newest, ts)
+        return per_le, newest
+
+    def window(self, metric: str, q: float) -> _Window:
+        per_le, newest = self._cumulative(metric)
+        prev = self._prev.get(metric)
+        if not per_le or newest is None:
+            # nothing fresh in the TSDB: scrape gap, not idleness
+            return _Window(None, 0, stale=True)
+        self._prev[metric] = (per_le, newest)
+        if prev is None:
+            return _Window(None, 0, stale=True)  # first sight: no window yet
+        prev_le, prev_ts = prev
+        if newest <= prev_ts:
+            # every series is frozen since last tick — the target set went
+            # dark between scrapes; frozen counts must not quantile to
+            # "no traffic"
+            return _Window(None, 0, stale=True)
+        deltas = {le: v - prev_le.get(le, 0.0) for le, v in per_le.items()}
+        if any(d < 0 for d in deltas.values()) or float("inf") not in deltas:
+            # counter reset (replica restart) — skip one window
+            return _Window(None, 0, stale=True)
+        finite = sorted(le for le in deltas if le != float("inf"))
+        total = int(round(deltas[float("inf")]))
+        if total <= 0:
+            return _Window(None, 0)  # fresh data, zero traffic: genuine idle
+        counts: List[int] = []
+        prev_cum = 0.0
+        for le in finite:
+            counts.append(int(round(deltas[le] - prev_cum)))
+            prev_cum = deltas[le]
+        counts.append(int(round(deltas[float("inf")] - prev_cum)))
+        return _Window(quantile_from_counts(tuple(finite), counts, total, q), total)
 
 
 class SLOAutoscaler:

@@ -41,7 +41,11 @@ when the Pod binds to a node (its cold start ends there); a watcher thread
 turns a deleted, ``Failed`` or ``Succeeded`` Pod into a drain (reason
 ``preempted``) and re-creates a replica up to the last ``scale_to``
 target, so it re-enters the scheduler's queue. Drains and ``close`` delete
-the Pod.
+the Pod. With ``metrics_url`` the Pods also carry JAX's scrape annotations
+(``monitoring.kubeflow.org/{scrape,url,job}``, the job the fleet's name),
+so the monitoring plane's scraper discovers the serving process through
+them; every replica shares the process, so all advertise one URL and the
+scraper dedups them to one instance.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..device import DeviceLike, resolve_device
 from ..gpu.topology import RESOURCE_GPU
+from ..monitoring.scrape import SCRAPE_ANNOTATION, SCRAPE_JOB_ANNOTATION, SCRAPE_URL_ANNOTATION
 from ..runtime.metrics import METRICS
 from ..runtime.obs import register_debug_source, unregister_debug_source
 from ..runtime.tracing import TRACER
@@ -231,6 +236,7 @@ class EngineFleet:
                  poll_interval: float = 0.2, register_debug: bool = True,
                  breaker_factory: Optional[Callable[[], ReplicaBreaker]] = None,
                  retry_budget: Optional[RetryBudget] = None,
+                 metrics_url: Optional[str] = None,
                  device: DeviceLike = "cuda"):
         if client is not None:
             missing = [m for m in POD_CLIENT_METHODS if not callable(getattr(client, m, None))]
@@ -238,6 +244,8 @@ class EngineFleet:
                 raise TypeError(f"EngineFleet(client=...): the client lacks {missing}")
         self.device = resolve_device(device)
         self.name = name
+        #: /metrics URL the replica Pods advertise for scrape discovery
+        self._metrics_url = metrics_url
         self._breaker_factory = breaker_factory or ReplicaBreaker
         self.retry_budget = retry_budget or RetryBudget()
         self.min_replicas = max(1, int(min_replicas))
@@ -431,9 +439,8 @@ class EngineFleet:
     # -- Pods ------------------------------------------------------------------
     def _pod_body(self, handle: ReplicaHandle) -> Dict[str, Any]:
         """JAX's replica Pod, field for field, asking for ``nvidia.com/gpu``
-        cards where JAX asks for ``google.com/tpu`` chips; it takes no
-        ``metrics_url``, so it carries none of JAX's scrape annotations
-        (nothing in the port scrapes)."""
+        cards where JAX asks for ``google.com/tpu`` chips; with
+        ``metrics_url``, JAX's three scrape annotations too."""
         container: Dict[str, Any] = {"name": "engine", "image": "kubeflow-tpu/model-server"}
         if self._replica_chips > 0:
             container["resources"] = {"limits": {RESOURCE_GPU: str(self._replica_chips)}}
@@ -443,6 +450,10 @@ class EngineFleet:
         meta["labels"] = {POD_GROUP_LABEL: handle.pod_name, "app": "serving-fleet",
                           "fleet": self.name}
         meta["annotations"] = {POD_GROUP_SIZE_ANNOTATION: "1"}
+        if self._metrics_url:
+            meta["annotations"].update({SCRAPE_ANNOTATION: "true",
+                                        SCRAPE_URL_ANNOTATION: self._metrics_url,
+                                        SCRAPE_JOB_ANNOTATION: self.name})
         return {"apiVersion": "v1", "kind": "Pod", "metadata": meta,
                 "spec": {"priorityClassName": self._priority_class,
                          "containers": [container]}}

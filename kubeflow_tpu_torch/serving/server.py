@@ -420,19 +420,24 @@ def gpt_served_model(name: str = "gpt", tiny: bool = True, max_new_tokens: int =
                      temperature: float = 0.0, device: DeviceLike = "cuda",
                      kv_kernel: bool = True, paged: bool = True,
                      kv_dtype: str = "bf16", prefill_chunk: Optional[int] = None,
-                     seed: int = 0, replicas: int = 1) -> GenerativeModel:
+                     seed: int = 0, replicas: int = 1,
+                     params: Optional[Dict[str, torch.Tensor]] = None) -> GenerativeModel:
     """GPT text-generation servable with seeded random weights: ``tiny``
     for CPU tests, ``tiny=False`` for GPT-small (GPT-2 124M class: d768,
     12 layers, 12 heads, d_ff 3072, vocab 32000, max_seq 2048, bf16).
     ``kv_kernel`` defaults on: the served decode path writes its KV rows
     through the CUDA kernels. ``prefill_chunk`` is ``GenerativeModel``'s;
     ``replicas`` > 1 serves through an ``EngineFleet`` whose replicas share
-    the one set of weights."""
+    the one set of weights. ``params`` (``init_params(cfg, seed, device)``
+    built once, on ``device``) serves weights the caller shares with other
+    servables instead of drawing them again."""
     from ..models.gpt import GptConfig, init_params
 
     cfg = GptConfig.tiny() if tiny else GptConfig.small()
+    if params is None:
+        params = init_params(cfg, seed=seed, device=device)
     return GenerativeModel(
-        name=name, apply_fn=None, params=init_params(cfg, seed=seed, device=device),
+        name=name, apply_fn=None, params=params,
         cfg=cfg, max_new_tokens=max_new_tokens, temperature=temperature,
         paged=paged, kv_dtype=kv_dtype, kv_kernel=kv_kernel,
         prefill_chunk=prefill_chunk, seed=seed, replicas=replicas, device=device)

@@ -17,6 +17,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -173,11 +174,35 @@ def test_model_field_400s_and_model_slo_as_the_jax_server(weights):
             served.close()
 
 
+def _worker_idle(engine) -> bool:
+    """The engine's worker blocks on its queue with nothing in flight, so
+    its last queue-gauge write of the finished work has landed."""
+    frame = sys._current_frames().get(engine._worker.ident)
+    where = set()
+    while frame is not None:
+        where.add((os.path.basename(frame.f_code.co_filename), frame.f_code.co_name))
+        frame = frame.f_back
+    return ({("queue.py", "get"), ("threading.py", "wait")} <= where
+            and not engine._pending and not engine._active)
+
+
+def _wait_idle(*fleets, timeout=30.0) -> None:
+    deadline = time.monotonic() + timeout
+    engines = [h.engine for fleet in fleets for h in fleet.live_handles()]
+    while not all(_worker_idle(e) for e in engines):
+        assert time.monotonic() < deadline, "the fleets' engines never went idle"
+        time.sleep(0.01)
+
+
 def test_saturated_fleet_answers_503_with_the_jax_retry_after(weights):
     jserved, served = _pair(weights, replicas=2)
     try:
         body = {"instances": _instances(1)}
         assert jserved.post(body)[0] == served.post(body)[0] == 200
+        # an engine that has not gone idle writes its queue gauge once more
+        # after its request returns: that write must land before the reset
+        # and the 32-deep gauges below, not after them
+        _wait_idle(jserved.model._continuous_engine(), served.model.engine())
         answers = []
         for side, registry in ((jserved, JMETRICS), (served, METRICS)):
             # the hint is the shortest queue times the mean request seconds:

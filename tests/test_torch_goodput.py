@@ -257,7 +257,8 @@ def test_debug_goodput_served_over_observability():
     doc = resp.body
     assert doc["workloads"]["dbg"]["goodputFraction"] == 1.0
     assert sum(doc["workloads"]["dbg"]["fractions"].values()) == 1.0
-    assert "serving" in doc and "tenants" not in doc  # the tenant meter is not ported
+    assert "serving" in doc
+    assert doc["tenants"] == {"boundChips": tg.TENANT_METER.open_intervals()}
 
 
 def test_registry_total_timer_and_gauge_dec_as_jax():

@@ -245,7 +245,12 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 98
+    assert len(mods) >= 107
+    assert {"kubeflow_tpu_torch.monitoring.tsdb", "kubeflow_tpu_torch.monitoring.scrape",
+            "kubeflow_tpu_torch.monitoring.rules", "kubeflow_tpu_torch.monitoring.plane",
+            "kubeflow_tpu_torch.monitoring.traces", "kubeflow_tpu_torch.runtime.events",
+            "kubeflow_tpu_torch.services.__init__", "kubeflow_tpu_torch.services.dashboard",
+            "kubeflow_tpu_torch.e2e.monitoring_driver"} <= set(mods)
     assert {"kubeflow_tpu_torch.runtime.chaos", "kubeflow_tpu_torch.e2e._http",
             "kubeflow_tpu_torch.e2e.serving_driver",
             "kubeflow_tpu_torch.e2e.observability_driver",
