@@ -356,7 +356,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              (12 at GPT-small) and no other KV write, the serving driver's
              BERT one ``flash_fwd`` a layer a forward. Runs after 5g;
 24a. monitoring — the port's monitoring driver at GPT-small
-             (``monitoring_driver.run(tiny=False)``), the counts reset just
+             (``monitoring_driver.run(tiny=False, model=...)``: the servable
+             ``gpt_small_servable`` builds from ``small_params()``, shared
+             with 25a and closed after it), the counts reset just
              before and read just after: a 2-replica Pod-path fleet whose
              Pods carry ``metrics_url``'s scrape annotations, and two ops
              processes of the port's metrics, scraped by one
@@ -370,6 +372,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              a decode step and no other KV write. Prints the fire and
              resolve ticks, the Event count, the scale-up's cold start and
              the fast and slowed TTFT p50. Runs after 23a;
+25a. trace_federation — the port's trace-federation driver on the card
+             (``trace_federation_driver.run(model=...)``), the counts reset
+             just before and read just after: ``python -m
+             kubeflow_tpu_torch.apiserver`` and ``python -m
+             kubeflow_tpu_torch.scheduler.core`` as processes that import
+             no torch, JAX's 8 synthesized nodes as A3 High GPU nodes
+             (``nvidia.com/gpu``), one 4-member gang bound all-or-nothing
+             with the minted trace id in every member's creation and bind
+             annotations; one predict through the fleet 24a leaves
+             behind (3 warmed GPT-small replicas decoding in 4-token
+             chunks, asserted before the run) under the same traceparent
+             (no build or prewarm of its own), then 3 expired ones (5xx);
+             the federated trace
+             spans >= 3 services and its critical path ``queue, cycle,
+             bind`` is within ``max(10%, 0.05 s)`` of the measured bind
+             latency, the exemplar on the scheduler's ``/metrics``, and
+             tail sampling keeps every error trace and the gang trace
+             under its bound. ``kv_block_update_pair`` 12 a decode step
+             and no other KV write; no control-plane process may be left
+             after it, pass or fail. Prints the driver's seconds and setup,
+             the three segments, the reconstruction error, the span and
+             service counts and the kept tail. Runs after 24a;
 21a. tiny_paths — the entry points that run the flash kernels at head_dim
              16, each with the counts reset just before and read just
              after: ``GptConfig.tiny()`` trained 3 AdamW steps through the
@@ -435,7 +459,8 @@ runs), phase 19i's KV and flash launches (its kernel runs), phase 19j's
 flash launches (the block steps' checked run and the one-rank ring),
 phase 21a's flash launches (its four paths),
 phase 23a's KV and flash launches (its drivers' and the Pod fleet's),
-phase 24a's KV launches (the monitoring driver's fleet) and
+phase 24a's KV launches (the monitoring driver's fleet), phase 25a's
+KV launches (the trace-federation predict) and
 phase 20a's fused-block launches (its mesh run):
 that line's count is
 then a sum over several runs, and each path's own count is on its run's
@@ -2321,10 +2346,26 @@ def serving_drivers_phase(card: str, prompts, short_tokens: dict) -> dict:
     return {k: totals[k] for k in ("kv_block_update_pair", "flash_fwd")}
 
 
-def monitoring_phase(card: str) -> dict:
+def gpt_small_servable():
+    """The GPT-small servable phases 24a and 25a share (``small_params()``,
+    paged, ``max_new_tokens`` 4, no engine yet): 24a's monitoring driver
+    serves it through its 2-replica Pod-path fleet at 4-token decode
+    chunks, warms both replicas and scales the fleet to 3, and 25a's
+    trace-federation predict goes through those 3 replicas, so 25a adds
+    no GPT-small build or prewarm of its own. ``main`` closes
+    it once 25a has run, whether the phases pass or fail."""
+    from kubeflow_tpu_torch.e2e import monitoring_driver
+    from kubeflow_tpu_torch.serving.server import gpt_served_model
+
+    return gpt_served_model(name="gpt", tiny=False, max_new_tokens=monitoring_driver.MAX_NEW_TOKENS,
+                            device="cuda", params=small_params())
+
+
+def monitoring_phase(card: str, model) -> dict:
     """Phase 24a: the port's monitoring driver at GPT-small
-    (``monitoring_driver.run(tiny=False)``: a 2-replica Pod-path fleet whose
-    Pods carry ``metrics_url`` and two ops processes, scraped by one
+    (``monitoring_driver.run(tiny=False, model=model)``, ``model`` from
+    ``gpt_small_servable``: a 2-replica Pod-path fleet whose Pods carry
+    ``metrics_url`` and two ops processes, scraped by one
     ``MonitoringPlane``), with the counts reset just before and read just
     after: it must report ``ok`` with three federated targets, the
     ``TtftBurn`` alert fired and then resolved, ONE Warning Event of count
@@ -2337,7 +2378,7 @@ def monitoring_phase(card: str) -> dict:
     from kubeflow_tpu_torch.models.gpt import GptConfig
 
     counts, r = driver_run("monitoring_driver", card, lambda: monitoring_driver.run(
-        device="cuda", tiny=False, params=small_params()), GptConfig.small().n_layers)
+        device="cuda", tiny=False, model=model), GptConfig.small().n_layers)
     if (len(r["federated_targets"]) != 3 or r["event_count"] < 2 or r["autoscaled_to"] != 3
             or r["autoscaler_source"] != "federated" or r["resolved"] is not True
             or r["platform_ttft_p99"] is None or not r["fire_tick"] < r["resolve_tick"]):
@@ -2349,6 +2390,75 @@ def monitoring_phase(card: str) -> dict:
          ttft_fast_p50_s=r["ttft_fast_p50_s"], ttft_slow_p50_s=r["ttft_slow_p50_s"],
          ttft_threshold_s=monitoring_driver.TTFT_THRESHOLD_S,
          step_delay_s=monitoring_driver.STEP_DELAY_S)
+    return {"kv_block_update_pair": counts["kv_block_update_pair"]}
+
+
+def trace_federation_phase(card: str, model) -> dict:
+    """Phase 25a: the port's trace-federation driver on the card
+    (``trace_federation_driver.run(model=model)``: ``python -m
+    kubeflow_tpu_torch.apiserver`` and ``python -m
+    kubeflow_tpu_torch.scheduler.core`` as processes, JAX's 8 synthesized
+    nodes as A3 High GPU nodes, one 4-member gang bound all-or-nothing, and
+    the predict through ``model``), with the counts reset just before and
+    read just after. ``model`` serves through the fleet 24a leaves behind:
+    ``monitoring_driver.MAX_REPLICAS`` (3) ready GPT-small replicas
+    decoding in ``monitoring_driver.DECODE_CHUNK`` (4) token chunks, which
+    the phase asserts first, so a change to 24a cannot change 25a unseen. It must report
+    ``ok`` with >= 3 services, the critical path ``queue, cycle, bind``
+    within ``max(10%, 0.05 s)`` of the measured bind latency, and a kept
+    tail holding the error traces; ``kv_block_update_pair`` one a layer a
+    decode step and no other KV write. The driver stops both processes
+    before it returns or raises; no child of this process may be left
+    running either role. Prints the driver's
+    seconds and setup, the three segments, the reconstruction error, the
+    span and service counts and the kept tail. Returns the KV launches."""
+    from kubeflow_tpu_torch.e2e import monitoring_driver, trace_federation_driver
+    from kubeflow_tpu_torch.models.gpt import GptConfig
+
+    fleet = model._engine
+    shape = None if fleet is None else sorted(
+        (h.state, h.engine.chunk) for h in fleet.live_handles())
+    want = [("ready", monitoring_driver.DECODE_CHUNK)] * monitoring_driver.MAX_REPLICAS
+    if shape != want:
+        raise AssertionError(f"trace_federation: 24a's fleet is {shape}, not {want}")
+
+    def roles():
+        """This process's live children running either control-plane role:
+        a role another process started (a test run, another checkout) is
+        not this phase's."""
+        me, left = str(os.getpid()), []
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/status") as f:
+                    ppid = next((ln.split()[1] for ln in f if ln.startswith("PPid:")), None)
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    args = f.read().replace(b"\0", b" ").decode(errors="replace")
+            except OSError:
+                continue  # exited meanwhile
+            if ppid == me and ("-m kubeflow_tpu_torch.apiserver" in args
+                               or "-m kubeflow_tpu_torch.scheduler.core" in args):
+                left.append(f"{pid}: {args.strip()}")
+        return left
+
+    try:
+        counts, r = driver_run("trace_federation_driver", card,
+                               lambda: trace_federation_driver.run(device="cuda", model=model),
+                               GptConfig.small().n_layers)
+    finally:
+        left = roles()
+        if left:
+            raise AssertionError(f"trace_federation: control-plane processes left: {left}")
+    path = r["criticalPath"]
+    segments = {seg["name"]: seg["seconds"] for seg in path["segments"]}
+    if (len(r["services"]) < 3 or list(segments) != ["queue", "cycle", "bind"]
+            or path["reconstructionError"] > max(0.1 * path["measuredBindLatencySeconds"], 0.05)
+            or r["tail"]["error_traces"] < trace_federation_driver.ERROR_PREDICTS):
+        raise AssertionError(f"trace_federation_driver: {r}")
+    emit(phase="trace_federation", card=card, seconds=r["seconds"], setup_s=r["setup_s"],
+         queue_s=segments["queue"], cycle_s=segments["cycle"], bind_s=segments["bind"],
+         measured_bind_latency_s=path["measuredBindLatencySeconds"],
+         reconstruction_error_s=path["reconstructionError"], span_count=r["spanCount"],
+         services=r["services"], tail=r["tail"])
     return {"kv_block_update_pair": counts["kv_block_update_pair"]}
 
 
@@ -5006,8 +5116,18 @@ def main() -> int:
         for name, n in timed("serving_drivers",
                              lambda c: serving_drivers_phase(c, prompts, short_tokens)).items():
             launches[name] += n
-        for name, n in timed("monitoring", monitoring_phase).items():
-            launches[name] += n
+        # 24a and 25a share one GPT-small servable, closed once 25a has run
+        shared = gpt_small_servable()
+        try:
+            for name, n in timed("monitoring", lambda c: monitoring_phase(c, shared)).items():
+                launches[name] += n
+            for name, n in timed("trace_federation",
+                                 lambda c: trace_federation_phase(c, shared)).items():
+                launches[name] += n
+        finally:
+            shared.close()
+            del shared
+            cleanup()
         for name, n in timed("moe", lambda c: moe_phase(c, prompts)).items():
             launches[name] += n
         for name, n in timed("ring", ring_phase).items():

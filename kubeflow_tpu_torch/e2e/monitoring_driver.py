@@ -33,7 +33,11 @@ tiny=True)`` returns the report: JAX's keys, plus the
 alert's fire and resolve ticks and seconds, the scale-up's cold start and
 the fast and slowed TTFT p50 (from the ``serving.request`` spans). ``tiny``
 is JAX's GPT-tiny, ``tiny=False`` GPT-small; ``params`` serves weights the
-caller built (``init_params`` of that config). ``main`` prints the report
+caller built (``init_params`` of that config). ``model`` is a GPT servable
+named ``gpt`` the caller built, with no engine yet: the driver serves it
+through the fleet above and leaves it open, its replicas warmed
+(``chip_smoke.py`` serves the trace-federation driver's predict through
+it next). ``main`` prints the report
 as one JSON line and exits 0, or prints ``{"ok": false, "error": ...}``
 and exits 1. On the card: ``python -m kubeflow_tpu_torch.e2e.monitoring_driver``
 (GPT-small; ``--tiny`` and ``--device cpu`` for a CPU check);
@@ -265,7 +269,8 @@ def _ops_env() -> Dict[str, str]:
     return env
 
 
-def run(device: DeviceLike = "cuda", tiny: bool = True, params=None) -> Dict[str, Any]:
+def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
+        model=None) -> Dict[str, Any]:
     from ..monitoring.plane import MonitoringPlane
     from ..monitoring.rules import BurnRateWindow, SLOBurnRateAlert
     from ..monitoring.scrape import (SCRAPE_ANNOTATION, SCRAPE_JOB_ANNOTATION,
@@ -289,12 +294,18 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None) -> Dict[str
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", _OPS_SCRIPT], stdin=subprocess.PIPE,
                 stdout=subprocess.PIPE, text=True, env=_ops_env()))
-        model = gpt_served_model(name="gpt", tiny=tiny, max_new_tokens=MAX_NEW_TOKENS,
-                                 device=device, params=params)
+        owned = model is None
+        if owned:
+            model = gpt_served_model(name="gpt", tiny=tiny, max_new_tokens=MAX_NEW_TOKENS,
+                                     device=device, params=params)
+        else:
+            assert model.name == "gpt" and model._engine is None, \
+                "a caller's servable must be named gpt and have no engine yet"
         server = ModelServer()
         server.add(model)
         httpd = server.serve(0)
-        closers += [httpd.close, server.close, model.close]
+        # ModelServer.close closes its models: a caller's model stays open
+        closers += [httpd.close, server.close, model.close] if owned else [httpd.close]
         base = f"http://127.0.0.1:{httpd.port}"
 
         # -- the fleet's replica Pods advertise the server's /metrics --------

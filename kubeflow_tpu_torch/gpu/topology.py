@@ -149,3 +149,9 @@ def pod_gpu_chips(pod: Dict[str, Any]) -> int:
     for c in (pod.get("spec") or {}).get("containers", []) or []:
         total += int(((c.get("resources") or {}).get("limits") or {}).get(RESOURCE_GPU, 0))
     return total
+
+
+def chips_in_quota(quantity: str) -> int:
+    """Parse a quota quantity for ``nvidia.com/gpu`` (always whole cards).
+    The analog of JAX ``chips_in_quota``."""
+    return int(str(quantity))

@@ -9,8 +9,10 @@ open-span map (a span never ended is swept after ``open_span_ttl_s``, or
 evicted past ``max_open_spans``, recorded as ERROR and counted by
 ``tracing_spans_abandoned_total``), ``emit_span``
 for an interval already elapsed (a training step), the W3C
-``traceparent`` codec, and ``Span.to_dict`` in the OTLP field names that
-``/debug/traces`` serves (``runtime/obs.py``).
+``traceparent`` codec, ``Span.to_dict`` in the OTLP field names that
+``/debug/traces`` serves (``runtime/obs.py``), ``detached`` for work that
+must not inherit the thread's trace (an informer's relist), and the two
+annotations that carry a trace across the control plane's object hops.
 """
 
 from __future__ import annotations
@@ -25,6 +27,16 @@ from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, Iterator, List, Optional
 
 _local = threading.local()
+
+#: annotation carrying the creating request's W3C ``traceparent``: stamped
+#: by the apiserver on create, so watch-driven reconciles (and the gang
+#: lifecycle trace) parent to the client call that caused the object
+TRACEPARENT_ANNOTATION = "tracing.kubeflow.org/traceparent"
+
+#: annotation the scheduler stamps on the bind write (the update that sets
+#: ``spec.nodeName``): the gang trace's bind span, so spans started off the
+#: bound pod join the same trace
+BIND_TRACEPARENT_ANNOTATION = "tracing.kubeflow.org/bind-traceparent"
 
 #: default TTL for ``start_span()`` spans never ended (a crashed worker):
 #: past it the sweep force-closes them as ERROR and counts
@@ -227,6 +239,19 @@ class Tracer:
         finally:
             _local.span = prev
             self.end_span(span)
+
+    @contextmanager
+    def detached(self) -> Iterator[None]:
+        """Run with NO current span: for work started inside a request's
+        context that is not part of that request (an informer's 410 relist
+        re-syncs the world for every consumer; its LISTs must not inherit
+        the triggering stream's trace)."""
+        prev = self.current_span()
+        _local.span = None
+        try:
+            yield
+        finally:
+            _local.span = prev
 
     def finished_spans(self, name: Optional[str] = None,
                        trace_id: Optional[str] = None) -> List[Span]:

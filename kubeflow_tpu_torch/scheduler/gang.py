@@ -1,27 +1,32 @@
-"""Gang labels and the drain protocol's annotations: a trimmed copy of
-``kubeflow_tpu/scheduler/gang.py``.
+"""Gang (pod-group) model: labels, sizes, priorities, the drain protocol
+and the predicate deciding which pods the scheduler owns.
 
-The port has no scheduler (ROADMAP: the control plane is not ported). It
-keeps what the elastic trainer and the straggler detector read and write
-on a gang's Pods and Nodes, with JAX's names and values, so they speak the
-JAX scheduler's drain protocol (docs/ELASTICITY.md) to any client that
-holds those objects:
+The port of ``kubeflow_tpu/scheduler/gang.py`` for ``nvidia.com/gpu``
+nodes. A multi-node job is useless until EVERY member is bound: owners
+stamp their pods with a pod-group label and an expected-size annotation,
+and the scheduler (``core.py``) places the members all-or-nothing. Pods
+without the label form an implicit gang of one. With JAX's names and
+values:
 
-- the gang label and size annotation, and :func:`gang_of`;
-- the drain protocol: a workload opts in with ``DRAIN_GRACE``, the
-  scheduler (or the straggler detector) writes ``DRAIN_DEADLINE`` (unix
-  seconds), the workload acks with ``DRAIN_ACK`` (the step it saved);
+- the gang label and size annotation, priorities, and :func:`gang_of`;
+- the drain protocol the elastic trainer speaks: a workload opts in with
+  ``DRAIN_GRACE``, the scheduler (or the straggler detector) writes
+  ``DRAIN_DEADLINE`` (unix seconds), the workload acks with ``DRAIN_ACK``
+  (the step it saved);
 - the node quarantine annotation the straggler detector stamps;
-- :data:`TERMINAL_PHASES` and :func:`is_terminal`;
+- the namespace ResourceQuota the scheduler admits against, whose hard
+  key here is ``requests.nvidia.com/gpu`` (JAX: ``requests.google.com/tpu``);
+- :func:`requires_scheduling`, with a ``nvidia.com/gpu`` ask where JAX
+  reads ``google.com/tpu``;
 - ``annotations_of`` and friends, the accessors of ``api/meta.py``.
-
-Priorities, quotas and the scheduling predicate stay in the control plane.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
+
+from ..gpu.topology import RESOURCE_GPU, pod_gpu_chips
 
 #: Label naming the gang a pod belongs to (value: gang name, unique per ns).
 POD_GROUP_LABEL = "scheduling.kubeflow.org/pod-group"
@@ -37,6 +42,22 @@ DRAIN_ACK_ANNOTATION = "scheduling.kubeflow.org/drain-acked"
 #: Node quarantine annotation, stamped by the straggler detector on a node
 #: hosting a hung worker (a JSON verdict; cordon, not drain).
 QUARANTINE_ANNOTATION = "scheduling.kubeflow.org/quarantined"
+
+#: Name of the per-namespace ResourceQuota the scheduler admits against.
+QUOTA_NAME = "kf-resource-quota"
+#: The hard-limit key for GPU cards inside that quota.
+GPU_QUOTA_KEY = f"requests.{RESOURCE_GPU}"
+
+#: priorityClassName → numeric priority. Notebooks outrank trials: an
+#: interactive user waiting on cards preempts batch HPO.
+PRIORITY_CLASSES: Dict[str, int] = {
+    "system": 1000,
+    "notebook": 100,
+    "default": 50,
+    "trial": 10,
+    "batch": 0,
+}
+DEFAULT_PRIORITY = PRIORITY_CLASSES["default"]
 
 TERMINAL_PHASES = ("Succeeded", "Failed")
 
@@ -59,17 +80,25 @@ def annotations_of(obj: Dict[str, Any]) -> Dict[str, str]:
 
 @dataclass(frozen=True)
 class Gang:
-    """One co-scheduling unit: which pods and how many expected. The JAX
-    copy carries a priority too, which only its scheduler reads."""
+    """One co-scheduling unit: which pods, how many expected, what rank."""
 
     namespace: Optional[str]
     name: str
     size: int
+    priority: int
     labeled: bool  # explicit pod-group label vs implicit gang-of-one
 
     @property
     def key(self) -> Tuple[Optional[str], str]:
         return (self.namespace, self.name)
+
+
+def priority_of(pod: Dict[str, Any]) -> int:
+    spec = pod.get("spec") or {}
+    explicit = spec.get("priority")
+    if isinstance(explicit, int):
+        return explicit
+    return PRIORITY_CLASSES.get(spec.get("priorityClassName", ""), DEFAULT_PRIORITY)
 
 
 def gang_of(pod: Dict[str, Any]) -> Gang:
@@ -78,12 +107,12 @@ def gang_of(pod: Dict[str, Any]) -> Gang:
     if not group:
         # implicit gang of one; "pod:" keeps the key space disjoint from
         # label values (which cannot contain ":")
-        return Gang(ns, f"pod:{name_of(pod)}", 1, False)
+        return Gang(ns, f"pod:{name_of(pod)}", 1, priority_of(pod), False)
     try:
         size = int(annotations_of(pod).get(POD_GROUP_SIZE_ANNOTATION, "1"))
     except ValueError:
         size = 1
-    return Gang(ns, group, max(size, 1), True)
+    return Gang(ns, group, max(size, 1), priority_of(pod), True)
 
 
 def drain_grace_of(pod: Dict[str, Any]) -> float:
@@ -106,3 +135,15 @@ def is_quarantined(node: Dict[str, Any]) -> bool:
 
 def is_terminal(pod: Dict[str, Any]) -> bool:
     return (pod.get("status") or {}).get("phase") in TERMINAL_PHASES
+
+
+def requires_scheduling(pod: Dict[str, Any], have_nodes: bool) -> bool:
+    """Does this pod need a node before the kubelet may run it? With zero
+    nodes in the store, pods that ask for no card just run; a pod asking
+    for ``nvidia.com/gpu`` cards waits for a node with capacity, as on a
+    cluster with no GPU node pool."""
+    if is_terminal(pod):
+        return False
+    if (pod.get("spec") or {}).get("nodeName"):
+        return False
+    return have_nodes or pod_gpu_chips(pod) > 0

@@ -1,8 +1,10 @@
 """Tiny threaded HTTP app: routing with path params and JSON bodies.
 
 A trimmed copy of ``kubeflow_tpu/web/http.py`` — ``App``, ``HttpError``,
-``Request`` and the threaded server — enough for the model server's
-predict surface and the observability routes (``runtime/obs.py``). Route
+``Request``, ``StreamingResponse`` and the threaded server — enough for the
+model server's predict surface, the observability routes
+(``runtime/obs.py``) and the apiserver's REST and NDJSON watch streams
+(``apiserver/server.py``). Route
 patterns use ``<name>`` segments, inline ones too
 (``/v1/models/<name>:predict``). A ``JsonResponse`` body that is ``bytes``,
 or a ``str`` under a non-JSON ``Content-Type`` (the ``/metrics``
@@ -86,6 +88,25 @@ class JsonResponse:
         return json.dumps(self.body).encode()
 
 
+@dataclass
+class StreamingResponse:
+    """A chunked response (the apiserver's NDJSON watch streams).
+    ``chunks`` yields bytes; ``on_close`` runs once the stream ends or the
+    client goes away."""
+
+    chunks: Any  # Iterator[bytes]
+    status: int = 200
+    headers: Dict[str, str] = field(default_factory=dict)
+    on_close: Optional[Callable[[], None]] = None
+
+    @property
+    def content_type(self) -> str:
+        for k, v in self.headers.items():
+            if k.lower() == "content-type":
+                return v
+        return "application/json"
+
+
 Handler = Callable[[Request], Any]
 
 
@@ -123,7 +144,7 @@ class App:
         for method, pattern, _rx, fn in self._routes:
             yield method, pattern, fn
 
-    def dispatch(self, req: Request) -> JsonResponse:
+    def dispatch(self, req: Request) -> "JsonResponse | StreamingResponse":
         with TRACER.span(
             f"{self.name} {req.method}",
             traceparent=req.header("traceparent") or None,
@@ -134,12 +155,14 @@ class App:
             # echo the handler span so callers can join client + server
             # timelines
             resp.headers.setdefault("traceparent", format_traceparent(span))
-            if resp.status >= 500:
+            if isinstance(resp, StreamingResponse):
+                span.set("http.streaming", True)  # the span closes as the stream starts
+            elif resp.status >= 500:
                 span.status = "ERROR"
                 span.status_message = f"HTTP {resp.status}"
             return resp
 
-    def _dispatch_inner(self, req: Request) -> JsonResponse:
+    def _dispatch_inner(self, req: Request) -> "JsonResponse | StreamingResponse":
         try:
             for method, _pattern, rx, fn in self._routes:
                 if method != req.method:
@@ -148,7 +171,7 @@ class App:
                 if m:
                     req.params = m.groupdict()
                     result = fn(req)
-                    if isinstance(result, JsonResponse):
+                    if isinstance(result, (JsonResponse, StreamingResponse)):
                         return result
                     return JsonResponse(result)
             if any(rx.match(req.path) for _, _, rx, _ in self._routes):
@@ -188,6 +211,9 @@ class AppServer:
                     body=body,
                 )
                 resp = outer.app.dispatch(req)
+                if isinstance(resp, StreamingResponse):
+                    self._stream(resp)
+                    return
                 payload = resp.encode()
                 self.send_response(resp.status)
                 self.send_header("Content-Type", resp.content_type)
@@ -197,6 +223,30 @@ class AppServer:
                         self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(payload)
+
+            def _stream(self, resp: StreamingResponse) -> None:
+                self.send_response(resp.status)
+                self.send_header("Content-Type", resp.content_type)
+                self.send_header("Transfer-Encoding", "chunked")
+                for k, v in resp.headers.items():
+                    if k.lower() != "content-type":
+                        self.send_header(k, v)
+                self.end_headers()
+                try:
+                    for chunk in resp.chunks:
+                        if not chunk:
+                            continue
+                        self.wfile.write(f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n")
+                        self.wfile.flush()
+                    self.wfile.write(b"0\r\n\r\n")
+                except OSError:
+                    pass  # the client went away: a watch's normal end
+                finally:
+                    if resp.on_close:
+                        try:
+                            resp.on_close()
+                        except Exception:
+                            log.exception("%s: stream on_close failed", outer.app.name)
 
             do_GET = do_POST = do_PUT = do_PATCH = do_DELETE = _handle
 

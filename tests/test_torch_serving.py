@@ -245,7 +245,17 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(mods) >= 107
+    assert len(mods) >= 130
+    assert {"kubeflow_tpu_torch.api.meta", "kubeflow_tpu_torch.api.conversion",
+            "kubeflow_tpu_torch.apiserver.backend", "kubeflow_tpu_torch.apiserver.store",
+            "kubeflow_tpu_torch.apiserver.client", "kubeflow_tpu_torch.apiserver.remote",
+            "kubeflow_tpu_torch.apiserver.server", "kubeflow_tpu_torch.apiserver.__main__",
+            "kubeflow_tpu_torch.runtime.manager", "kubeflow_tpu_torch.runtime.reconcile",
+            "kubeflow_tpu_torch.runtime.informer", "kubeflow_tpu_torch.runtime.bootstrap",
+            "kubeflow_tpu_torch.scheduler.ledger", "kubeflow_tpu_torch.scheduler.flight",
+            "kubeflow_tpu_torch.scheduler.core", "kubeflow_tpu_torch.controllers.builtin",
+            "kubeflow_tpu_torch.scale.topology", "kubeflow_tpu_torch.scale.loadgen",
+            "kubeflow_tpu_torch.e2e.trace_federation_driver"} <= set(mods)
     assert {"kubeflow_tpu_torch.monitoring.tsdb", "kubeflow_tpu_torch.monitoring.scrape",
             "kubeflow_tpu_torch.monitoring.rules", "kubeflow_tpu_torch.monitoring.plane",
             "kubeflow_tpu_torch.monitoring.traces", "kubeflow_tpu_torch.runtime.events",
