@@ -4,6 +4,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --phases-of <checkout> <label>`` runs only phases
+23a, 24a, 25a and 20b of that checkout's ``chip_smoke.py`` (after the
+build and phases 3-5, which they read), printing each phase's seconds as
+one JSON line: two trees side by side in one card call (``phases_of``).
+
 Phases (any failure exits non-zero; nothing is caught and skipped):
 
 1. build   — the card's name and power limit, torch/CUDA versions, and the
@@ -344,12 +349,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              port's ``ChaosMonkey``; the card's allocated bytes, cuBLAS's
              workspaces cleared, back within 16 MiB of before once it
              returns); the Pod-path fleet at
-             GPT-small (two replicas with ``client=PodClient()``,
-             unroutable until ``bind_pending`` binds each; both serve two of
-             phase 3's prompts with its paged tokens and each other's; a
-             deleted Pod drains its replica with reason ``preempted`` and
-             comes back as a new Pod that serves the same tokens after its
-             bind; ``fleet_replica_cold_start_seconds`` counts 3); the
+             GPT-small on the drivers' cluster (two replicas asking a card
+             each, unroutable until the GPU node exists and the port's
+             gang scheduler binds them; both serve two of phase 3's
+             prompts with its paged tokens and each other's; a deleted
+             Pod drains its replica with reason ``preempted`` and comes
+             back as a new Pod, unroutable while the node is quarantined
+             and served with the same tokens once the scheduler binds it;
+             ``fleet_replica_cold_start_seconds`` counts 3); the
              fleet, observability and serving drivers at JAX's defaults
              (GPT-tiny, BERT-tiny). Every driver must return ``ok``; each
              GPT run ``kv_block_update_pair`` one a layer a decode step
@@ -360,7 +367,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
              ``gpt_small_servable`` builds from ``small_params()``, shared
              with 25a and closed after it), the counts reset just
              before and read just after: a 2-replica Pod-path fleet whose
-             Pods carry ``metrics_url``'s scrape annotations, and two ops
+             Pods carry ``metrics_url``'s scrape annotations and which the
+             port's gang scheduler binds on the drivers' cluster (one GPU
+             node; the scaled-up replica's Pod too), and two ops
              processes of the port's metrics, scraped by one
              ``MonitoringPlane`` (three targets up, ``/federate`` parsed);
              a slowed fleet fires the ``TtftBurn`` burn-rate alert (ONE
@@ -422,8 +431,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 20b. elastic1 — on a fresh one-rank NCCL world, ``ElasticTrainer`` with
              ``CompositeWorkload`` (JAX's ``CompositeConfig`` defaults), a
              ``StepClock``, a ``WorkerBeacon`` and a ``GoodputLedger``,
-             offers scripted on the drivers' in-memory cluster: (pp 1,
-             V 1) drained after its third step, (pp 1, V 2) lost at step 5
+             offers of the one card that the port's gang scheduler binds
+             on the drivers' cluster (one GPU node of one card): (pp 1,
+             V 1) drained by the chaos kind ``preempt_gang`` after its
+             third step, (pp 1, V 2) lost, its pod deleted, at step 5
              (2 steps past the periodic checkpoint at 3), (pp 1, V 1) to
              step 12: completed, 1 preemption survived, 2 steps replayed,
              losses within 1e-3 of an uninterrupted run on the card,
@@ -482,6 +493,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import json
 import os
 import shutil
@@ -2215,31 +2227,38 @@ def driver_run(label: str, card: str, run, n_layers: int, forwards: int = 0) -> 
 
 
 def pod_fleet_run(card: str, prompts, short_tokens: dict) -> dict:
-    """23a's Pod-path fleet at GPT-small on the drivers' in-memory cluster;
-    returns its KV launches."""
-    from kubeflow_tpu_torch.e2e.elastic_cluster import NAMESPACE, PodClient, add_nodes, bind_pending
+    """23a's Pod-path fleet at GPT-small on the drivers' cluster (the
+    port's store, gang scheduler and podlet); returns its KV launches."""
+    from kubeflow_tpu_torch.controllers.builtin import make_gpu_node
+    from kubeflow_tpu_torch.e2e.elastic_cluster import NAMESPACE, cluster, poll
     from kubeflow_tpu_torch.models.gpt import GptConfig
     from kubeflow_tpu_torch.ops import kv_cache as kc
     from kubeflow_tpu_torch.runtime.metrics import METRICS
+    from kubeflow_tpu_torch.scheduler.gang import QUARANTINE_ANNOTATION
     from kubeflow_tpu_torch.serving.errors import FleetSaturated
     from kubeflow_tpu_torch.serving.fleet import EngineFleet
 
     cfg = GptConfig.small()
     params = small_params()
     two = prompts[:2]
-    client = PodClient()
-    add_nodes(client, ["gpu-node-0"], 8)
     torch.cuda.synchronize()
     kc.reset_launches()
     METRICS.reset()
     t0 = time.perf_counter()
-    fleet = EngineFleet(cfg, params, replicas=2, max_replicas=2, name="pods", client=client,
-                        replica_chips=1, poll_interval=0.05, register_debug=False,
-                        device="cuda")
+    # no node yet: the replicas' Pods, which ask for a card each, wait
+    mgr, client, sched = cluster()
+    fleet = None
     try:
+        fleet = EngineFleet(cfg, params, replicas=2, max_replicas=2, name="pods",
+                            client=client, replica_chips=1, poll_interval=0.05,
+                            register_debug=False, device="cuda")
         def serve_on(handle):
             return [f.result(timeout=600)
                     for f in [handle.engine.submit(p, MAX_NEW) for p in two]]
+
+        def quarantine(value: str) -> None:
+            client.patch("v1", "Node", "gpu-node-0",
+                         {"metadata": {"annotations": {QUARANTINE_ANNOTATION: value}}})
 
         pods = [h.pod_name for h in fleet.live_handles()]
         if pods != ["pods-0", "pods-1"] or fleet.wait_ready(1, timeout=0.5):
@@ -2249,15 +2268,18 @@ def pod_fleet_run(card: str, prompts, short_tokens: dict) -> dict:
             raise AssertionError("pod_fleet: an unbound fleet took a request")
         except FleetSaturated:
             pass
-        for pod in pods:
-            if bind_pending(client, pod) != [pod]:
-                raise AssertionError(f"pod_fleet: {pod} did not bind")
+        client.create(make_gpu_node("gpu-node-0", "h100", 8))  # the scheduler binds both
         if not fleet.wait_ready(2, timeout=30):
             raise AssertionError("pod_fleet: the bound replicas never became routable")
         nodes = [h.node for h in fleet.live_handles()]
         got = [serve_on(h) for h in fleet.live_handles()]
         via_fleet = fleet.submit(two[0], MAX_NEW).result(timeout=600)
 
+        # the replacement must wait for its bind: the one node is
+        # quarantined (the scheduler's quarantine predicate) until checked
+        quarantine("pod_fleet")
+        poll(lambda: "gpu-node-0" in sched.ledger.snapshot()["cordoned"], timeout=30,
+             interval=0.01, desc="pod_fleet: the ledger's cordon of the quarantined node")
         client.delete_opt("v1", "Pod", "pods-0", NAMESPACE)  # a preemption
         deadline = time.monotonic() + 60
         while ([h.pod_name for h in fleet.live_handles()] != ["pods-1", "pods-2"]
@@ -2269,8 +2291,7 @@ def pod_fleet_run(card: str, prompts, short_tokens: dict) -> dict:
             raise AssertionError(f"pod_fleet: after the delete {fleet.debug_snapshot()}")
         if fleet.wait_ready(2, timeout=0.5):
             raise AssertionError("pod_fleet: the replacement was routable before its bind")
-        if bind_pending(client, "pods-2") != ["pods-2"]:
-            raise AssertionError("pod_fleet: the replacement did not bind")
+        quarantine("false")  # the scheduler binds the replacement
         if not fleet.wait_ready(2, timeout=30):
             raise AssertionError("pod_fleet: the replacement never became routable")
         replacement = next(h for h in fleet.live_handles() if h.pod_name == "pods-2")
@@ -2280,7 +2301,9 @@ def pod_fleet_run(card: str, prompts, short_tokens: dict) -> dict:
         cold = METRICS.histogram("fleet_replica_cold_start_seconds")
         cold_n, cold_s = cold.total, cold.sum
     finally:
-        fleet.close()
+        if fleet is not None:
+            fleet.close()
+        mgr.stop()
     seconds = time.perf_counter() - t0
     left = [pod for pod in ("pods-0", "pods-1", "pods-2")
             if client.get_opt("v1", "Pod", pod, NAMESPACE) is not None]
@@ -4770,8 +4793,10 @@ def elastic1_phase(card: str) -> None:
     """Phase 20b: on a one-rank NCCL world, ``ElasticTrainer`` with
     ``CompositeWorkload`` (JAX's ``CompositeConfig`` defaults), a
     ``StepClock``, a ``WorkerBeacon`` and a ``GoodputLedger``, on offers of
-    the one card scripted on the drivers' in-memory cluster: (pp 1, V 1)
-    drained after its third step → (pp 1, V 2) lost at a step ≡ 1 mod
+    the one card that the drivers' cluster (the port's store, gang
+    scheduler and podlet, one GPU node of one card) binds: (pp 1, V 1)
+    drained by the chaos kind ``preempt_gang`` after its third step →
+    (pp 1, V 2) lost, its pod deleted, at a step ≡ 1 mod
     ``ELASTIC_CKPT_EVERY`` → (pp 1, V 1) to the end. Checks: completed; one
     preemption survived and 2 steps replayed, as scripted; the loss curve
     within ``ELASTIC_LOSS_TOL`` of an uninterrupted run on the card; goodput
@@ -4779,29 +4804,31 @@ def elastic1_phase(card: str) -> None:
     5%. Prints the composite step ms and the decomposition."""
     import torch.distributed as dist
 
-    from kubeflow_tpu_torch.e2e.elastic_cluster import (NAMESPACE, PodClient, add_nodes,
-                                                        evict, place_gang, preempt_gang)
+    from kubeflow_tpu_torch.e2e.elastic_cluster import NAMESPACE, cluster, gang_pod, poll, running
     from kubeflow_tpu_torch.gpu.profiling import StepClock
     from kubeflow_tpu_torch.monitoring.goodput import GoodputLedger
+    from kubeflow_tpu_torch.runtime.chaos import ChaosMonkey, ChaosSchedule, Fault
     from kubeflow_tpu_torch.training.checkpoint import Checkpointer
     from kubeflow_tpu_torch.training.elastic import (CompositeWorkload, ElasticTrainer,
                                                      PreemptionHandler, SliceOffer)
     from kubeflow_tpu_torch.training.heartbeat import WorkerBeacon, clear_beacons
 
     nccl_world()
-    client = PodClient()
-    add_nodes(client, ["gpu-node-0"], 1)
+    mgr, client, _sched = cluster([("gpu-node-0", 1)])
+    monkey = ChaosMonkey(client, ChaosSchedule([]), store=mgr.store)
     shapes = [(1, 1), (1, 2), (1, 1)]
     gangs = []
 
     def provider(attempt):
-        if gangs:
-            evict(client, gangs[-1])
         if attempt >= len(shapes):
             return None
-        gangs.append(place_gang(client, f"elastic1-g{attempt}", 1, 1, grace=20.0))
+        gang = f"elastic1-g{attempt}"
+        pods = [f"{gang}-0"]
+        client.create(gang_pod(pods[0], gang, 1, 1, "trial", grace=20.0))
+        poll(lambda: running(client, pods), timeout=60.0, desc=f"{gang} running")
+        gangs.append(gang)
         pp, v = shapes[attempt]
-        return SliceOffer(devices=[0], pp=pp, virtual_stages=v, pods=gangs[-1],
+        return SliceOffer(devices=[0], pp=pp, virtual_stages=v, pods=pods,
                           namespace=NAMESPACE)
 
     class Scripted(CompositeWorkload):
@@ -4809,9 +4836,10 @@ def elastic1_phase(card: str) -> None:
             state, loss = super().run_step(state, step)
             attempt, local = len(gangs) - 1, state.setdefault("local", 0)
             if attempt == 0 and local == 2:
-                preempt_gang(client, gangs[-1], 20.0)
+                monkey.inject(Fault(0.0, "preempt_gang", f"{NAMESPACE}/{gangs[-1]}",
+                                    param=20.0))
             elif attempt == 1 and local >= 1 and step % ELASTIC_CKPT_EVERY == 1:
-                evict(client, gangs[-1])  # lost: no drain signal
+                client.delete_opt("v1", "Pod", f"{gangs[-1]}-0", NAMESPACE)  # lost: no drain
             state["local"] = local + 1
             return state, loss
 
@@ -4830,6 +4858,8 @@ def elastic1_phase(card: str) -> None:
         report = trainer.run()
         wall = time.perf_counter() - t0
     finally:
+        monkey.stop()
+        mgr.stop()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     ref = CompositeWorkload(device="cuda")
     state = ref.init(SliceOffer(devices=[0]))
@@ -4854,7 +4884,8 @@ def elastic1_phase(card: str) -> None:
          reconstruction_error=snap["reconstructionError"])
     if not (report.completed and outcomes == ["preempted", "lost", "completed"]
             and report.preemptions_survived == 1 and replayed == [0, 0, 2]
-            and [i["offer"]["virtualStages"] for i in report.incarnations] == [1, 2, 1]):
+            and [i["offer"]["virtualStages"] for i in report.incarnations] == [1, 2, 1]
+            and [f.kind for f in monkey.fired] == ["preempt_gang"]):
         raise AssertionError(f"elastic1: incarnations {report.incarnations}")
     if worst > ELASTIC_LOSS_TOL or not all(np.isfinite(list(report.losses.values()))):
         raise AssertionError(f"elastic1: losses off the uninterrupted run by {worst}")
@@ -5157,6 +5188,54 @@ def main() -> int:
     return 0
 
 
+def phases_of(tree: str, label: str) -> int:
+    """Phases 23a (the Pod-path fleet), 24a, 25a and 20b of the
+    ``chip_smoke.py`` in checkout ``tree``, after the build and the serving
+    phases they read (3-5), with every check they make in the whole run;
+    prints each phase's seconds as one JSON line. The checkout's own
+    ``kubeflow_tpu_torch`` is imported, so each tree runs in a process of
+    its own (parent, change, change, parent in one card call)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(tree)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
+    cs = importlib.import_module("chip_smoke")
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.training import flops
+
+    card = cs.smi()
+    generation = flops.detect_generation()
+    cs.BF16_FLOPS_PER_S = flops.peak_flops_per_chip(generation)
+    cs.HBM_BYTES_PER_S = flops.peak_hbm_bandwidth(generation)
+    seconds = {}
+
+    def timed(name, phase):
+        t = time.perf_counter()
+        phase()
+        seconds[name] = time.perf_counter() - t
+
+    timed("build", _build.load_all)
+    served = {}
+    timed("serve", lambda: served.update(zip(("launches", "prompts", "short", "stats"),
+                                             cs.serve_phases(card))))
+    timed("23a_pod_fleet", lambda: cs.pod_fleet_run(card, served["prompts"], served["short"]))
+    shared = cs.gpt_small_servable()
+    try:
+        timed("24a_monitoring", lambda: cs.monitoring_phase(card, shared))
+        timed("25a_trace_federation", lambda: cs.trace_federation_phase(card, shared))
+    finally:
+        shared.close()
+        del shared
+        cs.cleanup()
+    timed("20b_elastic1", lambda: cs.elastic1_phase(card))
+    seconds["four"] = sum(seconds[k] for k in ("23a_pod_fleet", "24a_monitoring",
+                                               "25a_trace_federation", "20b_elastic1"))
+    print(json.dumps({"phases_of": label, "card": card, "seconds": seconds}), flush=True)
+    return 0
+
+
 def serve_phases(card: str):
     """Phases 3-5: GPT-small served in three KV layouts, each held against
     its plain writes. Each run's pair kernel launches once per layer and
@@ -5211,4 +5290,4 @@ def serve_phases(card: str):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phases_of(*sys.argv[2:4]) if sys.argv[1:2] == ["--phases-of"] else main())

@@ -5,8 +5,11 @@ where a training step's time goes (``profile_step``, ``gpt_profile``,
 ``stage_profile``), the serving probe (``serving_bench``) and the serving
 drivers over real HTTP (``paged_kv_driver``, ``disagg_driver``,
 ``serving_driver``, ``observability_driver``, ``fleet_driver``,
-``overload_driver``; their shared client in ``_http``), and the
-elastic plane's drivers on an in-memory cluster (``elastic_driver``,
-``goodput_driver``, ``straggler_driver``; ``elastic_cluster``). Each runs
+``overload_driver``; their shared client in ``_http``), the elastic
+plane's drivers on the port's in-memory control plane (``elastic_driver``,
+``goodput_driver``, ``straggler_driver``; their cluster from
+``elastic_cluster``), and the control plane's own drivers, which import no
+torch (``control_plane_driver``, ``controlplane_scale_driver``). Each runs
 with ``python -m kubeflow_tpu_torch.e2e.<name>`` on the card (the elastic
-drivers with ``--device cpu`` on the CPU)."""
+drivers with ``--device cpu`` on the CPU; the control-plane drivers need
+no card)."""

@@ -4,29 +4,39 @@ The port of ``e2e/elastic_driver.py``. The composed-4D GPT
 (``CompositeConfig(n_layers=8, vocab_size=64)``) trains through
 ``training.elastic.ElasticTrainer`` in a world of 8 ranks
 (``parallel.launch.run_world``: gloo processes on the CPU, standing for
-JAX's 8 virtual devices; one rank a card with ``--device cuda``). The
-cluster is the drivers' in-memory :class:`PodClient` (two hosts of 4
-chips and a spare of 4), the preemptions scripted on it as JAX's
-scheduler and chaos harness would make them:
+JAX's 8 virtual devices; one rank a card with ``--device cuda``). Rank 0
+holds the cluster (``elastic_cluster.cluster``: the port's store, gang
+scheduler and podlet on two hosts of 4 cards and a spare of 4, JAX's
+topology on ``nvidia.com/gpu`` nodes) and decides for the gang:
 
-1. the first gang (2 pods x 4 chips: all 8 ranks, pp 4, V 1) is drained at
-   its third step, as a notebook gang arriving would: the handler sees
-   the deadline, urgent-checkpoints and acks; the notebook takes both hosts;
-2. the re-request finds only the spare (1 pod: ranks 0-3, pp 2, V 2) and
-   RESHARDS the canonical checkpoint; ranks 4-7 wait;
-3. the notebook leaves and the gang is drained again: back to 8 ranks;
-4. a third drain, a third survival;
+1. the trainer asks for the preferred slice (2 pods x 4 cards: all 8
+   ranks, pp 4, V 1) as a drain-graced ``trial``-priority gang
+   (:class:`SliceRequester`: JAX's, 4 s for the gang to run, else
+   withdraw and try the next shape);
+2. preemption 1 is ORGANIC: a ``notebook`` gang arrives at the third step
+   and the scheduler runs its two-phase drain: the ``PreemptionHandler``
+   sees the deadline annotation between steps, urgent-checkpoints and
+   acks, and the scheduler evicts the gang;
+3. the re-request finds only the spare free (1 pod: ranks 0-3, pp 2, V 2)
+   and RESHARDS the canonical checkpoint; ranks 4-7 wait;
+4. preemptions 2-3 come from the chaos harness (``preempt_gang``), the
+   notebook released before the first of them, so the trainer reshards
+   back up to 8 ranks; a seeded benign-chaos schedule (Pod watch drops,
+   0.2 s apiserver brown-outs) runs the whole time;
 5. a kill -9 mid-save: the checkpointer skips the torn and the corrupt
    checkpoint and resumes from the previous complete one.
 
 Asserts JAX's contract: >= 3 preemptions survived, >= 1 reshard (the
 (pp 2, V 2) shape used), zero steps lost beyond the last checkpoint (each
-incarnation resumes at endStep+1), every drained gang acked before its
-eviction, the loss curve within 1e-3 of an uninterrupted run, bounded
-restart latency, and the ``training_preemptions_survived_total`` /
-``training_restart_seconds`` / ``checkpoint_save_seconds`` series. Cut,
-with the control plane: the scheduler's own drain counters and the benign
-chaos (watch drops, apiserver brown-outs).
+incarnation resumes at endStep+1), the loss curve within 1e-3 of an
+uninterrupted run, bounded restart latency, the
+``training_preemptions_survived_total`` / ``training_restart_seconds`` /
+``checkpoint_save_seconds`` series, and the scheduler's and the harness's
+own counters (``scheduler_drains_requested_total``,
+``scheduler_drains_completed_total{outcome="acked"}``,
+``chaos_faults_injected_total{kind="preempt_gang"}``); and the port's
+own: every drained gang's pods carried the drained step's ack when they
+were deleted (read from the Pod informer's DELETED events).
 
 ``python -m kubeflow_tpu_torch.e2e.elastic_driver [--device cuda|cpu]
 [--ranks N]`` (one rank a card by default, 8 on the CPU) prints the
@@ -46,12 +56,13 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .elastic_cluster import (NAMESPACE, PodClient, add_nodes, driver_main, evict, place_gang,
-                              preempt_gang, run_in_world)
+from .elastic_cluster import (NAMESPACE, cluster, driver_main, gang_pod, gone, poll,
+                              run_in_world, running)
 
 TOTAL_STEPS = 30
 CKPT_EVERY = 5
 GRACE_SECONDS = 20.0
+CHAOS_SEED = 20260805
 LOSS_TOL = 1e-3
 RANKS = 8
 
@@ -64,50 +75,48 @@ def shapes(ranks: int) -> List[Dict[str, int]]:
 
 
 class SliceRequester:
-    """Rank 0's gang acquisition: evict the previous (drained) gang,
-    recording its acks, bind any gang waiting ahead of ours, then ask for
-    the preferred shape and accept a degraded one (the reshard)."""
+    """Rank 0's gang acquisition, JAX's: ask the scheduler for the
+    preferred slice shape, accept a degraded one if the cluster cannot
+    place it (the reshard), give up on none."""
 
-    def __init__(self, client: PodClient, ranks: int, prefix: str = "train"):
+    def __init__(self, client, ranks: int, prefix: str = "train"):
         self.client = client
         self.ranks = ranks
         self.prefix = prefix
         self.gen = 0  # bumped per granted slice; triggers key off it
-        self.current_pods: List[str] = []
-        self.ahead: List[Dict[str, Any]] = []  # higher-priority gangs to bind first
-        self.evictions: List[Dict[str, Any]] = []
+        self.current_gang: Optional[str] = None
 
     def __call__(self, attempt: int):
         from ..training.elastic import SliceOffer
 
-        if self.current_pods:
-            self.evictions.append({"gen": self.gen, "pods": list(self.current_pods),
-                                   "acks": evict(self.client, self.current_pods)})
-            self.current_pods = []
-        for g in list(self.ahead):
-            if place_gang(self.client, g["gang"], g["pods"], g["chips"]) is not None:
-                self.ahead.remove(g)
         self.gen += 1
         for shape in shapes(self.ranks):
-            names = place_gang(self.client, f"{self.prefix}-g{self.gen}-{shape['pods']}p",
-                               shape["pods"], shape["chips"], grace=GRACE_SECONDS)
-            if names is not None:
-                self.current_pods = names
-                return SliceOffer(devices=list(range(shape["pods"] * shape["chips"])),
-                                  pp=shape["pp"], virtual_stages=shape["virtual"],
-                                  pods=names, namespace=NAMESPACE)
+            gang = f"{self.prefix}-g{self.gen}-{shape['pods']}p"
+            names = [f"{gang}-{i}" for i in range(shape["pods"])]
+            for n in names:
+                self.client.create(gang_pod(n, gang, shape["pods"], shape["chips"], "trial",
+                                            grace=GRACE_SECONDS))
+            try:
+                poll(lambda: running(self.client, names), timeout=4.0,
+                     desc=f"gang {gang} running")
+            except AssertionError:
+                # shape unplaceable right now: withdraw and try the next one
+                for n in names:
+                    self.client.delete_opt("v1", "Pod", n, NAMESPACE)
+                poll(lambda: gone(self.client, names), desc="withdrawn gang gone")
+                continue
+            self.current_gang = gang
+            return SliceOffer(devices=list(range(shape["pods"] * shape["chips"])),
+                              pp=shape["pp"], virtual_stages=shape["virtual"],
+                              pods=names, namespace=NAMESPACE)
         raise AssertionError("no slice shape was placeable")
-
-
-def cluster(ranks: int) -> PodClient:
-    client = PodClient()
-    add_nodes(client, ["tpu-node-0", "tpu-node-1", "tpu-spare"], ranks // 2)
-    return client
 
 
 def _rank_main(rank: int, world: int, workdir: str) -> Optional[Dict[str, Any]]:
     from ..parallel.composite import CompositeConfig
+    from ..runtime.chaos import ChaosMonkey, ChaosSchedule, Fault
     from ..runtime.metrics import METRICS
+    from ..scheduler.gang import DRAIN_ACK_ANNOTATION, annotations_of, name_of
     from ..training.checkpoint import Checkpointer
     from ..training.elastic import (CompositeWorkload, ElasticTrainer, PreemptionHandler,
                                     SliceOffer)
@@ -115,20 +124,44 @@ def _rank_main(rank: int, world: int, workdir: str) -> Optional[Dict[str, Any]]:
     with open(os.path.join(workdir, "args.json")) as f:
         device = json.load(f)["device"]
     cfg = CompositeConfig(n_layers=8, vocab_size=64)  # 8 layers: pp*V=4 both ways
-    client = cluster(world) if rank == 0 else None
-    requester = SliceRequester(client, world) if rank == 0 else None
-    aggressor = {"gang": "aggr", "pods": 2, "chips": world // 2}
+    mgr = client = requester = monkey = benign = None
+    #: pod name → the drain ack it carried when it was deleted
+    deleted: Dict[str, Optional[str]] = {}
+    if rank == 0:
+        mgr, client, _sched = cluster([("gpu-node-0", world // 2), ("gpu-node-1", world // 2),
+                                        ("gpu-spare", world // 2)])
+        requester = SliceRequester(client, world)
+        monkey = ChaosMonkey(client, ChaosSchedule([]), store=mgr.store)
+        def note_deleted(kind: str, pod: Dict[str, Any]) -> None:
+            if kind == "DELETED":
+                deleted[name_of(pod)] = annotations_of(pod).get(DRAIN_ACK_ANNOTATION)
+
+        # the Pod informer, started eagerly: the watch-drop fault's stream,
+        # and the DELETED events that carry each evicted pod's last state
+        pods = mgr.cache.informer_for("v1", "Pod")
+        pods.add_event_handler(note_deleted)
+        # benign chaos runs throughout, from a seeded (reproducible) schedule
+        benign = ChaosMonkey(
+            client,
+            ChaosSchedule.seeded(CHAOS_SEED, 4, 20.0,
+                                 targets={"drop_informer_watch": ["Pod"],
+                                          "delay_apiserver": [""]},
+                                 param={"delay_apiserver": 0.2}),
+            store=mgr.store, informers=[pods]).start()
+    aggressor = [f"aggr-{i}" for i in range(2)]
 
     def spawn_aggressor():  # a notebook gang arrives: the scheduler drains ours
-        requester.ahead.append(aggressor)
-        preempt_gang(client, requester.current_pods, GRACE_SECONDS)
-
-    def release_aggressor_and_preempt():
-        evict(client, [f"aggr-{i}" for i in range(aggressor["pods"])])
-        preempt_gang(client, requester.current_pods, GRACE_SECONDS)
+        for n in aggressor:
+            client.create(gang_pod(n, "aggr", 2, world // 2, "notebook"))
 
     def chaos_preempt():
-        preempt_gang(client, requester.current_pods, GRACE_SECONDS)
+        monkey.inject(Fault(0.0, "preempt_gang", f"{NAMESPACE}/{requester.current_gang}",
+                            param=GRACE_SECONDS))
+
+    def release_aggressor_and_preempt():
+        for n in aggressor:
+            client.delete_opt("v1", "Pod", n, NAMESPACE)
+        chaos_preempt()
 
     # (incarnation, local step) -> trigger, fired by rank 0 after the step
     triggers = {(1, 2): spawn_aggressor, (2, 2): release_aggressor_and_preempt,
@@ -157,9 +190,19 @@ def _rank_main(rank: int, world: int, workdir: str) -> Optional[Dict[str, Any]]:
         checkpoint_every=CKPT_EVERY,
         handler_factory=lambda offer: PreemptionHandler(client, NAMESPACE, offer.pods,
                                                         poll_interval=0.0))
-    t0 = time.perf_counter()
-    report = trainer.run()
-    elapsed = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        report = trainer.run()
+        elapsed = time.perf_counter() - t0
+        if rank == 0:
+            # every drained gang is deleted once its pods ack
+            drained = [p for i in report.incarnations if i["outcome"] == "preempted"
+                       for p in i["offer"]["pods"]]
+            poll(lambda: all(p in deleted for p in drained), desc="drained gangs deleted")
+    finally:
+        for stoppable in (benign, monkey, mgr):
+            if stoppable is not None:
+                stoppable.stop()
 
     # the uninterrupted reference, on every rank
     ref_workload = CompositeWorkload(cfg=cfg, num_micro=4, microbatch=4, device=device)
@@ -185,8 +228,9 @@ def _rank_main(rank: int, world: int, workdir: str) -> Optional[Dict[str, Any]]:
     for prev, cur in zip(report.incarnations, report.incarnations[1:]):
         assert prev["outcome"] == "preempted", prev
         assert cur["startStep"] == prev["endStep"] + 1, (prev, cur)
-    for ev, inc in zip(requester.evictions, report.incarnations):
-        assert ev["acks"] == [str(inc["endStep"])] * len(ev["pods"]), (ev, inc)
+    for inc in report.incarnations[:-1]:
+        acks = [deleted[p] for p in inc["offer"]["pods"]]
+        assert acks == [str(inc["endStep"])] * len(acks), (inc, acks)
 
     # -- loss continuity vs an uninterrupted run ------------------------------
     assert set(report.losses) == set(ref), "missing steps in elastic run"
@@ -201,6 +245,9 @@ def _rank_main(rank: int, world: int, workdir: str) -> Optional[Dict[str, Any]]:
     # -- telemetry ------------------------------------------------------------
     assert METRICS.total("training_preemptions_survived_total") >= 3
     assert METRICS.histogram("checkpoint_save_seconds").total >= 3
+    assert METRICS.total("scheduler_drains_requested_total") >= 1
+    assert METRICS.value("scheduler_drains_completed_total", outcome="acked") >= 1
+    assert METRICS.value("chaos_faults_injected_total", kind="preempt_gang") >= 2
 
     return {
         "ok": True,
@@ -215,6 +262,10 @@ def _rank_main(rank: int, world: int, workdir: str) -> Optional[Dict[str, Any]]:
             for i, s in zip(report.incarnations, used)],
         "max_loss_delta": float(worst),
         "restart_seconds_mean": restarts.sum / restarts.total,
+        "drains_requested": METRICS.total("scheduler_drains_requested_total"),
+        "drains_acked": METRICS.value("scheduler_drains_completed_total", outcome="acked"),
+        "chaos_preemptions": METRICS.value("chaos_faults_injected_total", kind="preempt_gang"),
+        "benign_chaos": sorted(f.kind for f in benign.fired),
         "kill9": kill9_scenario(),
     }
 

@@ -4,8 +4,9 @@ Boots THREE processes that each expose ``/metrics`` — a ``ModelServer``
 serving a GPT ``GenerativeModel`` (seeded weights, paged arena) whose engine
 is a 2-replica ``EngineFleet`` on the Pod path (this process), and two
 subprocess "ops" servers of the port's own ``runtime.metrics``/``obs`` —
-and drives one ``MonitoringPlane`` against them through a ``PodClient``
-(the drivers' in-memory cluster):
+and drives one ``MonitoringPlane`` against them on the drivers' cluster
+(``elastic_cluster.cluster``: the port's store, gang scheduler and podlet
+on one GPU node of 8 cards), whose scheduler binds the replica Pods:
 
 1. **Federation** — the fleet's replica Pods carry ``metrics_url``'s scrape
    annotations and the ops servers are annotated Pods; the scraper
@@ -22,8 +23,8 @@ and drives one ``MonitoringPlane`` against them through a ``PodClient``
    (``alerts_firing`` back to 0, one Normal ``TtftBurnResolved`` Event).
 3. **Scrape-backed autoscaling** — an ``SLOAutoscaler`` reading a
    ``FederatedWindowSource`` (the TSDB, not the in-process registry)
-   scales the fleet 2 → 3 on the scraped breach; the new replica's Pod is
-   bound in the tick loop (the drivers' stand-in for the scheduler).
+   scales the fleet 2 → 3 on the scraped breach; the scheduler binds the
+   new replica's Pod.
 4. **Dashboard** — the platform overview (``services/dashboard.py``
    ``PlatformViews``, called directly) reports the three targets up and a
    federated serving p99.
@@ -160,17 +161,14 @@ class _AutoscalerCadence:
             self.autoscaler.tick()
 
 
-def _tick_until(plane, predicate, timeout: float, desc: str, cadence=None,
-                each=None) -> list:
-    """Drive ``plane.tick()`` (then the autoscaler cadence and ``each()``,
-    where given) on real time until ``predicate(statuses)`` holds."""
+def _tick_until(plane, predicate, timeout: float, desc: str, cadence=None) -> list:
+    """Drive ``plane.tick()`` (then the autoscaler cadence, where given) on
+    real time until ``predicate(statuses)`` holds."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         statuses = plane.tick()
         if cadence is not None:
             cadence.maybe_tick()
-        if each is not None:
-            each()
         if predicate(statuses):
             return statuses
         time.sleep(TICK_S)
@@ -282,7 +280,7 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
     from ..serving.server import ModelServer, gpt_served_model
     from ..services.dashboard import PlatformViews
     from ..web.http import App
-    from .elastic_cluster import NAMESPACE, PodClient, add_nodes, bind_pending
+    from .elastic_cluster import NAMESPACE, cluster
 
     report: Dict[str, Any] = {"ok": True}
     procs: list = []
@@ -309,21 +307,14 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
         base = f"http://127.0.0.1:{httpd.port}"
 
         # -- the fleet's replica Pods advertise the server's /metrics --------
-        client = PodClient()
-        add_nodes(client, ["gpu-node-0"], 8)
+        mgr, client, _sched = cluster([("gpu-node-0", 8)])
+        closers.append(mgr.stop)  # after the model: a closing fleet deletes its Pods
         fleet = EngineFleet(model.cfg, model.params, replicas=REPLICAS,
                             max_replicas=MAX_REPLICAS, slots=model.slots,
                             chunk=DECODE_CHUNK, name=FLEET_JOB,
                             client=client, poll_interval=0.05,
                             metrics_url=f"{base}/metrics", device=device)
         model._engine = fleet  # the servable serves through this fleet
-
-        def bind_pending_replicas() -> None:
-            for h in fleet.live_handles():
-                if h.state == "pending":
-                    bind_pending(client, h.pod_name)
-
-        bind_pending_replicas()
         assert fleet.wait_ready(REPLICAS, timeout=120), "the bound replicas never became ready"
         prompt = list(range(1, 9))
         for h in fleet.live_handles():
@@ -373,8 +364,9 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
         families = parse_exposition(get(fed_url).decode())
         by_name = {f.name: f for f in families}
         assert "workqueue_depth" in by_name, "ops subprocess series federated"
-        ops_instances = {s.labels["instance"]
-                         for s in by_name["workqueue_depth"].samples}
+        # this process's scheduler and podlet publish workqueue_depth too
+        ops_instances = {s.labels["instance"] for s in by_name["workqueue_depth"].samples
+                         if s.labels.get("job") == "ops"}
         assert len(ops_instances) == OPS_PROCS, ops_instances
         assert "serving_ttft_seconds" in by_name, "serving histogram federated"
         bucket = by_name["serving_ttft_seconds"].samples[0]
@@ -403,7 +395,7 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
         with _Traffic(predict, prompt) as slow_traffic:
             statuses = _tick_until(
                 plane, lambda ss: ss[0]["state"] == "firing", 45.0,
-                "burn-rate alert to fire", cadence=cadence, each=bind_pending_replicas)
+                "burn-rate alert to fire", cadence=cadence)
             report["fired_after_s"] = time.monotonic() - t_slow
             report["fire_tick"] = plane.rules.evaluations
             report["burn_short_at_fire"] = statuses[0]["burn_short"]
@@ -411,11 +403,9 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
             _tick_until(plane,
                         lambda ss: _events(client, "TtftBurn")
                         and _events(client, "TtftBurn")[0]["count"] >= 2,
-                        20.0, "deduplicated Event count to climb",
-                        cadence=cadence, each=bind_pending_replicas)
+                        20.0, "deduplicated Event count to climb", cadence=cadence)
             _tick_until(plane, lambda ss: fleet.desired_replicas == 3, 60.0,
-                        "scrape-backed scale-up 2 -> 3", cadence=cadence,
-                        each=bind_pending_replicas)
+                        "scrape-backed scale-up 2 -> 3", cadence=cadence)
         t_fast_ns = time.time_ns()
         assert slow_traffic.errors == [], slow_traffic.errors
         firing_events = _events(client, "TtftBurn")
@@ -432,7 +422,6 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
         report["slow_requests"] = slow_traffic.sent
 
         # -- (2b) recovery resolves the alert --------------------------------
-        bind_pending_replicas()
         assert fleet.wait_ready(MAX_REPLICAS, timeout=120), "the new replica never became ready"
         report["scale_up_cold_start_s"] = (
             (cold.sum - cold_before[1]) if cold.total == cold_before[0] + 1 else None)

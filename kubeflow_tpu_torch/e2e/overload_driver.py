@@ -90,7 +90,7 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None) -> Dict[str
     httpd = server.serve(0)
     base = f"http://127.0.0.1:{httpd.port}"
     url = f"{base}/v1/models/gpt:predict"
-    monkey = ChaosMonkey(ChaosSchedule([]), fleet=fleet)
+    monkey = ChaosMonkey(None, ChaosSchedule([]), fleet=fleet)
     report: Dict[str, Any] = {"ok": True,
                               "saturation_factor": round(FLOOD / BATCH_CAPACITY, 2)}
     try:

@@ -77,6 +77,20 @@ def _role_env(**extra: str) -> Dict[str, str]:
     return env
 
 
+def _spans_since(since_ns: int) -> dict:
+    """This process's spans that started at or after ``since_ns``, as one
+    OTLP document: its ring may hold other gangs' binds, from a scheduler
+    an earlier caller ran in this process."""
+    from ..runtime.obs import otlp_traces
+    from ..runtime.tracing import TRACER
+
+    doc = otlp_traces(TRACER, limit=4096)
+    for rs in doc["resourceSpans"]:
+        for sc in rs["scopeSpans"]:
+            sc["spans"] = [s for s in sc["spans"] if s["startTimeUnixNano"] >= since_ns]
+    return doc
+
+
 def _stop(procs: List[subprocess.Popen]) -> None:
     for proc in procs:
         if proc.poll() is None:
@@ -94,13 +108,12 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
     from ..apiserver.remote import RemoteStore
     from ..monitoring.scrape import Target
     from ..monitoring.traces import TraceCollector, critical_path, traces_url
-    from ..runtime.obs import otlp_traces
     from ..runtime.tracing import BIND_TRACEPARENT_ANNOTATION, TRACEPARENT_ANNOTATION, TRACER
     from ..scale.loadgen import LoadGenerator
     from ..scale.topology import synth_gangs, synthesize
     from ..serving.server import ModelServer, gpt_served_model
 
-    t_run = time.monotonic()
+    t_run, run_ns = time.monotonic(), time.time_ns()
     owned = model is None
     if owned:
         resolve_device(device)  # raises without CUDA before any process starts
@@ -169,7 +182,8 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
         assert status == 200 and out and out.get("predictions"), (status, out)
 
         # (3) federation: pull the apiserver's and the scheduler's buffers
-        # over HTTP, ingest this process's ring, assemble by trace id
+        # over HTTP, ingest this process's spans of this run, assemble by
+        # trace id
         collector = TraceCollector(targets=[
             Target(job="apiserver", url=traces_url(f"{base}/metrics")),
             Target(job="scheduler", url=f"{ops}/debug/traces?limit=4096"),
@@ -180,7 +194,7 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
         def assembled():
             ok = collector.collect_once()
             assert all(ok.values()), f"trace pulls must succeed: {ok}"
-            collector.ingest(otlp_traces(TRACER, limit=4096), job="loadgen")
+            collector.ingest(_spans_since(run_ns), job="loadgen")
             t = collector.trace(trace_id)
             if not t or not need <= {s["name"] for s in t["spans"]}:
                 return None
@@ -239,7 +253,7 @@ def run(device: DeviceLike = "cuda", tiny: bool = True, params=None,
         sched_target = Target(job="scheduler", url=f"{ops}/debug/traces?limit=4096")
         docs = [(collector.fetch(api_target), "apiserver"),
                 (collector.fetch(sched_target), "scheduler"),
-                (otlp_traces(TRACER, limit=4096), "loadgen")]
+                (_spans_since(run_ns), "loadgen")]
         by_trace: dict = {}
         for doc, _job in docs:
             for rs in doc["resourceSpans"]:

@@ -17,10 +17,14 @@ source), or :class:`RegistrySource` over an in-process
   new step within ``hang_deadline_s`` gets a hang verdict:
   ``training_hangs_detected_total`` bumps, an all-thread stack dump lands
   in the ``/debug/stacks`` ring (the forensic that names the wedged
-  frame), and remediation kicks in through the duck-typed ``client``
-  (``get_opt``, ``patch``, ``list``, ``emit_event``): the hosting node is
-  quarantined (``scheduling.kubeflow.org/quarantined``) and the gang's
-  pods get drain deadlines so ``ElasticTrainer`` reshards around the loss.
+  frame), the verdict is attached to the gang's federated bind trace
+  (``traces=``, a ``TraceCollector``: the trace id of the pod's
+  bind-traceparent annotation, which the scheduler stamps at bind), and
+  remediation kicks in through the duck-typed ``client`` (``get_opt``,
+  ``patch``, ``list``, ``emit_event``): the hosting node is quarantined
+  (``scheduling.kubeflow.org/quarantined``; the scheduler's ledger
+  cordons it) and the gang's pods get drain deadlines so
+  ``ElasticTrainer`` reshards around the loss.
 
 Both detectors are restart/counter-reset aware: an incarnation bump or a
 step index moving backwards resets the worker's skew window AND hang
@@ -28,9 +32,7 @@ clock. Quarantine is idempotent under informer echo.
 
 :func:`straggler_rules` is the rule-engine bundle: the gang's max/median
 step-wall skew as a recording rule and a burn-rate alert on per-worker
-step latency. Not ported: the verdict's attachment to the gang's
-federated bind trace (JAX's ``traces=``; nothing in the port stamps the
-bind-traceparent annotation it reads).
+step latency.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from ..runtime.metrics import METRICS, MetricsRegistry
 from ..runtime.obs import capture_stacks
+from ..runtime.tracing import BIND_TRACEPARENT_ANNOTATION, parse_traceparent
 from ..scheduler.gang import (
     DRAIN_DEADLINE_ANNOTATION,
     POD_GROUP_LABEL,
@@ -113,6 +116,7 @@ class StragglerDetector:
         n: int = 5,
         hang_deadline_s: float = 5.0,
         default_grace_s: float = 5.0,
+        traces: Any = None,
         registry: Any = METRICS,
         component: str = "straggler-detector",
     ) -> None:
@@ -124,6 +128,7 @@ class StragglerDetector:
         self.n = int(n)
         self.hang_deadline_s = float(hang_deadline_s)
         self.default_grace_s = float(default_grace_s)
+        self.traces = traces
         self.component = component
         self._ns = registry.namespace("training")
         self._lock = threading.Lock()
@@ -285,6 +290,7 @@ class StragglerDetector:
         node = (pod.get("spec") or {}).get("nodeName")
         verdict["node"] = node
         verdict["gang"] = gang_of(pod).name
+        self._attach_trace_verdict(pod, verdict)
         self._emit_event(
             pod, "WorkerHung",
             f"worker {w} made no step progress for "
@@ -293,6 +299,14 @@ class StragglerDetector:
         if node:
             self._cordon(node, verdict)
         self._drain_gang(pod, now)
+
+    def _attach_trace_verdict(self, pod: Dict[str, Any], verdict: Dict[str, Any]) -> None:
+        if self.traces is None:
+            return
+        raw = annotations_of(pod).get(BIND_TRACEPARENT_ANNOTATION)
+        parsed = parse_traceparent(raw) if raw else None
+        if parsed is not None:
+            self.traces.attach_verdict(parsed[0], dict(verdict))
 
     def _cordon(self, node: str, verdict: Dict[str, Any]) -> None:
         with self._lock:

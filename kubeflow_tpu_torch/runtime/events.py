@@ -7,7 +7,7 @@ Kubernetes solved Event spam in client-go's EventCorrelator (record/event.go
 sources, and let old Events go. The recorder rebuilds those three layers
 over any client with ``create`` (honouring ``metadata.generateName``),
 ``patch`` (a merge patch; a missing object raises ``LookupError``, as the
-port's ``PodClient``'s ``KeyError`` does) and ``delete_opt``:
+port's store's ``NotFound`` does) and ``delete_opt``:
 
 - **Aggregation** — events are keyed on (involved uid, reason, component,
   type). A duplicate emit patches the existing Event — bump ``count``,
@@ -23,9 +23,9 @@ port's ``PodClient``'s ``KeyError`` does) and ``delete_opt``:
   insertion order and deletes the oldest once more than ``max_events``
   correlation entries are live.
 
-The port's in-memory client (``e2e/elastic_cluster.PodClient``) holds one
-recorder as ``events`` and routes ``emit_event`` through it, so its
-``list("v1", "Event", namespace)`` returns the aggregated Event objects.
+The port's ``apiserver.client.Client`` holds one recorder as ``events``
+and routes ``emit_event`` through it, so its ``list("v1", "Event",
+namespace)`` returns the aggregated Event objects.
 """
 
 from __future__ import annotations

@@ -282,6 +282,13 @@ class SharedInformer:
                 continue
             with self._lock:
                 self._watcher = watcher
+            # Re-check after publishing: a stop() that landed while this
+            # watch was opening closed the previous stream (or none), never
+            # this one, and a remote stream's heartbeats would keep the
+            # loop below from ever returning to the check above.
+            if self._stopped.is_set():
+                watcher.close()
+                return
             # Relist semantics: the initial ADDED burst overlays the old
             # mirror (no empty-cache window); at the SYNC boundary, every
             # cached key NOT re-sent vanished while we were disconnected —

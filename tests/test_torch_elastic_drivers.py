@@ -6,8 +6,15 @@ preemptions survived with a reshard 8 -> 4 ranks ((pp 4, V 1) -> (pp 2,
 V 2)), zero steps lost, losses within JAX's ``LOSS_TOL`` 1e-3 of an
 uninterrupted run, the kill -9 scenario; goodput fractions summing to
 exactly 1.0, reconstruction within 5%, ``preemption_replay`` of exactly
-the 2 steps past the surviving checkpoint. The drivers' in-memory cluster
-and command line are checked on their own.
+the 2 steps past the surviving checkpoint. Both run on the drivers'
+cluster (the port's store, gang scheduler and podlet, on rank 0): the
+elastic driver's first drain is the scheduler's, the next two the chaos
+harness's, with JAX's seeded benign chaos throughout; the goodput
+driver's ``scheduling_wait`` agrees with the scheduler's bind latency,
+its tenant gang's meter with cards × bound duration, and its goodput
+fraction survives the scrape into a TSDB, the recording rule and the
+platform view. ``elastic_cluster.cluster`` and the command line are checked on
+their own.
 """
 
 import json
@@ -18,7 +25,8 @@ import torch
 from kubeflow_tpu_torch.e2e import elastic_cluster as ec
 from kubeflow_tpu_torch.e2e import elastic_driver, goodput_driver
 from kubeflow_tpu_torch.scheduler.gang import (DRAIN_ACK_ANNOTATION, DRAIN_DEADLINE_ANNOTATION,
-                                               QUARANTINE_ANNOTATION, annotations_of)
+                                               DRAIN_GRACE_ANNOTATION, POD_GROUP_LABEL,
+                                               POD_GROUP_SIZE_ANNOTATION, annotations_of)
 
 
 @pytest.fixture(scope="module")
@@ -73,24 +81,72 @@ def test_goodput_replays_exactly_the_steps_past_the_checkpoint(goodput):
     assert [i["goodput"]["replaySteps"] for i in incs] == [0, 0, 0, 2]
 
 
-def test_pod_client_places_drains_and_evicts():
-    client = ec.PodClient()
-    ec.add_nodes(client, ["a", "b"], 4)
-    pods = ec.place_gang(client, "g", 2, 4, grace=5)
-    assert [client.get_opt("v1", "Pod", p, ec.NAMESPACE)["spec"]["nodeName"]
-            for p in pods] == ["a", "b"]
-    assert ec.place_gang(client, "h", 1, 1) is None  # full
-    ec.preempt_gang(client, pods, 5.0)
-    assert all(DRAIN_DEADLINE_ANNOTATION in annotations_of(
-        client.get_opt("v1", "Pod", p, ec.NAMESPACE)) for p in pods)
-    client.patch("v1", "Pod", pods[0], {"metadata": {"annotations": {DRAIN_ACK_ANNOTATION: "7"}}},
-                 ec.NAMESPACE)
-    assert ec.evict(client, pods) == ["7"]
-    client.patch("v1", "Node", "a", {"metadata": {"annotations": {QUARANTINE_ANNOTATION: "{}"}}})
-    again = ec.place_gang(client, "i", 1, 4)
-    assert client.get_opt("v1", "Pod", again[0], ec.NAMESPACE)["spec"]["nodeName"] == "b"
-    client.emit_event(client.get_opt("v1", "Node", "a"), "NodeQuarantined", "m", type_="Warning")
-    assert [e["reason"] for e in client.list("v1", "Event", ec.NAMESPACE)] == ["NodeQuarantined"]
+def test_elastic_drains_come_from_the_scheduler_and_the_harness(elastic):
+    """JAX's control-plane checks, read back: the first drain was the
+    scheduler's own (requested and completed on the acks), the next two the
+    chaos kind's, with the seeded benign chaos running beside them (its
+    first fault is due 11.55 s in, so a short run may see none fire)."""
+    assert elastic["drains_requested"] >= 1 and elastic["drains_acked"] >= 1
+    assert elastic["chaos_preemptions"] >= 2
+    assert set(elastic["benign_chaos"]) <= {"drop_informer_watch", "delay_apiserver"}
+
+
+def test_goodput_scheduling_wait_and_tenant_meter(goodput):
+    """``scheduling_wait`` within 1.5 s a gang of the scheduler's bind
+    latency, and the tenant meter within its tolerance of cards × bound
+    duration."""
+    bind = goodput["bind_latency_seconds"]
+    assert bind["count"] >= len(goodput["incarnations"])
+    assert abs(goodput["badput_seconds"]["scheduling_wait"] - bind["sum"]) <= \
+        goodput_driver.BIND_LATENCY_SLACK_PER_GANG * bind["count"]
+    assert goodput["tenant_chip_seconds"] > 0.0
+    assert abs(goodput["tenant_chip_seconds"] - goodput["tenant_expected_chip_seconds"]) <= \
+        goodput_driver.TENANT_TOL_CHIP_SECONDS
+
+
+def test_goodput_federates_through_the_tsdb(goodput):
+    mon = goodput["monitoring"]
+    assert abs(mon["scraped_goodput_fraction"] - goodput["goodput_fraction"]) < 1e-3
+    assert 0.0 < mon["recorded_measured_fraction"] <= 1.0
+    assert goodput_driver.TENANT_NS in mon["dashboard_tenants"]
+
+
+def test_cluster_binds_a_gang_pod_and_drains_it_for_a_notebook():
+    """The drivers' cluster: ``gang_pod`` is JAX's ``_gang_pod`` asking for
+    ``nvidia.com/gpu``; the scheduler binds a drain-graced trial gang, and
+    a notebook gang that needs its cards makes the scheduler stamp the
+    drain deadline; once both pods ack it evicts them and binds the
+    notebook. ``stop()`` leaves no thread of the cluster running."""
+    import threading
+
+    before = set(threading.enumerate())
+    mgr, client, sched = ec.cluster([("gpu-node-0", 4), ("gpu-node-1", 4)])
+    try:
+        pod = ec.gang_pod("t-0", "t", 2, 4, "trial", grace=30.0)
+        assert pod["metadata"]["labels"] == {POD_GROUP_LABEL: "t"}
+        assert annotations_of(pod) == {POD_GROUP_SIZE_ANNOTATION: "2",
+                                       DRAIN_GRACE_ANNOTATION: "30.0"}
+        assert pod["spec"] == {"priorityClassName": "trial", "containers": [
+            {"name": "trainer", "resources": {"limits": {"nvidia.com/gpu": "4"}}}]}
+        for name in ("t-0", "t-1"):
+            client.create(ec.gang_pod(name, "t", 2, 4, "trial", grace=30.0))
+        ec.poll(lambda: ec.running(client, ["t-0", "t-1"]), timeout=15, desc="trial bound")
+        for name in ("nb-0", "nb-1"):
+            client.create(ec.gang_pod(name, "nb", 2, 4, "notebook"))
+        ec.poll(lambda: all(DRAIN_DEADLINE_ANNOTATION in annotations_of(
+            client.get("v1", "Pod", n, ec.NAMESPACE)) for n in ("t-0", "t-1")),
+            timeout=15, desc="drain stamped")
+        assert not ec.gone(client, ["t-0", "t-1"])  # nobody acked yet
+        for name in ("t-0", "t-1"):
+            client.patch("v1", "Pod", name, {"metadata": {"annotations": {
+                DRAIN_ACK_ANNOTATION: "9"}}}, ec.NAMESPACE)
+        ec.poll(lambda: ec.gone(client, ["t-0", "t-1"]), timeout=15, desc="evicted")
+        ec.poll(lambda: ec.running(client, ["nb-0", "nb-1"]), timeout=15, desc="notebook bound")
+        assert sched.flight.last_for(f"{ec.NAMESPACE}/nb").outcome == "bound"
+    finally:
+        mgr.stop()
+    left = [t.name for t in threading.enumerate() if t not in before and t.is_alive()]
+    assert left == [], left
 
 
 def test_driver_main_reports_a_failure_as_json(capsys):

@@ -1,8 +1,8 @@
 """kubeflow_tpu_torch/runtime/events.py ``EventRecorder`` and the port's
-``PodClient`` Event path, against JAX's recorder on its ``Client``.
+``Client`` Event path, against JAX's recorder on its ``Client``.
 
 The same scripted emits go into JAX's recorder (over its in-process
-apiserver) and the port's (over ``PodClient``). The stored Events agree
+apiserver) and the port's (over the port's ``Client(Store())``). The stored Events agree
 field for field but for what each store mints (names, uids, resource
 versions, timestamps); the return values, the ``events_*`` counters, the
 spam bucket's drops and the retention GC agree exactly.
@@ -16,7 +16,9 @@ from kubeflow_tpu.apiserver.client import Client as JClient
 from kubeflow_tpu.apiserver.store import Store as JStore
 from kubeflow_tpu.runtime.events import EventRecorder as JRecorder
 from kubeflow_tpu.runtime.metrics import METRICS as J_METRICS
-from kubeflow_tpu_torch.e2e.elastic_cluster import PodClient
+from kubeflow_tpu_torch.apiserver.client import Client as TClient
+from kubeflow_tpu_torch.apiserver.store import Conflict
+from kubeflow_tpu_torch.apiserver.store import Store as TStore
 from kubeflow_tpu_torch.runtime.events import EventRecorder as TRecorder
 from kubeflow_tpu_torch.runtime.metrics import METRICS as T_METRICS
 
@@ -78,7 +80,7 @@ def _script(recorder_cls, client, **kw):
 
 
 def test_aggregation_and_fields_as_jax():
-    jc, tc = JClient(JStore()), PodClient()
+    jc, tc = JClient(JStore()), TClient(TStore())
     jrec, jret = _script(JRecorder, jc)
     trec, tret = _script(TRecorder, tc)
     assert tret == jret
@@ -94,7 +96,7 @@ def test_aggregation_and_fields_as_jax():
 
 
 def test_spam_bucket_drops_as_jax():
-    jc, tc = JClient(JStore()), PodClient()
+    jc, tc = JClient(JStore()), TClient(TStore())
     out = []
     for cls, client in ((JRecorder, jc), (TRecorder, tc)):
         rec = cls(client, burst=3, refill_per_second=1e-9)
@@ -107,7 +109,7 @@ def test_spam_bucket_drops_as_jax():
 
 
 def test_retention_gc_deletes_the_oldest_as_jax():
-    jc, tc = JClient(JStore()), PodClient()
+    jc, tc = JClient(JStore()), TClient(TStore())
     out = []
     for cls, client, reg in ((JRecorder, jc, J_METRICS), (TRecorder, tc, T_METRICS)):
         rec = cls(client, max_events=2)
@@ -123,7 +125,7 @@ def test_retention_gc_deletes_the_oldest_as_jax():
 
 
 def test_an_event_deleted_under_the_recorder_is_created_anew_as_jax():
-    jc, tc = JClient(JStore()), PodClient()
+    jc, tc = JClient(JStore()), TClient(TStore())
     out = []
     for cls, client in ((JRecorder, jc), (TRecorder, tc)):
         rec = cls(client)
@@ -139,7 +141,7 @@ def test_pod_client_emit_event_goes_through_its_recorder():
     """The straggler detector's ``emit_event`` and the rule engine's
     ``client.events`` write the same aggregated objects, which the Event
     listing returns, as on JAX's Client."""
-    tc, jc = PodClient(), JClient(JStore())
+    tc, jc = TClient(TStore()), JClient(JStore())
     for client in (tc, jc):
         for _ in range(2):
             client.emit_event(NODE, "NodeQuarantined", "m", type_="Warning",
@@ -154,7 +156,9 @@ def test_pod_client_emit_event_goes_through_its_recorder():
 
 
 def test_pod_client_generate_name():
-    client = PodClient()
+    """The port's store mints a ``generateName`` name and refuses a
+    duplicate, as the recorder needs."""
+    client = TClient(TStore())
     a = client.create({"apiVersion": "v1", "kind": "Event",
                        "metadata": {"name": "", "generateName": "x.", "namespace": "n"}})
     b = client.create({"apiVersion": "v1", "kind": "Event",
@@ -162,5 +166,5 @@ def test_pod_client_generate_name():
     assert a["metadata"]["name"].startswith("x.") and len(a["metadata"]["name"]) == 8
     assert a["metadata"]["name"] != b["metadata"]["name"]
     assert client.get_opt("v1", "Event", a["metadata"]["name"], "n") == a
-    with pytest.raises(ValueError):
+    with pytest.raises(Conflict):
         client.create(a)

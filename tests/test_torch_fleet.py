@@ -321,7 +321,7 @@ def test_a_crash_fired_at_an_idle_replica_closes_it_at_once(weights):
     fleet = EngineFleet(cfg, tp[0], replicas=2, name="cx", device="cpu", **FLEET)
     try:
         h0, h1 = fleet.live_handles()
-        ChaosMonkey(ChaosSchedule([]), fleet=fleet).inject(
+        ChaosMonkey(None, ChaosSchedule([]), fleet=fleet).inject(
             Fault(at=0.0, kind="crash_replica_mid_decode", target=h0.gauge_id))
         _wait_for(lambda: h0.engine.closed, timeout=15, desc="the crashed replica to close")
         assert not h1.engine.closed

@@ -12,9 +12,9 @@ JAX asks for ``google.com/tpu``), the replicas' states and nodes,
 ``/debug/fleet``'s ``pod`` field and the Pods deleted. A watcher whose poll
 raises restarts and counts ``fleet_watcher_restarts_total`` on both. The
 port's fleet binds through JAX's real ``SchedulerReconciler`` when its
-replicas ask for no cards, and through the port's own ``PodClient`` and
-``bind_pending`` with its cards counted; a client that lacks a method is
-refused.
+replicas ask for no cards, and through the port's own scheduler on the
+drivers' cluster with its cards counted and a quarantine honoured; a
+client that lacks a method is refused.
 """
 
 import copy
@@ -319,33 +319,56 @@ def test_binds_through_the_jax_scheduler():
     assert mgr.client.get_opt("v1", "Pod", "srv-1", "default") is None
 
 
-def test_binds_through_the_port_pod_client():
-    """``bind_pending`` binds a replica's own Pod with the cards it asks
-    for, so a one-card node takes one replica and no second until the
-    first Pod is deleted; ``place_gang`` sees the same cards held."""
-    from kubeflow_tpu_torch.e2e.elastic_cluster import (NAMESPACE, PodClient, add_nodes,
-                                                         bind_pending, place_gang)
+def test_binds_through_the_port_scheduler():
+    """The drivers' cluster (the port's store, gang scheduler and podlet)
+    binds a replica's own Pod with the cards it asks for: with no node,
+    nothing is routable; a one-card node takes one replica and no second
+    until the first Pod is deleted; a quarantined node takes no
+    replacement until the quarantine lifts."""
+    from kubeflow_tpu_torch.controllers.builtin import make_gpu_node
+    from kubeflow_tpu_torch.e2e.elastic_cluster import NAMESPACE, cluster
+    from kubeflow_tpu_torch.scheduler.gang import QUARANTINE_ANNOTATION
 
     METRICS.reset()
-    client = PodClient()
-    add_nodes(client, ["gpu-node-0"], 1)
+    mgr, client, sched = cluster()
     fleet = EngineFleet(replicas=2, max_replicas=2, name="srv", engine_factory=StubEngine,
                         client=client, replica_chips=1, poll_interval=0.01,
                         register_debug=False, device="cpu")
     try:
-        assert bind_pending(client, "srv-0") == ["srv-0"]
-        assert fleet.wait_ready(1, timeout=10)
-        assert bind_pending(client, "srv-1") is None  # the node's one card is held
-        assert place_gang(client, "train", 1, 1) is None
-        assert bind_pending(client, "srv-0") == []  # nothing of that gang waits
-        assert not fleet.wait_ready(2, timeout=0.1)
-        client.delete_opt("v1", "Pod", "srv-0", NAMESPACE)
-        wait_for(lambda: [h.pod_name for h in fleet.live_handles()] == ["srv-1", "srv-2"],
+        assert not fleet.wait_ready(1, timeout=0.3)  # no node: nothing binds
+        client.create(make_gpu_node("gpu-node-0", "h100", 1))
+        assert fleet.wait_ready(1, timeout=15)
+        assert not fleet.wait_ready(2, timeout=0.3)  # the node's one card is held
+        (first,) = [h for h in fleet.live_handles() if h.state == "ready"]
+        (second,) = [h for h in fleet.live_handles() if h.state == "pending"]
+        assert first.node == "gpu-node-0" and first.pod_name in ("srv-0", "srv-1")
+        client.delete_opt("v1", "Pod", first.pod_name, NAMESPACE)
+        wait_for(lambda: [h.pod_name for h in fleet.live_handles()] == [second.pod_name,
+                                                                        "srv-2"],
                  desc="the replacement replica")
-        assert bind_pending(client, "srv-1") == ["srv-1"]
-        assert fleet.wait_ready(1, timeout=10)
-        assert [(h.pod_name, h.state, h.node) for h in fleet.live_handles()] == [
-            ("srv-1", "ready", "gpu-node-0"), ("srv-2", "pending", None)]
+        # the freed card binds one of the two waiting Pods, whichever the
+        # scheduler reaches first
+        assert fleet.wait_ready(1, timeout=15)
+        assert not fleet.wait_ready(2, timeout=0.3)
+        (bound,) = [h for h in fleet.live_handles() if h.state == "ready"]
+        (waiting,) = [h for h in fleet.live_handles() if h.state == "pending"]
+        assert {bound.pod_name, waiting.pod_name} == {second.pod_name, "srv-2"}
+        client.patch("v1", "Node", "gpu-node-0",
+                     {"metadata": {"annotations": {QUARANTINE_ANNOTATION: "test"}}})
+        wait_for(lambda: "gpu-node-0" in sched.ledger.snapshot()["cordoned"],
+                 desc="the quarantine cordons the node")
+        client.delete_opt("v1", "Pod", bound.pod_name, NAMESPACE)
+        wait_for(lambda: [h.pod_name for h in fleet.live_handles()] == [waiting.pod_name,
+                                                                        "srv-3"],
+                 desc="the second replacement")
+        assert not fleet.wait_ready(1, timeout=0.3)  # quarantined: no bind
+        client.patch("v1", "Node", "gpu-node-0",
+                     {"metadata": {"annotations": {QUARANTINE_ANNOTATION: "false"}}})
+        assert fleet.wait_ready(1, timeout=15)
+        assert sorted((h.state, h.node) for h in fleet.live_handles()) == [
+            ("pending", None), ("ready", "gpu-node-0")]
+        assert [d["reason"] for d in fleet.debug_snapshot()["drains"]] == ["preempted"] * 2
     finally:
         fleet.close()
+        mgr.stop()
     assert client.list("v1", "Pod", NAMESPACE) == []

@@ -6,9 +6,11 @@ and ``InformerCache``; then the 410 path (a resume below the watch ring's
 floor relists through the paginated LIST, detached from any trace, and
 fires synthetic DELETED events), and the stop path over real HTTP: an
 informer and a ``Manager`` on ``RemoteStore`` stop with no thread of
-theirs left running and no thread crash or traceback on stderr (the
-informers' watch streams race ``http.client``'s close, which the port's
-``RemoteWatch`` ends quietly).
+theirs left running (threads an earlier test left in the process are not
+counted) and no thread crash or traceback on stderr (the informers' watch
+streams race ``http.client``'s close, which the port's ``RemoteWatch``
+ends quietly); a stop() that lands while the pump opens its watch closes
+the new stream.
 """
 
 import threading
@@ -202,6 +204,48 @@ class TestRelistAfter410:
             tracing_mod._local.span = None
 
 
+class TestStopRace:
+    def test_stop_while_the_watch_opens_closes_the_new_stream(self):
+        """stop() lands while the pump is opening its watch: the client's
+        watch() returns only once stop() has set the flag, and the stream
+        it returns never ends unless closed (a remote stream's heartbeats
+        are swallowed the same way). The pump must close that stream and
+        leave, so the thread is gone when stop() returns."""
+
+        class Stream:
+            def __init__(self):
+                self.closed = threading.Event()
+
+            def close(self):
+                self.closed.set()
+
+            def __iter__(self):
+                self.closed.wait(10)
+                return iter(())
+
+        class GatedClient:
+            def __init__(self):
+                self.informer = None
+                self.streams = []
+                self.opening = threading.Event()
+
+            def watch(self, *args, **kw):
+                self.opening.set()
+                assert self.informer._stopped.wait(10), "stop() never ran"
+                self.streams.append(Stream())
+                return self.streams[-1]
+
+        client = GatedClient()
+        inf = client.informer = SharedInformer(client, "v1", "Pod")
+        inf.start()
+        assert client.opening.wait(10)
+        t0 = time.monotonic()
+        inf.stop()
+        assert not inf._thread.is_alive(), "the pump outlived stop()"
+        assert time.monotonic() - t0 < 1.5, "stop() waited out its join timeout"
+        assert len(client.streams) == 1 and client.streams[0].closed.is_set()
+
+
 class TestInformerCache:
     def test_lazy_shared_instances(self):
         cache = InformerCache(Client(Store()))
@@ -245,11 +289,20 @@ def crashes():
     threading.excepthook = prev
 
 
-def _ours(prefixes):
-    return [t.name for t in threading.enumerate() if t.name.startswith(prefixes)]
+@pytest.fixture()
+def before():
+    """The threads alive when the test began: a thread an earlier test
+    left running in this process (the JAX package's informers and
+    controllers carry the same names) is not this test's."""
+    return set(threading.enumerate())
 
 
-def test_remote_informer_stops_cleanly(apiserver, crashes, capfd):
+def _ours(prefixes, before):
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(prefixes) and t not in before]
+
+
+def test_remote_informer_stops_cleanly(apiserver, crashes, capfd, before):
     store, base = apiserver
     client = Client(RemoteStore(base))
     client.create(new_object("v1", "Pod", "p0", "ns1"))
@@ -258,12 +311,13 @@ def test_remote_informer_stops_cleanly(apiserver, crashes, capfd):
     assert wait_for(lambda: len(infs[0]) == 1)
     for inf in infs:
         inf.stop()
-    assert wait_for(lambda: not _ours(("informer-",)), timeout=5), _ours(("informer-",))
+    assert wait_for(lambda: not _ours(("informer-",), before), timeout=5), \
+        _ours(("informer-",), before)
     assert crashes == []
     assert "Traceback" not in capfd.readouterr().err
 
 
-def test_remote_manager_binds_a_gang_and_stops_cleanly(apiserver, crashes, capfd):
+def test_remote_manager_binds_a_gang_and_stops_cleanly(apiserver, crashes, capfd, before):
     """The scheduler and the podlet on RemoteStore, as in their own process:
     a 2-member gang binds all-or-nothing on GPU nodes, then stop() leaves
     no watch, worker or informer thread and no crash."""
@@ -289,6 +343,6 @@ def test_remote_manager_binds_a_gang_and_stops_cleanly(apiserver, crashes, capfd
     finally:
         mgr.stop()
     prefixes = ("informer-", "SchedulerReconciler-", "PodletReconciler-", "garbage-collector")
-    assert wait_for(lambda: not _ours(prefixes), timeout=5), _ours(prefixes)
+    assert wait_for(lambda: not _ours(prefixes, before), timeout=5), _ours(prefixes, before)
     assert crashes == []
     assert "Traceback" not in capfd.readouterr().err

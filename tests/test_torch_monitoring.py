@@ -36,7 +36,8 @@ from kubeflow_tpu.runtime.obs import mount_observability as j_mount
 from kubeflow_tpu.runtime.tracing import TRACER as J_TRACER
 from kubeflow_tpu.serving import autoscaler as jasc
 from kubeflow_tpu.web.http import App as JApp
-from kubeflow_tpu_torch.e2e.elastic_cluster import PodClient
+from kubeflow_tpu_torch.apiserver.client import Client as TClient
+from kubeflow_tpu_torch.apiserver.store import Store as TStore
 from kubeflow_tpu_torch.monitoring import plane as tplane
 from kubeflow_tpu_torch.monitoring import rules as trules
 from kubeflow_tpu_torch.monitoring import scrape as tscrape
@@ -230,7 +231,7 @@ def _lifecycle(rules, tsdb, client, registry, for_s=2.0):
 
 def test_burn_rate_lifecycle_and_events_as_jax():
     j = _lifecycle(jrules, jtsdb, JClient(JStore()), J_METRICS)
-    t = _lifecycle(trules, ttsdb, PodClient(), T_METRICS)
+    t = _lifecycle(trules, ttsdb, TClient(TStore()), T_METRICS)
     assert t == j
     states = [s[0][0]["state"] for s in j[:-1]]
     assert states[:4] == ["inactive", "inactive", "pending", "pending"]
@@ -501,7 +502,7 @@ def test_plane_background_loop_runs_and_stops(metrics_server):
 
 def test_discovery_from_annotated_pods_dedups_by_instance(metrics_server):
     _reg, url = metrics_server
-    clients = (JClient(JStore()), PodClient())
+    clients = (JClient(JStore()), TClient(TStore()))
     for client in clients:
         for name in ("rep-0", "rep-1"):
             client.create({"apiVersion": "v1", "kind": "Pod",
@@ -540,7 +541,7 @@ def test_fleet_pods_carry_the_jax_scrape_annotations():
     from kubeflow_tpu_torch.serving.fleet import EngineFleet as TFleet
 
     url = "http://10.0.0.5:8080/metrics"
-    jc, tc = JClient(JStore()), PodClient()
+    jc, tc = JClient(JStore()), TClient(TStore())
     jf = JFleet(replicas=2, name="mon", engine_factory=_Eng, client=jc, register_debug=False,
                 metrics_url=url)
     tf = TFleet(replicas=2, name="mon", engine_factory=_Eng, client=tc, register_debug=False,
@@ -555,7 +556,7 @@ def test_fleet_pods_carry_the_jax_scrape_annotations():
     finally:
         jf.close()
         tf.close()
-    plain = TFleet(replicas=1, name="p", engine_factory=_Eng, client=PodClient(),
+    plain = TFleet(replicas=1, name="p", engine_factory=_Eng, client=TClient(TStore()),
                    register_debug=False, device="cpu")
     try:
         pod = plain._client.list("v1", "Pod")[0]
@@ -565,7 +566,7 @@ def test_fleet_pods_carry_the_jax_scrape_annotations():
 
 
 def test_cluster_collector_counts_gpus_as_jax_counts_tpus():
-    jc, tc = JClient(JStore()), PodClient()
+    jc, tc = JClient(JStore()), TClient(TStore())
     for client, resource in ((jc, "google.com/tpu"), (tc, "nvidia.com/gpu")):
         client.create({"apiVersion": "v1", "kind": "Node",
                        "metadata": {"name": "node-a"}, "status": {"capacity": {resource: "4"}}})

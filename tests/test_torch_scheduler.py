@@ -4,7 +4,8 @@ and nodes.
 The differential cases script ``tests/test_scheduler.py``'s scenarios (gang
 all-or-nothing across nodes, a partial gang holding its reservation, two
 gangs contending for one pair of nodes, priority preemption, equal
-priority, quota admission, backoff, drain-grace preemption) cycle by cycle
+priority, quota admission, backoff, drain-grace preemption, the elastic
+driver's organic drain of a trial gang by a notebook gang) cycle by cycle
 through each package's ``SchedulerReconciler.reconcile`` over its own
 in-process Store: nodes from the same ``(name, cards)`` tuples in each
 package's own form (JAX ``make_tpu_node``'s ``google.com/tpu``, the port's
@@ -218,6 +219,25 @@ SCENARIOS = {
         ("reconcile", "urgent-0"),
         ("ack", "train-0"), ("reconcile", "urgent-0"),
         ("ack", "train-1"), ("reconcile", "urgent-0"), ("reconcile", "urgent-0"),
+    ],
+    # the elastic driver's organic preemption: a drain-graced trial gang on
+    # both hosts, a notebook gang that needs them, the acks one by one, the
+    # eviction, and the trial's degraded re-request landing on the spare
+    "organic_drain": nodes(4, 4, 4) + [
+        ("pod", "trial-0", dict(chips=4, gang="tr", size=2, priority_class="trial", grace=20)),
+        ("pod", "trial-1", dict(chips=4, gang="tr", size=2, priority_class="trial", grace=20)),
+        ("reconcile", "trial-0"),
+        ("pod", "spare", dict(chips=4, gang="sp", size=1, priority_class="trial")),
+        ("reconcile", "spare"),
+        ("pod", "nb-0", dict(chips=4, gang="nb", size=2, priority_class="notebook")),
+        ("pod", "nb-1", dict(chips=4, gang="nb", size=2, priority_class="notebook")),
+        ("reconcile", "nb-0"), ("reconcile", "nb-0"),
+        ("ack", "trial-0"), ("reconcile", "nb-0"),
+        ("ack", "trial-1"), ("reconcile", "nb-0"), ("reconcile", "nb-1"),
+        ("finish", "spare"),
+        ("pod", "trial2-0", dict(chips=4, gang="tr2", size=1, priority_class="trial",
+                                 grace=20)),
+        ("reconcile", "trial2-0"),
     ],
 }
 

@@ -274,7 +274,9 @@ def test_port_imports_no_jax():
             "kubeflow_tpu_torch.e2e.elastic_driver", "kubeflow_tpu_torch.e2e.goodput_driver",
             "kubeflow_tpu_torch.e2e.straggler_driver", "kubeflow_tpu_torch.entry",
             "kubeflow_tpu_torch.bench", "kubeflow_tpu_torch.hpo.suggest",
-            "kubeflow_tpu_torch.hpo.earlystop", "kubeflow_tpu_torch.hpo.study"} <= set(mods)
+            "kubeflow_tpu_torch.hpo.earlystop", "kubeflow_tpu_torch.hpo.study",
+            "kubeflow_tpu_torch.runtime.chaos", "kubeflow_tpu_torch.e2e.control_plane_driver",
+            "kubeflow_tpu_torch.e2e.controlplane_scale_driver"} <= set(mods)
 
 
 def test_params_are_seeded():

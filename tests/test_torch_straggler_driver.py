@@ -29,6 +29,6 @@ def test_drained_around_the_quarantined_node_with_loss_parity(summary):
     incs = summary["incarnations"]
     assert [i["outcome"] for i in incs] == ["preempted", "completed"]
     assert incs[1]["startStep"] == incs[0]["endStep"] + 1
-    assert summary["quarantined_node"].startswith("tpu-node-")
+    assert summary["quarantined_node"].startswith("gpu-node-")
     assert abs(summary["final_loss"] - summary["reference_final_loss"]) <= driver.LOSS_PARITY_TOL
     assert summary["max_step_loss_delta"] <= driver.LOSS_PARITY_TOL

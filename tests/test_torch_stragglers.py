@@ -8,7 +8,9 @@ its own), the snapshots and the ``training_*`` series are equal — skew
 k-of-n, transient skew, a single-worker gang never flagged, restart and
 counter-reset awareness, hangs. Remediation runs against the JAX
 package's in-process apiserver client; ``RegistrySource`` reads the
-port's own registry, fed by real beacons.
+port's own registry, fed by real beacons. A hang verdict attaches to the
+trace of the pod's bind-traceparent annotation as JAX's does, each
+detector on its own package's store.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from kubeflow_tpu.runtime.metrics import MetricsRegistry as JRegistry
 from kubeflow_tpu_torch.monitoring.stragglers import RegistrySource, StragglerDetector
 from kubeflow_tpu_torch.runtime.metrics import MetricsRegistry as TRegistry
 from kubeflow_tpu_torch.scheduler.gang import (DRAIN_DEADLINE_ANNOTATION, POD_GROUP_LABEL,
+                                               POD_GROUP_SIZE_ANNOTATION as POD_GROUP_SIZE,
                                                QUARANTINE_ANNOTATION, annotations_of,
                                                is_quarantined)
 from kubeflow_tpu_torch.training.heartbeat import WorkerBeacon, clear_beacons
@@ -211,3 +214,65 @@ def test_registry_source_reads_real_beacons():
     assert sorted((labels["worker"], v) for labels, _ts, v in rows) == [
         ("a", 2.0), ("b", 2.0), ("c", 2.0)]
     clear_beacons()
+
+
+class _Verdicts:
+    """A trace collector's ``attach_verdict``, recorded."""
+
+    def __init__(self):
+        self.attached = []
+
+    def attach_verdict(self, trace_id, verdict):
+        self.attached.append((trace_id, _strip(verdict)))
+
+
+TRACEPARENTS = {
+    "bound": "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01",
+    "malformed": "00-not-a-trace-01",
+    "unstamped": None,
+    "no_collector": "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01",
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRACEPARENTS))
+def test_attach_trace_verdict_equals_jax(case):
+    """A hang verdict rides the trace named by the hung pod's
+    bind-traceparent annotation, on JAX's detector over JAX's store and
+    the port's over the port's: the same trace id and verdict, and nothing
+    when the annotation is absent or malformed or no collector is given."""
+    from kubeflow_tpu.apiserver.client import Client as JClient
+    from kubeflow_tpu.apiserver.store import Store as JStore
+    from kubeflow_tpu.runtime.tracing import BIND_TRACEPARENT_ANNOTATION as J_BIND
+    from kubeflow_tpu_torch.api.meta import new_object as t_new_object
+    from kubeflow_tpu_torch.apiserver.client import Client as TClient
+    from kubeflow_tpu_torch.apiserver.store import Store as TStore
+    from kubeflow_tpu_torch.runtime.tracing import BIND_TRACEPARENT_ANNOTATION
+
+    assert J_BIND == BIND_TRACEPARENT_ANNOTATION
+    runs = []
+    for make_object, client, detector, registry in (
+            (new_object, JClient(JStore()), JDetector, JRegistry()),
+            (t_new_object, TClient(TStore()), StragglerDetector, TRegistry())):
+        annotations = {POD_GROUP_SIZE: "1"}
+        if TRACEPARENTS[case] is not None:
+            annotations[BIND_TRACEPARENT_ANNOTATION] = TRACEPARENTS[case]
+        client.create(make_object("v1", "Pod", "w0", "default", labels={POD_GROUP_LABEL: "g"},
+                                  annotations=annotations, spec={"nodeName": "node-a"},
+                                  status={"phase": "Running"}))
+        traces = None if case == "no_collector" else _Verdicts()
+        det = detector(Source(), client=client, registry=registry, hang_deadline_s=2.0,
+                       traces=traces)
+        det.tsdb.feed("w0", 10.0, wall=0.1, step=3)
+        det.tick(10.0)
+        verdicts = det.tick(17.0)
+        assert len(verdicts) == 1 and verdicts[0]["gang"] == "g"
+        runs.append(None if traces is None else traces.attached)
+    assert runs[1] == runs[0]
+    want = {"bound": 1, "malformed": 0, "unstamped": 0}
+    if case == "no_collector":
+        assert runs[1] is None
+    else:
+        assert len(runs[1]) == want[case]
+        if runs[1]:
+            assert runs[1][0][0] == "4bf92f3577b34da6a3ce929d0e0e4736"
+            assert runs[1][0][1]["kind"] == "hang" and runs[1][0][1]["worker"] == "w0"

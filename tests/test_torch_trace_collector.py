@@ -16,7 +16,8 @@ from kubeflow_tpu.apiserver.client import Client as JClient
 from kubeflow_tpu.apiserver.store import Store as JStore
 from kubeflow_tpu.monitoring import traces as jtraces
 from kubeflow_tpu.runtime.metrics import METRICS as J_METRICS
-from kubeflow_tpu_torch.e2e.elastic_cluster import PodClient
+from kubeflow_tpu_torch.apiserver.client import Client as TClient
+from kubeflow_tpu_torch.apiserver.store import Store as TStore
 from kubeflow_tpu_torch.monitoring import scrape as tscrape
 from kubeflow_tpu_torch.monitoring import traces as ttraces
 from kubeflow_tpu_torch.runtime.metrics import METRICS as T_METRICS
@@ -174,7 +175,7 @@ def test_collects_a_port_process_over_http_as_jax():
             tscrape.SCRAPE_ANNOTATION: "true", tscrape.SCRAPE_URL_ANNOTATION: url}}}
     try:
         out = []
-        for mod, client in ((jtraces, JClient(JStore())), (ttraces, PodClient())):
+        for mod, client in ((jtraces, JClient(JStore())), (ttraces, TClient(TStore()))):
             client.create(pod)
             c = mod.TraceCollector(client=client)
             (target,) = c.discover()

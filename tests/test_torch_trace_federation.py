@@ -3,7 +3,9 @@
 ``e2e/trace_federation_driver`` on the CPU.
 
 - The driver at GPT-tiny passes JAX's five checks over three processes and
-  returns JAX's report keys plus ``seconds`` and ``setup_s``.
+  returns JAX's report keys plus ``seconds`` and ``setup_s``, also with
+  slower gang binds of an earlier in-process scheduler in this process's
+  tracer.
 - With weights converted from JAX's GPT-tiny (``models/convert.py``, f32 on
   both sides), the driver's predict answers JAX's predictions for the same
   prompt, token for token.
@@ -116,6 +118,17 @@ def test_driver_passes_and_answers_jax_predictions():
         return out
 
     model.predict = recording
+    # slower binds an earlier in-process scheduler left in this process's
+    # tracer (chip_smoke.py runs 23a's and 24a's before 25a): the driver's
+    # own gang must still lead the federated slowest binds and survive the
+    # tail sampling
+    for i in range(24):
+        root = TRACER.start_span("gang.lifecycle", gang=f"default/earlier-{i}", size=1)
+        root.set("gang.bind_latency_s", 5.0 + i)
+        root.set("gang.bound", True)
+        for step in ("schedule", "schedule.bind"):
+            TRACER.end_span(TRACER.start_span(step, parent=root))
+        TRACER.end_span(root)
     try:
         report = driver.run(device="cpu", model=model)
         (instances, got), = answers  # the traced predict (the expired ones never answer)
